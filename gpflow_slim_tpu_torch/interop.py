@@ -1,0 +1,38 @@
+"""Weights from the JAX package into the port.
+
+``load_unconstrained(model, arrays)`` takes the unconstrained values of a
+``gpflow_slim_tpu`` model as ``{dotted_name: np.ndarray}``, the names that
+``gpflow_slim_tpu.params.parameters`` gives, and copies them into the
+port's Params. The caller builds the dict; this package never imports JAX::
+
+    arrays = {n: np.asarray(p.unconstrained)
+              for n, p in gpflow_slim_tpu.params.parameters(jax_model)}
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .params import parameters
+
+
+def load_unconstrained(model, arrays: dict[str, np.ndarray]):
+    """Copy ``arrays`` into ``model``'s Params; raise on any name or shape
+    mismatch (before anything is copied). Returns ``model``."""
+    params = dict(parameters(model))
+    missing = sorted(set(params) - set(arrays))
+    extra = sorted(set(arrays) - set(params))
+    if missing or extra:
+        raise KeyError(f"parameter names differ: missing {missing}, unexpected {extra}")
+    for name, p in params.items():
+        shape = tuple(np.shape(arrays[name]))
+        if shape != tuple(p.unconstrained.shape):
+            raise ValueError(
+                f"{name}: shape {shape} does not match the port's {tuple(p.unconstrained.shape)}"
+            )
+    with torch.no_grad():
+        for name, p in params.items():
+            u = p.unconstrained
+            u.copy_(torch.tensor(np.asarray(arrays[name]), dtype=u.dtype, device=u.device))
+    return model

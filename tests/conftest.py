@@ -35,6 +35,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu: compiled-on-TPU test (GFS_TEST_TPU=1 + real chip)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (gpflow_slim_tpu_torch kernels); skips without one"
+    )
 
 
 def pytest_collection_modifyitems(config, items):

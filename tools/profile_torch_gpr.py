@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Where the time goes in the port's exact-GPR objective on one NVIDIA GPU.
+
+    python3 tools/profile_torch_gpr.py
+
+On chip_smoke.py's data and model (N=10000, D=1, RBF lengthscale 0.1,
+float32) it runs GPR.objective() and objective+gradient on the kernel
+route and on the use_kernels=False route, and prints for each:
+
+- the wall time per evaluation (median of 5, CUDA events);
+- the device busy time per evaluation: the union of the intervals of all
+  device activity (kernels, memcpy, memset) that torch.profiler records
+  over 3 evaluations;
+- the device idle share, 1 - busy / wall, and within the device span;
+- the ten device activities with the most time, per evaluation.
+
+The card's name and power limit come first. Needs a CUDA device.
+"""
+
+import os
+import statistics
+import sys
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import gpflow_slim_tpu_torch as gft  # noqa: E402
+from chip_smoke import LENGTHSCALE, bench_data, card_line  # noqa: E402
+
+ITERS = 3   # profiled evaluations
+WALLS = 5   # event-timed evaluations
+
+
+def busy_ms(events):
+    """Length of the union of the events' intervals, in ms."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def report(label, fn):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(WALLS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(start.elapsed_time(end))
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    # "Command Buffer Full" marks host launches that waited on a full
+    # queue; it is not device work
+    dev = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name]
+    if not dev:
+        raise RuntimeError(f"{label}: the profiler recorded no device activity")
+    busy = busy_ms(dev) / ITERS
+    span = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3 / ITERS
+    print(f"=== {label}: wall {wall:.3f} ms (median of {WALLS}, events), device busy "
+          f"{busy:.3f} ms/iter over a {span:.3f} ms/iter device span; idle share vs event wall "
+          f"{1 - busy / wall:.4f}, within span {1 - busy / span:.4f}; "
+          f"{len(dev) // ITERS} device activities/iter")
+    by = {}
+    for e in dev:
+        t = by.setdefault(e.name[:100], [0.0, 0])
+        t[0] += (e.time_range.end - e.time_range.start) / 1e3
+        t[1] += 1
+    for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"{t / ITERS:9.3f} ms/iter  n={n // ITERS:5d}  {name}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("profile_torch_gpr: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    X, Y = bench_data()
+    model = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE),
+                           device="cuda", dtype=torch.float32)
+
+    def objective():
+        with torch.no_grad():
+            model.objective()
+
+    def objective_grad():
+        model.zero_grad(set_to_none=True)
+        model.objective().backward()
+
+    print(card_line())
+    for flag in (True, False):
+        with gft.config.temp_settings(use_kernels=flag):
+            report(f"use_kernels={flag} objective", objective)
+            report(f"use_kernels={flag} objective+grad", objective_grad)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
