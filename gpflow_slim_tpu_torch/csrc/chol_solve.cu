@@ -1,8 +1,13 @@
-// Fused Cholesky factor, forward solve and log-determinant of exact GPR:
-// K = L L^T in place, alpha = L^-1 D, half_logdet = sum log diag L.
+// Blocked Cholesky factor in place, K = L L^T, in two modes:
+//  * fused (gfs_chol_solve_logdet): with the forward solve alpha = L^-1 D
+//    and half_logdet = sum log diag L, for the exact-GPR objective;
+//  * factor only (gfs_cholesky): no right-hand side (P = 0, alpha null)
+//    and no logdet, for the posterior's factor. The same launches run,
+//    with their right-hand-side and logdet work switched off.
 //
-// Replaces the TPU kernel gpflow_slim_tpu/ops/pallas_cholesky.py
-// `_make_chol_kernel(fuse_p=P)` (launched by `_cholesky_solve_pallas`).
+// Replaces the TPU kernels gpflow_slim_tpu/ops/pallas_cholesky.py
+// `_make_chol_kernel(fuse_p=P)` (launched by `_cholesky_solve_pallas`) and
+// `_make_chol_kernel(fuse_p=None)` (launched by `_cholesky_pallas`).
 //
 // Right-looking blocked Cholesky with 64 x 64 blocks (one f32 block is 16 KB
 // of shared memory; the TPU's 512 blocks were a VMEM choice). Each panel k
@@ -37,8 +42,10 @@
 // N = 512..4096). A non-positive pivot gives NaN (sqrt of a negative) and
 // never traps, as the TPU and XLA paths do.
 //
-// Operand contract (ops/gram.py): K is the padded operand, Np a multiple of
-// 64, with a unit-diagonal pad extension; only its lower triangle is read,
+// Operand contract (ops/gram.py's operand for the fused mode, the padding of
+// ops/cholesky.py `cholesky` for the factor-only mode): K is the padded
+// operand, Np a multiple of 64, with a unit-diagonal pad extension; only
+// its lower triangle is read,
 // and strictly-upper entries outside the diagonal blocks are never touched.
 // Pad rows have zero off-diagonal entries and zero right-hand sides, so
 // their alpha rows stay exactly 0 and their logdet terms are log 1 = 0.
@@ -122,13 +129,15 @@ __global__ void chol_diag_kernel(float* __restrict__ K, int Np, int k, float* __
   for (int e = tid; e < kBs * pc0; e += kThreads) {
     alk[(e / pc0) * P + e % pc0] = static_cast<float>(al[e % pc0][e / pc0]);
   }
-  if (tid < kBs) red[tid] = log(a[tid][tid]);
-  __syncthreads();
-  for (int s = kBs / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
+  if (partials != nullptr) {  // uniform over the block: the barriers are safe
+    if (tid < kBs) red[tid] = log(a[tid][tid]);
     __syncthreads();
+    for (int s = kBs / 2; s > 0; s >>= 1) {
+      if (tid < s) red[tid] += red[tid + s];
+      __syncthreads();
+    }
+    if (tid == 0) partials[k] = red[0];
   }
-  if (tid == 0) partials[k] = red[0];
 
   // columns beyond the first chunk: the same substitution, against the
   // finished L_kk (column j of `a` is final once step j is done)
@@ -278,19 +287,10 @@ __global__ void logdet_sum_kernel(const double* __restrict__ partials, int nb,
   half_logdet[0] = static_cast<float>(s);
 }
 
-}  // namespace
-
-// work: Np / 64 + Np doubles of scratch (the per-panel logdet partials,
-// then the f64 pivots).
-extern "C" int gfs_chol_solve_logdet(float* K, int Np, float* alpha, int P, double* work,
-                                     float* half_logdet, void* stream) {
-  if (Np <= 0 || Np % kBs != 0 || P < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The launches of one factorization on stream s. P = 0 (alpha null) skips
+// the solve; partials null skips the logdet.
+int factor(float* K, int Np, float* alpha, int P, double* dpiv, double* partials, cudaStream_t s) {
   const int nb = Np / kBs;
-  double* partials = work;
-  double* dpiv = work + nb;
   pivot_init_kernel<<<(Np + kThreads - 1) / kThreads, kThreads, 0, s>>>(K, Np, dpiv);
   for (int k = 0; k < nb; ++k) {
     chol_diag_kernel<<<1, kThreads, 0, s>>>(K, Np, k, alpha, P, dpiv, partials);
@@ -303,6 +303,28 @@ extern "C" int gfs_chol_solve_logdet(float* K, int Np, float* alpha, int P, doub
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  logdet_sum_kernel<<<1, 1, 0, s>>>(partials, nb, half_logdet);
+  return static_cast<int>(cudaSuccess);
+}
+
+}  // namespace
+
+// work: Np / 64 + Np doubles of scratch (the per-panel logdet partials,
+// then the f64 pivots).
+extern "C" int gfs_chol_solve_logdet(float* K, int Np, float* alpha, int P, double* work,
+                                     float* half_logdet, void* stream) {
+  if (Np <= 0 || Np % kBs != 0 || P < 1 || alpha == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nb = Np / kBs;
+  const int err = factor(K, Np, alpha, P, work + nb, work, s);
+  if (err != 0) return err;
+  logdet_sum_kernel<<<1, 1, 0, s>>>(work, nb, half_logdet);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Factor only. work: Np doubles of scratch (the f64 pivots).
+extern "C" int gfs_cholesky(float* K, int Np, double* work, void* stream) {
+  if (Np <= 0 || Np % kBs != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return factor(K, Np, nullptr, 0, work, nullptr, static_cast<cudaStream_t>(stream));
 }

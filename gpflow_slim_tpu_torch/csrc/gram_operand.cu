@@ -16,8 +16,7 @@
 //  * d^2 = sum_d (x_id - x_jd)^2 is formed directly. For D = 1 this is the
 //    TPU kernel's own exact branch; for D > 1 it is the same function as the
 //    TPU's ||x||^2 - 2 x.y + ||y||^2 expansion, without its cancellation.
-// The map by kind follows `_apply_map` (GPflow-1.x constants: exponential
-// is var * exp(-r / 2), and r = sqrt(d^2 + 1e-12)).
+// The map by kind is `gfs::apply_map` (common.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -29,30 +28,6 @@ namespace {
 constexpr int kTile = 32;
 constexpr int kRowsPerThread = 4;
 constexpr int kRowStep = kTile / kRowsPerThread;  // block is kTile x kRowStep
-
-// Kind ids; ops/gram.py holds the same table.
-enum Kind { kRbf = 0, kMatern12 = 1, kMatern32 = 2, kMatern52 = 3, kExponential = 4, kCosine = 5 };
-
-__device__ __forceinline__ float apply_map(int kind, float var, float d2) {
-  if (kind == kRbf) return var * expf(-0.5f * d2);
-  const float r = sqrtf(d2 + 1e-12f);
-  switch (kind) {
-    case kMatern12:
-      return var * expf(-r);
-    case kMatern32: {
-      const float s3 = 1.7320508075688772f;
-      return var * (1.0f + s3 * r) * expf(-s3 * r);
-    }
-    case kMatern52: {
-      const float s5 = 2.2360679774997896f;
-      return var * (1.0f + s5 * r + (5.0f / 3.0f) * d2) * expf(-s5 * r);
-    }
-    case kExponential:
-      return var * expf(-0.5f * r);
-    default:  // kCosine
-      return var * cosf(r);
-  }
-}
 
 __global__ void gram_chol_operand_kernel(const float* __restrict__ X, int N, int D,
                                          const float* __restrict__ scal, int kind,
@@ -68,12 +43,8 @@ __global__ void gram_chol_operand_kernel(const float* __restrict__ X, int N, int
     if (row >= pad_to) break;
     float v;
     if (row < N && col < N) {
-      float d2 = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        const float diff = X[static_cast<size_t>(row) * D + d] - X[static_cast<size_t>(col) * D + d];
-        d2 = fmaf(diff, diff, d2);
-      }
-      v = apply_map(kind, var, d2);
+      const float d2 = gfs::sq_dist(X + static_cast<size_t>(row) * D, X + static_cast<size_t>(col) * D, D);
+      v = gfs::apply_map(kind, var, d2);
       if (row == col) v += noise;
     } else {
       v = (row == col) ? 1.0f : 0.0f;
@@ -86,7 +57,7 @@ __global__ void gram_chol_operand_kernel(const float* __restrict__ X, int N, int
 
 extern "C" int gfs_gram_chol_operand(const float* X, int N, int D, const float* scal, int kind,
                                      int pad_to, float* out, void* stream) {
-  if (N < 0 || D < 1 || pad_to < N || kind < kRbf || kind > kCosine) {
+  if (N < 0 || D < 1 || pad_to < N || kind < gfs::kRbf || kind > gfs::kCosine) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long nbt = (pad_to + kTile - 1) / kTile;

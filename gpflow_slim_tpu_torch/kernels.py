@@ -1,10 +1,13 @@
 """Covariance kernels (counterpart of ``gpflow_slim_tpu.kernels``).
 
-Each kernel is a ``Module`` whose hyperparameters are ``Param``s. This
-slice ports the stationary kernels with a fused map (RBF, the Matérns,
-Exponential, Cosine): their ``K`` is the plain composite of ``ops.gram``,
-and ``gram_chol_operand`` feeds the exact-GPR kernel route. The cross-Gram
-kernel, the other kernels and the combination algebra come later.
+Each kernel is a ``Module`` whose hyperparameters are ``Param``s. The
+stationary kernels with a fused map (RBF, the Matérns, Exponential,
+Cosine) are ported: where ``ops.linalg.kernels_active`` routes their
+inputs to the hand-written kernels, ``K`` is the cross-Gram kernel,
+``K_lower`` the lower-tile Gram kernel and ``gram_chol_operand`` the
+one-pass operand of the exact-GPR objective; elsewhere ``K`` is the plain
+composite of ``ops.gram``. The other kernels and the combination algebra
+come later.
 
 Parity conventions: RBF is ``var * exp(-d^2 / 2)`` with lengthscale-scaled
 distances (ARD supported); Exponential keeps the GPflow-1.x
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from .ops import gram as _gram
+from .ops import linalg as _linalg
 from .params import Module, Param
 from .transforms import positive
 
@@ -60,6 +64,12 @@ class Kernel(Module):
 
     def K(self, X, X2=None, presliced=False):
         raise NotImplementedError
+
+    def K_lower(self, X, presliced=False):
+        """K(X, X) for consumers that read only its lower triangle (the
+        Cholesky): entries with row >= col equal ``K(X)``, the others are
+        unspecified. The default is the full Gram."""
+        return self.K(X, presliced=presliced)
 
     def Kdiag(self, X, presliced=False):
         raise NotImplementedError
@@ -107,7 +117,20 @@ class Stationary(Kernel):
         var = torch.squeeze(self.variance.value)
         Xs = self._scaled(X)
         X2s = Xs if X2 is None else self._scaled(X2)
+        if _linalg.kernels_active(Xs):
+            return _gram.stationary_gram(self._gram_kind, Xs, X2s, var)
         return _gram.gram_reference(self._gram_kind, Xs, X2s, var)
+
+    def K_lower(self, X, presliced=False):
+        """Lower-tile K(X, X): on the kernel route the lower-tile Gram kernel,
+        which skips the map on the strictly-upper tiles and writes them as
+        zero; elsewhere the full ``K``."""
+        if self._gram_kind is None or not _linalg.kernels_active(X):
+            return self.K(X, presliced=presliced)
+        if not presliced:
+            X, _ = self._slice(X, None)
+        var = torch.squeeze(self.variance.value)
+        return _gram.stationary_gram_lower(self._gram_kind, self._scaled(X), var)
 
     def gram_chol_operand(self, X, noise, pad_to, presliced=False):
         """One-pass (pad_to, pad_to) Cholesky operand ``K(X, X) + noise * I``

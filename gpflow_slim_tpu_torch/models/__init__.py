@@ -1,4 +1,5 @@
 from .gpr import GPR
 from .model import GPModel, Model
+from .posterior import GPRPosterior
 
-__all__ = ["Model", "GPModel", "GPR"]
+__all__ = ["Model", "GPModel", "GPR", "GPRPosterior"]

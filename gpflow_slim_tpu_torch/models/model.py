@@ -7,8 +7,11 @@ convention of the reference. A training step is plain PyTorch::
     loss.backward()
 
 ``GPModel`` holds the data ``X`` and ``Y`` as buffers and moves itself,
-data and parameters, to one explicit device and dtype. The predictive API
-comes with slice 2.
+data and parameters, to one explicit device and dtype. It adds the
+predictive API: ``predict_f`` (-> ``build_predict``), ``predict_f_full_cov``,
+``predict_f_samples``, ``predict_y`` and ``predict_density``, routed through
+the likelihood as the reference does. ``full_cov=True`` predictions have
+shape (P, N, N).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import config
 from ..mean_functions import Zero
 from ..params import Module
 
@@ -29,6 +33,11 @@ def _data_dtype(X) -> torch.dtype:
     if isinstance(X, np.ndarray):
         return _FLOAT_DTYPES.get(X.dtype, torch.float64)
     return torch.float64
+
+
+def as_tensor_like(A, like):
+    """``A`` (array or tensor) as a tensor of ``like``'s dtype and device."""
+    return torch.as_tensor(A, dtype=like.dtype, device=like.device)
 
 
 class Model(Module):
@@ -46,6 +55,13 @@ class Model(Module):
     def log_posterior(self):
         """build_likelihood + log_prior (for MCMC); = -objective."""
         return self.build_likelihood() + self.log_prior()
+
+    # reference-API aliases (GPflow-1.x `compute_*` autoflow names)
+    def compute_log_likelihood(self):
+        return self.build_likelihood()
+
+    def compute_log_prior(self):
+        return self.log_prior()
 
 
 class GPModel(Model):
@@ -76,3 +92,40 @@ class GPModel(Model):
         self.mean_function = mean_function if mean_function is not None else Zero()
         self.num_latent = int(num_latent if num_latent is not None else Y.shape[1])
         self.to(device=X.device, dtype=dtype)
+
+    # -- to be provided by concrete models ---------------------------------
+    def build_predict(self, Xnew, full_cov=False):
+        raise NotImplementedError
+
+    # -- public predictive API (reference names) ---------------------------
+    def predict_f(self, Xnew):
+        """Mean and variance of the latent f at Xnew: (N*, P), (N*, P)."""
+        return self.build_predict(Xnew, full_cov=False)
+
+    def predict_f_full_cov(self, Xnew):
+        """Mean (N*, P) and full covariance (P, N*, N*) of latent f."""
+        return self.build_predict(Xnew, full_cov=True)
+
+    def predict_f_samples(self, Xnew, num_samples, generator=None):
+        """Joint samples of f at Xnew: (num_samples, N*, P). ``generator``
+        (a ``torch.Generator`` on the model's device) takes the place of the
+        JAX key."""
+        mu, var = self.build_predict(Xnew, full_cov=True)  # (N, P), (P, N, N)
+        N = mu.shape[0]
+        eye = config.default_jitter(mu.dtype) * torch.eye(N, dtype=mu.dtype, device=mu.device)
+        L = torch.linalg.cholesky(var + eye)
+        V = torch.randn((self.num_latent, N, num_samples), generator=generator, dtype=mu.dtype,
+                        device=mu.device)
+        samples = mu.T[:, :, None] + L @ V  # (P, N, S)
+        return samples.permute(2, 1, 0)  # (S, N, P)
+
+    def predict_y(self, Xnew):
+        """Mean and variance of observations y at Xnew."""
+        pred_f_mean, pred_f_var = self.build_predict(Xnew, full_cov=False)
+        return self.likelihood.predict_mean_and_var(pred_f_mean, pred_f_var)
+
+    def predict_density(self, Xnew, Ynew):
+        """Log predictive density of Ynew at Xnew."""
+        pred_f_mean, pred_f_var = self.build_predict(Xnew, full_cov=False)
+        return self.likelihood.predict_density(pred_f_mean, pred_f_var,
+                                                  as_tensor_like(Ynew, self.X))

@@ -1,3 +1,3 @@
-from . import cholesky, gram, linalg
+from . import cholesky, gram, linalg, trsm
 
-__all__ = ["cholesky", "gram", "linalg"]
+__all__ = ["cholesky", "gram", "linalg", "trsm"]

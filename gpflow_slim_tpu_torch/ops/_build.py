@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-``load_library()`` compiles every ``csrc/*.cu`` of the package with nvcc
-into one shared library with a plain C interface, on first use, and loads
-it with ctypes. The output goes to ``build/kernels/`` beside the package
+``load_library()`` compiles every ``csrc/*.cu`` of the package with nvcc,
+one nvcc per source, all started together, links the objects into one
+shared library with a plain C interface, on first use, and loads it with
+ctypes. The output goes to ``build/kernels/`` beside the package
 (listed in ``.gitignore``) and is keyed by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one loads at once. A missing
 nvcc or a failed build raises with the compiler's output.
@@ -26,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers, shared memory and spills, into the build log
 )
 
@@ -37,6 +38,14 @@ _ENTRIES = {
     "gfs_gram_chol_operand": (_P, _I, _I, _P, _I, _I, _P, _P),
     # K, Np, alpha, P, work, half_logdet, stream
     "gfs_chol_solve_logdet": (_P, _I, _P, _I, _P, _P, _P),
+    # X, N, X2, M, D, var, kind, out, stream
+    "gfs_gram": (_P, _I, _P, _I, _I, _P, _I, _P, _P),
+    # X, N, D, var, kind, out, stream
+    "gfs_gram_lower": (_P, _I, _I, _P, _I, _P, _P),
+    # K, Np, work, stream
+    "gfs_cholesky": (_P, _I, _P, _P),
+    # L, N, ld, trans, lower, X, P, stream
+    "gfs_trsm": (_P, _I, _I, _I, _I, _P, _I, _P),
 }
 
 
@@ -73,21 +82,40 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources if their library is not built yet; return its path."""
+    """Compile the sources if their library is not built yet; return its path.
+
+    One nvcc per source, all running at once, then one link."""
     so = library_path()
     if so.exists():
         return so
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    so.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{log}")
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    tmp.mkdir(exist_ok=True)
+    try:
+        jobs = []
+        for src in _sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                               text=True)))
+        log, failed = [], []
+        for cmd, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(f"$ {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp / so.name), *map(str, sorted(tmp.glob("*.o")))]
+            proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+            log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            if proc.returncode != 0:
+                failed.append(proc.returncode)
+        so.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed with exit code {failed[0]}:\n{''.join(log)}")
+        os.replace(tmp / so.name, so)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return so
 
 

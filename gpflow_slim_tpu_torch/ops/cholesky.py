@@ -1,19 +1,25 @@
-"""Fused Cholesky factor, forward solve and log-determinant.
+"""Blocked Cholesky: the fused factor/solve/logdet, and the factor alone.
 
-Counterpart of the fused path of ``gpflow_slim_tpu/ops/pallas_cholesky.py``
-(``_cholesky_solve_pallas`` and ``cholesky_solve_logdet``). The Pallas
-kernel ``_make_chol_kernel(fuse_p=P)`` becomes the hand-written CUDA
-kernel in ``csrc/chol_solve.cu``; beside it stands its plain PyTorch
-version (``cholesky_solve_plain``).
+Counterpart of ``gpflow_slim_tpu/ops/pallas_cholesky.py``. Its Pallas
+kernel ``_make_chol_kernel`` becomes the hand-written CUDA kernel in
+``csrc/chol_solve.cu``, in its two modes, each with its plain PyTorch
+version beside it:
 
-Both factor ``Kp`` in place, as the TPU kernel aliases its input to its
-output: at N = 10000 that saves a 400 MB copy of the operand. The
-autograd wrapper declares the overwrite with ``ctx.mark_dirty``.
+- fused (``fuse_p=P``, ``cholesky_solve_logdet``): ``cholesky_solve_cuda``;
+  plain ``cholesky_solve_plain``;
+- factor only (``fuse_p=None``, ``cholesky``): ``cholesky_cuda``; plain
+  ``cholesky_plain``.
+
+The kernel factors the padded ``Kp`` in place, as the TPU kernel aliases
+its input to its output: at N = 10000 that saves a 400 MB copy. The fused
+autograd wrapper declares the overwrite with ``ctx.mark_dirty``; the
+factor-only one pads into a buffer of its own and factors that.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -24,6 +30,96 @@ def _nan_where_failed(L, info):
     # a failed factorization gives NaN, never an exception, as the kernel
     # and the TPU/XLA paths do
     return torch.where(info[..., None, None] > 0, torch.full_like(L, float("nan")), L)
+
+
+def cholesky_plain(K):
+    """Plain lower Cholesky factor: ``cholesky_ex``, NaN where it fails.
+    Reads only the lower triangle of ``K``."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return _nan_where_failed(L, info)
+
+
+def _check_square(name, Kp):
+    if not Kp.is_cuda or Kp.dtype != torch.float32 or Kp.dim() != 2 or not Kp.is_contiguous():
+        raise ValueError(
+            f"{name} takes a contiguous 2-D CUDA float32 Kp; got {Kp.dim()}-D {Kp.dtype} "
+            f"on {Kp.device}")
+    if Kp.shape[0] != Kp.shape[1] or Kp.shape[0] % BLOCK or Kp.shape[0] == 0:
+        raise ValueError(f"bad shape: Kp {tuple(Kp.shape)} (square, side a multiple of {BLOCK})")
+    if Kp.data_ptr() % 16:
+        raise ValueError("Kp must be 16-byte aligned (the kernel reads it as float4)")
+
+
+def cholesky_cuda(Kp):
+    """Launch the factor-only mode of ``csrc/chol_solve.cu`` on a CUDA
+    float32 ``Kp`` (Np, Np), Np a multiple of 64, factored in place: its
+    lower triangle becomes L, with the diagonal blocks' upper entries 0;
+    strictly-upper entries outside the diagonal blocks keep what they held.
+    Returns ``Kp``."""
+    _check_square("cholesky_cuda", Kp)
+    Np = Kp.shape[0]
+    work = torch.empty(Np, dtype=torch.float64, device=Kp.device)  # the f64 pivots
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(Kp.device).cuda_stream
+    code = lib.gfs_cholesky(Kp.data_ptr(), Np, work.data_ptr(), stream)
+    _build.check(lib, code, "cholesky")
+    cholesky_cuda.launches += 1
+    return Kp
+
+
+cholesky_cuda.launches = 0
+
+
+def _factor_padded(K):
+    """``tril(chol(K))`` through the padded in-place factorization: ``K``
+    is copied into a (Np, Np) buffer with a unit-diagonal extension (Np the
+    next multiple of 64), the buffer is factored in place, and the result
+    is the masked leading block, a view into the buffer (row stride Np)."""
+    N = K.shape[0]
+    Np = N + (-N) % BLOCK
+    Kp = F.pad(K, (0, Np - N, 0, Np - N))
+    Kp.diagonal()[N:] = 1.0
+    if Kp.device.type == "cpu":  # plain for CPU tensors; launch or raise otherwise
+        Kp.copy_(cholesky_plain(Kp))
+    else:
+        cholesky_cuda(Kp)
+    return Kp[:N, :N].tril_()
+
+
+def _chol_vjp(L, g):
+    # Murray (2016), as `_chol_vjp_bwd` of the JAX package: the full
+    # symmetric K-bar (a lower-only one doubles the off-diagonal gradient)
+    L = torch.tril(L)
+    Lbar = torch.tril(g)
+    P = L.mT @ Lbar
+    P = torch.tril(P) - 0.5 * torch.diag_embed(torch.diagonal(P))
+    X = torch.linalg.solve_triangular(L.mT, P + P.mT, upper=True)
+    S = torch.linalg.solve_triangular(L.mT, X.mT, upper=True)
+    return 0.25 * (S + S.mT)
+
+
+class _Cholesky(torch.autograd.Function):
+    """Forward: the padded factor-only Cholesky (kernel or plain). Backward:
+    ``_chol_vjp_bwd`` of the JAX package, in torch.linalg (the JAX package
+    also computes it with plain XLA ops, outside any kernel)."""
+
+    @staticmethod
+    def forward(ctx, K):
+        L = _factor_padded(K)
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, g):
+        (L,) = ctx.saved_tensors
+        return _chol_vjp(L, g)
+
+
+def cholesky(K):
+    """Differentiable lower Cholesky factor of ``K`` (N, N), the masked
+    ``tril(L)`` of ``pallas_cholesky.cholesky``. Only the lower triangle of
+    ``K`` is read; a failed factorization gives NaN."""
+    return _Cholesky.apply(K)
 
 
 def cholesky_solve_plain(Kp, Dp):
@@ -48,23 +144,17 @@ def cholesky_solve_cuda(Kp, Dp):
     keep whatever they held). ``Dp`` (Np, P), any P >= 1, is not modified.
     Returns ``(Kp, alpha, half_logdet)``.
     """
-    for name, t in (("Kp", Kp), ("Dp", Dp)):
-        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(
-                f"cholesky_solve_cuda takes contiguous 2-D CUDA float32 tensors; "
-                f"{name} is {t.dim()}-D {t.dtype} on {t.device}"
-            )
+    _check_square("cholesky_solve_cuda", Kp)
+    if not Dp.is_cuda or Dp.dtype != torch.float32 or Dp.dim() != 2 or not Dp.is_contiguous():
+        raise ValueError(
+            f"cholesky_solve_cuda takes a contiguous 2-D CUDA float32 Dp; got {Dp.dim()}-D "
+            f"{Dp.dtype} on {Dp.device}")
     Np = Kp.shape[0]
     P = Dp.shape[1]
-    if Kp.shape[1] != Np or Np % BLOCK or Dp.shape[0] != Np or P < 1:
-        raise ValueError(
-            f"bad shapes: Kp {tuple(Kp.shape)} (square, side a multiple of {BLOCK}), "
-            f"Dp {tuple(Dp.shape)} (Np rows, at least one column)"
-        )
+    if Dp.shape[0] != Np or P < 1:
+        raise ValueError(f"bad shape: Dp {tuple(Dp.shape)} (Np = {Np} rows, at least one column)")
     if Dp.device != Kp.device:
         raise ValueError(f"Kp on {Kp.device} but Dp on {Dp.device}")
-    if Kp.data_ptr() % 16:
-        raise ValueError("Kp must be 16-byte aligned (the kernel reads it as float4)")
     alpha = Dp.clone()
     # f64 scratch: per-panel logdet partials, then the f64 pivots
     work = torch.empty(Np // BLOCK + Np, dtype=torch.float64, device=Kp.device)

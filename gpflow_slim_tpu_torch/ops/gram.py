@@ -1,10 +1,15 @@
 """Gram matrices of stationary kernels, and the one-pass Cholesky operand.
 
-Counterpart of ``gpflow_slim_tpu/ops/pallas_gram.py``. The Pallas kernel
-``_gram_chol_operand_kernel`` becomes the hand-written CUDA kernel in
-``csrc/gram_operand.cu``; beside it stands its plain PyTorch version
-(``gram_chol_operand_plain``), which the CPU tests run and the card
-compares against.
+Counterpart of ``gpflow_slim_tpu/ops/pallas_gram.py``. Its Pallas kernels
+become hand-written CUDA kernels, each with its plain PyTorch version
+beside it, which the CPU tests run and the card compares against:
+
+- ``_gram_kernel`` (the cross Gram K(Xs, X2s)): ``gram_cuda`` in
+  ``csrc/gram.cu``; plain ``gram_reference``;
+- ``_gram_lower_kernel`` (the lower-tile Gram): ``gram_lower_cuda`` in
+  ``csrc/gram.cu``; plain ``gram_lower_plain``;
+- ``_gram_chol_operand_kernel``: ``gram_chol_operand_cuda`` in
+  ``csrc/gram_operand.cu``; plain ``gram_chol_operand_plain``.
 
 Maps (static ``kind``), with r = sqrt(d^2 + 1e-12):
   rbf:         var * exp(-d^2 / 2)
@@ -24,8 +29,9 @@ import torch
 from . import _build
 
 EUCLID_EPS = 1e-12
-# kind -> id of the ``Kind`` enum in csrc/gram_operand.cu
+# kind -> id of the ``Kind`` enum in csrc/common.cuh
 KINDS = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "exponential": 4, "cosine": 5}
+TILE = 32  # the output tile of csrc/gram.cu: the lower-tile Gram zeroes whole tiles
 
 
 def apply_map(kind, variance, d2):
@@ -62,6 +68,139 @@ def gram_reference(kind, Xs, X2s, variance):
     return apply_map(kind, variance, square_dist(Xs, X2s))
 
 
+def gram_lower_plain(kind, Xs, variance):
+    """Plain version of the lower-tile Gram: ``K(Xs, Xs)`` with every
+    strictly-upper ``TILE`` x ``TILE`` tile zeroed, as the kernel writes it."""
+    K = gram_reference(kind, Xs, Xs, variance)
+    t = torch.arange(Xs.shape[0], device=Xs.device) // TILE
+    return K.masked_fill(t[:, None] < t[None, :], 0.0)
+
+
+def _check_xs(name, *xs):
+    for x in xs:
+        if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2:
+            raise ValueError(
+                f"{name} takes 2-D CUDA float32 inputs; got {x.dim()}-D {x.dtype} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} needs contiguous inputs")
+        if x.shape[1] < 1:
+            raise ValueError(f"{name}: inputs need at least one column, got {tuple(x.shape)}")
+
+
+def _variance_on(variance, x):
+    return torch.as_tensor(variance, dtype=torch.float32, device=x.device).reshape(1)
+
+
+def gram_cuda(kind, Xs, X2s, variance):
+    """Launch the cross-Gram kernel of ``csrc/gram.cu`` on CUDA float32
+    tensors: returns the (N, M) ``K(Xs, X2s)``."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    _check_xs("gram_cuda", Xs, X2s)
+    (N, D), M = Xs.shape, X2s.shape[0]
+    if X2s.shape[1] != D or X2s.device != Xs.device:
+        raise ValueError(f"bad inputs: Xs {tuple(Xs.shape)} on {Xs.device}, "
+                         f"X2s {tuple(X2s.shape)} on {X2s.device}")
+    var = _variance_on(variance, Xs)
+    out = torch.empty((N, M), dtype=torch.float32, device=Xs.device)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(Xs.device).cuda_stream
+    code = lib.gfs_gram(Xs.data_ptr(), N, X2s.data_ptr(), M, D, var.data_ptr(), KINDS[kind],
+                        out.data_ptr(), stream)
+    _build.check(lib, code, "gram")
+    gram_cuda.launches += 1
+    return out
+
+
+gram_cuda.launches = 0
+
+
+def gram_lower_cuda(kind, Xs, variance):
+    """Launch the lower-tile Gram kernel of ``csrc/gram.cu`` on a CUDA
+    float32 tensor: the (N, N) ``K(Xs, Xs)`` on and below the diagonal
+    tiles, zero in the strictly-upper ``TILE`` x ``TILE`` tiles."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    _check_xs("gram_lower_cuda", Xs)
+    N, D = Xs.shape
+    var = _variance_on(variance, Xs)
+    out = torch.empty((N, N), dtype=torch.float32, device=Xs.device)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(Xs.device).cuda_stream
+    code = lib.gfs_gram_lower(Xs.data_ptr(), N, D, var.data_ptr(), KINDS[kind], out.data_ptr(),
+                              stream)
+    _build.check(lib, code, "gram_lower")
+    gram_lower_cuda.launches += 1
+    return out
+
+
+gram_lower_cuda.launches = 0
+
+
+def _gram_vjp(kind, g, Xs, X2s, variance):
+    # the VJP of the plain composite, by recomputation (`_bwd` and
+    # `_lower_bwd` of the JAX package)
+    with torch.enable_grad():
+        a = Xs.detach().requires_grad_()
+        b = a if X2s is None else X2s.detach().requires_grad_()
+        v = variance.detach().requires_grad_()
+        inputs = (a, v) if X2s is None else (a, b, v)
+        return torch.autograd.grad(gram_reference(kind, a, b, v), inputs, g)
+
+
+class _Gram(torch.autograd.Function):
+    """Forward: the cross Gram (kernel or plain). Backward: ``_bwd`` of the
+    JAX package, the VJP of the plain composite by recomputation."""
+
+    @staticmethod
+    def forward(ctx, kind, Xs, X2s, variance):
+        ctx.kind = kind
+        ctx.save_for_backward(Xs, X2s, variance)
+        if Xs.device.type == "cpu":  # plain for CPU tensors; launch or raise otherwise
+            return gram_reference(kind, Xs, X2s, variance)
+        return gram_cuda(kind, Xs, X2s, variance)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, *_gram_vjp(ctx.kind, g, *ctx.saved_tensors))
+
+
+class _GramLower(torch.autograd.Function):
+    """Forward: the lower-tile Gram (kernel or plain). Backward:
+    ``_lower_bwd`` of the JAX package, the full composite's VJP, exact for
+    consumers that read only the lower triangle. It saves its inputs, not
+    its output, so a caller may add to the output in place."""
+
+    @staticmethod
+    def forward(ctx, kind, Xs, variance):
+        ctx.kind = kind
+        ctx.save_for_backward(Xs, variance)
+        if Xs.device.type == "cpu":
+            return gram_lower_plain(kind, Xs, variance)
+        return gram_lower_cuda(kind, Xs, variance)
+
+    @staticmethod
+    def backward(ctx, g):
+        Xs, variance = ctx.saved_tensors
+        return (None, *_gram_vjp(ctx.kind, g, Xs, None, variance))
+
+
+def stationary_gram(kind, Xs, X2s, variance):
+    """Differentiable ``K(Xs, X2s)`` from pre-scaled inputs
+    (``Xs = X / lengthscales``; lengthscale gradients flow through that
+    scaling, outside this function)."""
+    variance = torch.as_tensor(variance, dtype=Xs.dtype, device=Xs.device)
+    return _Gram.apply(kind, Xs, X2s, variance)
+
+
+def stationary_gram_lower(kind, Xs, variance):
+    """Differentiable lower-tile ``K(Xs, Xs)``: equal to the Gram on and
+    below the diagonal, zero in the strictly-upper tiles. For consumers
+    that read only the lower triangle (``ops.linalg.cholesky``)."""
+    variance = torch.as_tensor(variance, dtype=Xs.dtype, device=Xs.device)
+    return _GramLower.apply(kind, Xs, variance)
+
+
 def gram_chol_operand_plain(kind, Xs, variance, noise, pad_to):
     """Plain version of the operand kernel: the full ``K + noise * I`` in
     the leading block, the unit diagonal in the pad extension. It writes
@@ -83,15 +222,9 @@ def gram_chol_operand_cuda(kind, Xs, variance, noise, pad_to):
     """
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
-    if not Xs.is_cuda or Xs.dtype != torch.float32 or Xs.dim() != 2:
-        raise ValueError(
-            f"gram_chol_operand_cuda takes a 2-D CUDA float32 Xs; got "
-            f"{Xs.dim()}-D {Xs.dtype} on {Xs.device}"
-        )
-    if not Xs.is_contiguous():
-        raise ValueError("gram_chol_operand_cuda needs a contiguous Xs")
+    _check_xs("gram_chol_operand_cuda", Xs)
     N, D = Xs.shape
-    if D < 1 or pad_to < N:
+    if pad_to < N:
         raise ValueError(f"bad shapes: Xs {tuple(Xs.shape)}, pad_to {pad_to}")
     scal = torch.stack([
         torch.as_tensor(variance, dtype=torch.float32, device=Xs.device).reshape(()),

@@ -1,15 +1,18 @@
-"""Routed dense linear algebra of the exact-GPR objective.
+"""Routed dense linear algebra of exact GPR: its objective and its
+predictions.
 
-Counterpart of ``gpr_chol_terms`` and ``chol_logdet_quad`` in
+Counterpart of ``gpr_chol_terms``, ``chol_logdet_quad``, ``cholesky``,
+``solve_lower``, ``solve_upper`` and ``cho_solve_lower`` in
 ``gpflow_slim_tpu/ops/linalg.py``, with the same dispatch shape. The route
 is decided here and nowhere else, by ``kernels_active``: for a CUDA
 float32 tensor with ``config.settings().use_kernels`` on, it is the
-hand-written kernels at every N and every width of ``Y``: the one-pass
-operand (``ops.gram``) feeding the fused factor/solve/logdet
-(``ops.cholesky``). Otherwise it is the plain PyTorch composite
-(``torch.linalg``), with autograd's own gradients; with
-``use_kernels=False`` on CUDA this is the explicit on/off pair, not a
-fallback.
+hand-written kernels at every N and every right-hand-side width: the
+one-pass operand (``ops.gram``) feeding the fused factor/solve/logdet
+(``ops.cholesky``) for the objective, the factor-only Cholesky
+(``ops.cholesky``) and the wide TRSM (``ops.trsm``) for predictions.
+Otherwise it is the plain PyTorch composite (``torch.linalg``), with
+autograd's own gradients; with ``use_kernels=False`` on CUDA this is the
+explicit on/off pair, not a fallback.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 
 from .. import config
 from . import cholesky as _chol
+from . import trsm as _trsm
 
 
 def kernels_active(t: torch.Tensor) -> bool:
@@ -32,8 +36,7 @@ def chol_logdet_quad(K, D):
     triangle of ``K`` is read."""
     if D.dim() == 1:
         D = D[:, None]
-    L, info = torch.linalg.cholesky_ex(K)
-    L = _chol._nan_where_failed(L, info)
+    L = _chol.cholesky_plain(K)
     half_logdet = torch.sum(torch.log(torch.diagonal(L)))
     alpha = torch.linalg.solve_triangular(L, D, upper=False)
     return half_logdet, torch.sum(torch.square(alpha))
@@ -57,3 +60,30 @@ def gpr_chol_terms(kern, X, noise, D):
         return _chol.cholesky_solve_logdet(Kp, Dp)
     K = kern.K(X) + noise * torch.eye(N, dtype=X.dtype, device=X.device)
     return chol_logdet_quad(K, D)
+
+
+def cholesky(K):
+    """Lower Cholesky factor of an SPD matrix; only its lower triangle is
+    read (a lower-tile Gram is a valid input), a failure gives NaN."""
+    if kernels_active(K):
+        return _chol.cholesky(K)
+    return _chol.cholesky_plain(K)
+
+
+def solve_lower(L, B):
+    """Solve ``L X = B`` with ``L`` lower triangular; ``B`` (N, P) or (N,)."""
+    if kernels_active(L):
+        return _trsm.solve_lower(L, B)
+    return _trsm.solve_triangular_plain(L, B, lower=True)
+
+
+def solve_upper(U, B):
+    """Solve ``U X = B`` with ``U`` upper triangular; ``B`` (N, P) or (N,)."""
+    if kernels_active(U):
+        return _trsm.solve_upper(U, B)
+    return _trsm.solve_triangular_plain(U, B, lower=False)
+
+
+def cho_solve_lower(L, B):
+    """Solve ``(L L^T) X = B`` given the lower Cholesky factor."""
+    return solve_upper(L.mT, solve_lower(L, B))

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import gpflow_slim_tpu_torch as gft
-from gpflow_slim_tpu_torch.ops import cholesky, gram
+from gpflow_slim_tpu_torch.ops import cholesky, gram, trsm
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +106,111 @@ def test_gpr_kernel_route_matches_f64_plain(dev, P):
     for n, p in gft.params.parameters(m32):
         want = float(g64[n].unconstrained.grad)
         assert abs(float(p.unconstrained.grad) - want) <= 1e-3 * abs(want), n
+
+
+@pytest.mark.parametrize("kind", list(gram.KINDS))
+@pytest.mark.parametrize("N,M,D", [(1, 1, 1), (130, 33, 2), (333, 200, 5)])
+def test_gram_kernels_match_plain(dev, kind, N, M, D):
+    xs, x2s = _xs(N, D, dev), _xs(M, D, dev, seed=1)
+    var = torch.tensor(1.7, device=dev)
+    got = gram.gram_cuda(kind, xs, x2s, var)
+    want = gram.gram_reference(kind, xs.double(), x2s.double(), 1.7)
+    # f32 rounding of exp and d^2: 1e-5 x variance absolute
+    assert float((got.double() - want).abs().max()) <= 1e-5 * 1.7
+    low = gram.gram_lower_cuda(kind, xs, var)
+    want = gram.gram_lower_plain(kind, xs.double(), 1.7)
+    t = torch.arange(N, device=dev) // gram.TILE
+    upper_tiles = t[:, None] < t[None, :]
+    assert bool((low[upper_tiles] == 0).all())
+    assert float((low.double() - want).abs().max()) <= 1e-5 * 1.7
+
+
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 130, 200, 333])
+def test_cholesky_kernel_matches_plain(dev, N):
+    Np = N + (-N) % cholesky.BLOCK
+    Kp = gram.gram_chol_operand_cuda("matern52", _xs(N, 1, dev), 1.0, 0.5, Np)
+    Lw = cholesky.cholesky_plain(torch.tril(Kp).double())
+    Lg = cholesky.cholesky_cuda(Kp.clone())
+    torch.cuda.synchronize()
+    # f32 factorization against f64: 1e-4 relative on L (max-norm), 1e-5 on
+    # the half-logdet from its diagonal (f64 pivots, as the fused kernel)
+    assert float((torch.tril(Lg).double() - Lw).abs().max()) <= 1e-4 * float(Lw.abs().max())
+    hw = float(torch.log(torch.diagonal(Lw)).sum())
+    assert abs(float(torch.log(torch.diagonal(Lg).double()).sum()) - hw) <= 1e-5 * max(abs(hw), 1.0)
+    # the padded, masked wrapper on the kernel route
+    K = gram.gram_lower_cuda("matern52", _xs(N, 1, dev), 1.0)
+    K.diagonal().add_(0.5)
+    before = cholesky.cholesky_cuda.launches
+    L = cholesky.cholesky(K)
+    assert cholesky.cholesky_cuda.launches == before + 1
+    assert float((L.double() - Lw[:N, :N]).abs().max()) <= 1e-4 * float(Lw.abs().max())
+    assert bool((torch.triu(L, 1) == 0).all())
+
+
+# 333 and 577: more than one group of four block columns (one, and two
+# and a half)
+@pytest.mark.parametrize("N,P", [(1, 1), (63, 7), (64, 1), (65, 130), (200, 64), (333, 3),
+                                 (577, 130)])
+def test_trsm_kernel_matches_plain(dev, N, P):
+    Np = N + (-N) % cholesky.BLOCK
+    Kp = gram.gram_chol_operand_cuda("rbf", _xs(N, 1, dev), 1.0, 0.3, Np)
+    L = cholesky.cholesky_cuda(Kp)[:N, :N].tril_()  # a view with row stride Np
+    B = torch.tensor(np.random.RandomState(2).randn(N, P), dtype=torch.float32, device=dev)
+    B0 = B.clone()
+    Ld = L.double()
+    for T, Td, lower in ((L, Ld, True), (L.T, Ld.T, False), (L.contiguous(), Ld, True),
+                         (L.T.contiguous(), Ld.T, False)):
+        got = trsm.trsm_cuda(T, B, lower)
+        want = torch.linalg.solve_triangular(Td, B.double(), upper=not lower)
+        # f32 substitution against f64: 1e-3 relative (max-norm), the fused
+        # kernel's alpha gate
+        assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert torch.equal(B, B0)  # B untouched
+
+
+def test_serving_wrappers_raise_instead_of_falling_back(dev):
+    x = _xs(10, 1, dev)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        gram.gram_cuda("rbf", x.cpu(), x.cpu(), 1.0)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        gram.gram_lower_cuda("rbf", x.double(), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gram.gram_cuda("rbf", x, torch.cat([x, x], 1)[:, :1], 1.0)
+    with pytest.raises(ValueError, match="bad inputs"):
+        gram.gram_cuda("rbf", x, _xs(10, 2, dev), 1.0)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cholesky.cholesky_cuda(torch.eye(100, device=dev))
+    with pytest.raises(ValueError, match="CUDA float32"):
+        cholesky.cholesky_cuda(torch.eye(64))
+    L = torch.eye(64, device=dev)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        trsm.trsm_cuda(L.cpu(), torch.ones(64, 1), True)
+    with pytest.raises(ValueError, match="contiguous B"):
+        trsm.trsm_cuda(L, torch.ones(64, 2, device=dev)[:, :1], True)
+    with pytest.raises(ValueError, match="row major or transposed"):
+        trsm.trsm_cuda(torch.eye(128, device=dev)[::2, ::2], torch.ones(64, 1, device=dev), True)
+    with pytest.raises(ValueError, match="bad shapes"):
+        trsm.trsm_cuda(L, torch.ones(63, 1, device=dev), True)
+
+
+def test_posterior_kernel_route_matches_f64_plain(dev):
+    rng = np.random.RandomState(0)
+    X = rng.uniform(0, 1, (700, 1)).astype(np.float32)
+    Y = (np.sin(12 * X) + 0.1 * rng.randn(700, 2)).astype(np.float32)
+    Xq = rng.uniform(0, 1, (333, 1)).astype(np.float32)
+    m32 = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=0.1), device=dev,
+                         dtype=torch.float32)
+    m64 = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=0.1), device=dev,
+                         dtype=torch.float64)
+    kernels = (gram.gram_cuda, gram.gram_lower_cuda, cholesky.cholesky_cuda, trsm.trsm_cuda)
+    before = [k.launches for k in kernels]
+    with torch.no_grad():
+        mean, var = m32.posterior().predict_f(Xq)
+        after = [k.launches for k in kernels]
+        mean64, var64 = m64.posterior().predict_f(Xq)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    assert after[3] == before[3] + 3  # TRSM: two for alpha, one for A
+    # f32 kernels against the f64 plain route: the conditioning of K + noise I
+    # here (noise 1) keeps the f32 error near 1e-5
+    assert float((mean.double() - mean64).abs().max()) <= 1e-4 * float(mean64.abs().max())
+    assert float((var.double() - var64).abs().max()) <= 1e-4

@@ -17,9 +17,9 @@ import pytest
 import torch
 from scipy.linalg import solve_triangular
 
-from gpflow_slim_tpu.ops import pallas_cholesky, pallas_gram
+from gpflow_slim_tpu.ops import pallas_cholesky, pallas_gram, pallas_trsm
 from gpflow_slim_tpu_torch import config
-from gpflow_slim_tpu_torch.ops import _build, cholesky, gram
+from gpflow_slim_tpu_torch.ops import _build, cholesky, gram, linalg, trsm
 
 torch.set_num_threads(2)
 
@@ -175,6 +175,186 @@ def test_gram_chol_operand_backward_matches_jax(kind):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-10, atol=1e-10)
 
 
+def _grid_inputs(N, D, seed):
+    # multiples of 1/8 in [-5, 5): the interpret-mode Gram kernel forms its
+    # cross product in f32 even for f64 inputs (preferred_element_type,
+    # pallas_gram.py:64-68), and on this grid that product is exact, so the
+    # two sides differ by f64 rounding only; coincident points (d = 0, where
+    # sqrt(d^2 + 1e-12) is steepest) occur too
+    return np.random.RandomState(seed).randint(-40, 40, (N, D)) / 8.0
+
+
+@pytest.mark.parametrize("D", [1, 3])
+@pytest.mark.parametrize("kind", KINDS)
+def test_gram_plain_matches_pallas_interpret(kind, D):
+    Xs, X2s = _grid_inputs(200, D, 0), _grid_inputs(130, D, 1)  # ragged against the 128 tile
+    ref = np.asarray(pallas_gram.gram_interpret_mode(kind, jnp.asarray(Xs), jnp.asarray(X2s), 1.3))
+    got = gram.gram_reference(kind, _t(Xs), _t(X2s), 1.3).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+    # the autograd entry point takes the plain version for CPU tensors
+    np.testing.assert_array_equal(gram.stationary_gram(kind, _t(Xs), _t(X2s), 1.3).numpy(), got)
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern12", "cosine"])
+def test_gram_lower_plain_matches_pallas_interpret(kind):
+    N = 200
+    Xs = _grid_inputs(N, 2, 2)
+    ref = np.asarray(pallas_gram._gram_lower_pallas(
+        kind, jnp.asarray(Xs), jnp.asarray(1.3), tile=64, interpret=True))
+    got = gram.gram_lower_plain(kind, _t(Xs), 1.3).numpy()
+    lower = np.tril_indices(N)
+    np.testing.assert_allclose(got[lower], ref[lower], rtol=0, atol=1e-12)
+    # strictly-upper TILE x TILE tiles are written as zero: they include the
+    # JAX kernel's zero tiles (a multiple of TILE), and the rest of the
+    # upper triangle inside the diagonal tiles equals the full Gram
+    t = np.arange(N) // gram.TILE
+    upper_tiles = t[:, None] < t[None, :]
+    assert np.all(got[upper_tiles] == 0.0) and np.all(got[ref == 0.0] == 0.0)
+    full = gram.gram_reference(kind, _t(Xs), _t(Xs), 1.3).numpy()
+    np.testing.assert_array_equal(got[~upper_tiles], full[~upper_tiles])
+    np.testing.assert_array_equal(gram.stationary_gram_lower(kind, _t(Xs), 1.3).numpy(), got)
+
+
+def _spd(N, seed=0):
+    A = np.random.RandomState(seed).randn(N, N)
+    return A @ A.T + N * np.eye(N)
+
+
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 130, 200])
+def test_cholesky_padded_wrapper_matches_pallas_interpret(N):
+    K = _spd(N)
+    L = cholesky.cholesky(_t(K))
+    want = np.linalg.cholesky(K)
+    np.testing.assert_allclose(L.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
+    assert np.all(np.triu(L.numpy(), 1) == 0.0)
+    if N in (64, 130, 200):
+        # the interpret-mode kernel accumulates its panel products in f32
+        # even for f64 inputs: ~1e-7 relative in L here
+        ref = np.asarray(pallas_cholesky.cholesky_interpret(jnp.asarray(K), block_size=64))
+        np.testing.assert_allclose(L.numpy(), ref, rtol=0, atol=1e-6 * np.abs(want).max())
+    # only the lower triangle is read, as the lower-tile Gram requires
+    junk = np.tril(K) + np.triu(np.full((N, N), 7.0), 1)
+    np.testing.assert_array_equal(cholesky.cholesky(_t(junk)).numpy(), L.numpy())
+
+
+def test_cholesky_nan_on_failure_and_routing():
+    K = _spd(70)
+    K[3, 3] = -1.0
+    lower = np.tril_indices(70)
+    assert torch.isnan(cholesky.cholesky(_t(K))[lower]).all()
+    assert torch.isnan(linalg.cholesky(_t(K))[lower]).all()
+    # CPU tensors take the plain route
+    np.testing.assert_allclose(linalg.cholesky(_t(_spd(70))).numpy(), np.linalg.cholesky(_spd(70)),
+                               rtol=0, atol=1e-12)
+
+
+def _tri(N, seed=0):
+    A = np.random.RandomState(seed).randn(N, N)
+    return np.tril(A) + N * np.eye(N)
+
+
+@pytest.mark.parametrize("N,P", [(128, 64), (200, 7), (64, 130), (1, 3), (63, 1), (65, 2)])
+def test_solves_match_pallas_interpret(N, P):
+    L = _tri(N)
+    B = np.random.RandomState(1).randn(N, P)
+    lo = trsm.solve_lower(_t(L), _t(B)).numpy()
+    up = trsm.solve_upper(_t(L).T, _t(B)).numpy()  # the transposed view, as GPR.posterior
+    np.testing.assert_allclose(lo, solve_triangular(L, B, lower=True), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(up, solve_triangular(L.T, B, lower=False), rtol=0, atol=1e-12)
+    if N >= 64:
+        # the interpret-mode kernel applies its inverted diagonal blocks with
+        # f32-accumulated products (pallas_trsm.py:49-53): ~2e-9 here
+        ref_lo = np.asarray(pallas_trsm.solve_lower_interpret(jnp.asarray(L), jnp.asarray(B)))
+        ref_up = np.asarray(pallas_trsm.solve_upper_interpret(jnp.asarray(L.T), jnp.asarray(B)))
+        np.testing.assert_allclose(lo, ref_lo, rtol=0, atol=1e-8)
+        np.testing.assert_allclose(up, ref_up, rtol=0, atol=1e-8)
+
+
+def test_solves_vector_rhs_and_cho_solve():
+    N = 64
+    L = _tri(N, 2)
+    b = np.random.RandomState(3).randn(N)
+    x = trsm.solve_lower(_t(L), _t(b))
+    assert x.shape == (N,)
+    ref = np.asarray(pallas_trsm.solve_lower_interpret(jnp.asarray(L), jnp.asarray(b)))
+    assert ref.shape == (N,)
+    np.testing.assert_allclose(x.numpy(), ref, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(x.numpy(), solve_triangular(L, b, lower=True), rtol=0, atol=1e-12)
+    u = trsm.solve_upper(_t(L).T, _t(b))
+    np.testing.assert_allclose(u.numpy(), solve_triangular(L.T, b, lower=False), rtol=0, atol=1e-12)
+    K = L @ L.T
+    np.testing.assert_allclose(linalg.cho_solve_lower(_t(L), _t(b)).numpy(), np.linalg.solve(K, b),
+                               rtol=1e-10)
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern52"])
+def test_gram_backwards_match_jax(kind):
+    Xs, rng = _inputs(30, 2)
+    X2s = rng.uniform(0, 1, (20, 2)) / 0.3
+    var = 1.3
+    G = rng.randn(30, 20)
+    xs, x2s, v = _t(Xs, True), _t(X2s, True), _t(var, True)
+    torch.sum(gram.stationary_gram(kind, xs, x2s, v) * _t(G)).backward()
+    ref = pallas_gram._bwd(kind, (jnp.asarray(Xs), jnp.asarray(X2s), jnp.asarray(var)),
+                           jnp.asarray(G))
+    for got, want in zip((xs.grad, x2s.grad, v.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=1e-12)
+
+    # the lower-tile Gram, with a cotangent on the lower triangle (what a
+    # Cholesky consumer gives it)
+    Gl = np.tril(rng.randn(30, 30))
+    xs, v = _t(Xs, True), _t(var, True)
+    torch.sum(gram.stationary_gram_lower(kind, xs, v) * _t(Gl)).backward()
+    ref = pallas_gram._lower_bwd(kind, (jnp.asarray(Xs), jnp.asarray(var)), jnp.asarray(Gl))
+    for got, want in zip((xs.grad, v.grad), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("N", [48, 70])
+def test_cholesky_backward_matches_jax(N):
+    K = _spd(N, 4)
+    G = np.random.RandomState(5).randn(N, N)
+    k = _t(K, True)
+    L = cholesky.cholesky(k)
+    torch.sum(L * _t(G)).backward()
+    (Kbar,) = pallas_cholesky._chol_vjp_bwd(jnp.asarray(L.detach().numpy()), jnp.asarray(G))
+    np.testing.assert_allclose(k.grad.numpy(), np.asarray(Kbar), rtol=1e-10, atol=1e-14)
+    # K-bar is the full symmetric matrix: its symmetric part equals the
+    # symmetrized gradient of XLA's Cholesky
+    gK = jax.grad(lambda a: jnp.sum(jnp.linalg.cholesky(a) * jnp.asarray(G)))(jnp.asarray(K))
+    np.testing.assert_allclose(k.grad.numpy(), k.grad.numpy().T, rtol=0, atol=1e-15)
+    np.testing.assert_allclose(k.grad.numpy(), 0.5 * (np.asarray(gK) + np.asarray(gK).T),
+                               rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.parametrize("lower", [True, False])
+def test_trsm_backward_matches_jax(lower, monkeypatch):
+    N, P = 70, 5
+    L = _tri(N, 6)
+    T = L if lower else L.T
+    B = np.random.RandomState(7).randn(N, P)
+    G = np.random.RandomState(8).randn(N, P)
+    t, b = _t(T, True), _t(B, True)
+    X = (trsm.solve_lower if lower else trsm.solve_upper)(t, b)
+    torch.sum(X * _t(G)).backward()
+    # `_trsm_bwd` solves with the Pallas kernel; on the CPU it runs in
+    # interpret mode (f32-accumulated products: ~1e-9 here)
+    interp = pallas_trsm._trsm_pallas
+    monkeypatch.setattr(pallas_trsm, "_trsm_pallas",
+                        lambda *a, **k: interp(*a, block_size=64, interpret=True, **k))
+    dT, gB = pallas_trsm._trsm_bwd(lower, (jnp.asarray(T), jnp.asarray(X.detach().numpy())),
+                                   jnp.asarray(G))
+    np.testing.assert_allclose(b.grad.numpy(), np.asarray(gB), rtol=0, atol=1e-8)
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(dT), rtol=0, atol=1e-8)
+    # and tight against the autograd of XLA's triangular solve
+    gT, gB = jax.grad(
+        lambda a, c: jnp.sum(jax.scipy.linalg.solve_triangular(a, c, lower=lower) * jnp.asarray(G)),
+        argnums=(0, 1))(jnp.asarray(T), jnp.asarray(B))
+    tri = np.tril if lower else np.triu
+    np.testing.assert_allclose(b.grad.numpy(), np.asarray(gB), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(t.grad.numpy(), tri(np.asarray(gT)), rtol=0, atol=1e-12)
+
+
 def test_wrappers_take_plain_versions_on_cpu():
     # a CPU tensor runs the plain version and launches nothing
     Xs, _ = _inputs(30, 1)
@@ -194,6 +374,38 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cholesky.cholesky_solve_cuda(torch.zeros(64, 64), torch.zeros(64, 1))
     with pytest.raises(ValueError, match="unknown kind"):
         gram.gram_chol_operand_cuda("periodic", x, 1.0, 0.1, 64)
+
+
+def test_serving_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(10, 1)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        gram.gram_cuda("rbf", x, x, 1.0)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        gram.gram_lower_cuda("rbf", x, 1.0)
+    with pytest.raises(ValueError, match="unknown kind"):
+        gram.gram_lower_cuda("periodic", x, 1.0)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        cholesky.cholesky_cuda(torch.eye(64))
+    with pytest.raises(ValueError, match="CUDA float32"):
+        trsm.trsm_cuda(torch.eye(64), torch.ones(64, 1), True)
+
+
+def test_serving_route_on_cpu_launches_nothing(monkeypatch):
+    # the kernel route forced on for CPU tensors runs every wrapper's plain
+    # version: the same answers as the plain route, and no launch
+    monkeypatch.setattr(linalg, "kernels_active", lambda t: True)
+    kernels = (gram.gram_cuda, gram.gram_lower_cuda, cholesky.cholesky_cuda, trsm.trsm_cuda)
+    before = [k.launches for k in kernels]
+    Xs, rng = _inputs(70, 1)
+    K = gram.stationary_gram_lower("rbf", _t(Xs), 1.0)
+    K.diagonal().add_(0.1)
+    L = linalg.cholesky(K)
+    assert L.stride() == (128, 1)  # a view into the padded buffer, read in place below
+    B = _t(rng.randn(70, 3))
+    X = linalg.cho_solve_lower(L, B)
+    Kfull = gram.gram_reference("rbf", _t(Xs), _t(Xs), 1.0) + 0.1 * torch.eye(70, dtype=torch.float64)
+    np.testing.assert_allclose(X.numpy(), np.linalg.solve(Kfull.numpy(), B.numpy()), rtol=1e-9)
+    assert [k.launches for k in kernels] == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -218,7 +430,10 @@ def test_build_raises_with_compiler_output(monkeypatch, tmp_path):
 def test_library_path_keyed_by_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libgfs_kernels_")
-    assert {f.name for f in _build.CSRC.glob("*.cu")} == {"gram_operand.cu", "chol_solve.cu"}
+    assert {f.name for f in _build.CSRC.glob("*.cu")} == {
+        "gram_operand.cu", "chol_solve.cu", "gram.cu", "trsm.cu"}
+    assert set(_build._ENTRIES) == {"gfs_gram_chol_operand", "gfs_chol_solve_logdet", "gfs_gram",
+                                    "gfs_gram_lower", "gfs_cholesky", "gfs_trsm"}
 
 
 def _imported_modules(path):

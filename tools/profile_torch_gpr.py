@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's exact-GPR objective on one NVIDIA GPU.
+"""Where the time goes in the port's exact-GPR paths on one NVIDIA GPU.
 
     python3 tools/profile_torch_gpr.py
 
 On chip_smoke.py's data and model (N=10000, D=1, RBF lengthscale 0.1,
-float32) it runs GPR.objective() and objective+gradient on the kernel
-route and on the use_kernels=False route, and prints for each:
+float32) it runs, on the kernel route and on the use_kernels=False route,
+the training path (GPR.objective() and objective+gradient) and the serving
+path (GPR.posterior(), one predict_f request of 2048 points and one
+full-covariance request of 1024, chip_smoke.py's requests), and prints for
+each:
 
 - the wall time per evaluation (median of 5, CUDA events);
 - the device busy time per evaluation: the union of the intervals of all
@@ -21,6 +24,7 @@ import os
 import statistics
 import sys
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -28,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import gpflow_slim_tpu_torch as gft  # noqa: E402
-from chip_smoke import LENGTHSCALE, bench_data, card_line  # noqa: E402
+from chip_smoke import LENGTHSCALE, NQ, NQ_FULL, bench_data, card_line  # noqa: E402
 
 ITERS = 3   # profiled evaluations
 WALLS = 5   # event-timed evaluations
@@ -103,11 +107,26 @@ def main():
         model.zero_grad(set_to_none=True)
         model.objective().backward()
 
+    rq = np.random.RandomState(2)
+    Xq = torch.tensor(rq.uniform(0, 1, (NQ, 1)), dtype=torch.float32, device="cuda")
+    Xf = torch.tensor(rq.uniform(0, 1, (NQ_FULL, 1)), dtype=torch.float32, device="cuda")
+
+    def posterior():
+        with torch.no_grad():
+            model.posterior()
+
     print(card_line())
     for flag in (True, False):
         with gft.config.temp_settings(use_kernels=flag):
             report(f"use_kernels={flag} objective", objective)
             report(f"use_kernels={flag} objective+grad", objective_grad)
+            report(f"use_kernels={flag} posterior()", posterior)
+            with torch.no_grad():
+                post = model.posterior()
+                report(f"use_kernels={flag} predict_f N*={NQ}", lambda: post.predict_f(Xq))
+                report(f"use_kernels={flag} predict_f full_cov N*={NQ_FULL}",
+                       lambda: post.predict_f(Xf, full_cov=True))
+            del post
     return 0
 
 
