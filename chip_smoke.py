@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two exact-GPR paths at bench.py's size (N=10000, D=1,
-RBF with lengthscale 0.1, float32) through its public entry points, and
-checks them: the marginal-likelihood (training) path and the serving path
-(posterior and predictions).
+Drives three paths of the port through its public entry points, and
+checks them: the exact-GPR marginal-likelihood (training) path and serving
+path (posterior and predictions) at bench.py's size (N=10000, D=1, RBF with
+lengthscale 0.1, float32), and the SVGP natural-gradient training path at
+benchmarks/bench_svgp_nuts.py's size (N=100000, M=256 inducing points,
+minibatches of 1024, Bernoulli, RBF with lengthscale 0.2, float32),
+unwhitened (the path of the batched TRSM) and whitened.
 
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
 2. build: the hand-written kernels with nvcc for sm_90a from csrc/ (one
@@ -16,7 +19,10 @@ checks them: the marginal-likelihood (training) path and the serving path
    factor/solve/logdet of the training path; the cross Gram (10000 x 2048,
    six kinds and D=3), the lower-tile Gram, the factor-only Cholesky and
    the TRSM (lower, and upper through the transposed view; P = 1, 7, 2048)
-   of the serving path;
+   of the serving path; the batched TRSM of the SVGP path (P = 1, 16; M =
+   1, 65, 200, 256, 1024; K = 1, 40, M; lower, upper through the
+   transposed view, a stride-0 batch; the config's chol(Kuu); its
+   backward's gB and dL);
 4. the training path: GPR.objective() (both of its kernels must launch),
    against an f64 oracle at the effective hyperparameters (gate 1e-5
    relative, as bench.py); the gradient against the f64 plain path (1e-3
@@ -26,9 +32,20 @@ checks them: the marginal-likelihood (training) path and the serving path
    predict_density, and one uncached GPR.predict_f (its four kernels must
    launch); means and variances against an f64 oracle, gated relative to
    the use_kernels=False float32 route;
+4c. the SVGP path: the unwhitened ELBO on a fixed minibatch of 1024
+   against an f64 oracle written out independently (Gram, Cholesky, the KL
+   formula, 20-point Gauss-Hermite of the probit log-likelihood), every
+   unconstrained gradient against the f64 plain path, the conjugate oracle
+   (one natgrad step with gamma = 1 on a Gaussian SVGP with Z = X lands on
+   the GPR log marginal likelihood), each gated relative to the
+   use_kernels=False float32 route; 20 steps of fit_svgp_natgrad unwhitened
+   (the cross Gram, factor-only Cholesky, TRSM and batched TRSM must
+   launch) and whitened (the batched TRSM must not);
 5. times (CUDA events, median) of each kernel against its plain version
-   and of each path's entry points, kernel route against the
-   use_kernels=False route, with peak memory.
+   and the one PyTorch call computing the same function where there is
+   one, each kernel's bound (the larger of its bytes over 3.35 TB/s and its
+   flop over 67 TFLOP/s), and of each path's entry points, kernel route
+   against the use_kernels=False route, with peak memory.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero and prints no result. The
@@ -67,6 +84,19 @@ SERVE_ABS = 1e-6
 NQ = 2048           # points per predict_f request
 NQ_FULL = 1024      # points of the full-covariance request
 REPS = 5
+# the SVGP path: benchmarks/bench_svgp_nuts.py's bench_svgp_natgrad model
+SVGP_N, SVGP_M, SVGP_B, SVGP_LS = 100_000, 256, 1024, 0.2
+SVGP_STEPS, SVGP_GAMMA, SVGP_LR = 20, 0.1, 0.01
+SVGP_JITTER = 1e-4  # the f32 jitter; the f64 references use it too, to compute the same function
+# SVGP gates: the kernel route's error against the f64 reference may be at
+# most twice the use_kernels=False float32 route's, plus these (relative;
+# max-norm for gradients): Kuu's f32 condition number (~1e6 at 256 points,
+# lengthscale 0.2, jitter 1e-4) sets the scale of both routes' errors
+SVGP_VALUE_ABS = 1e-6
+SVGP_GRAD_ABS = 1e-5
+# the card's peaks for the bound of each kernel (vendor figures, H100 SXM)
+F32_FLOPS = 67e12   # float32 without tensor cores
+HBM_BYTES = 3.35e12  # bytes per second
 
 
 def card_line():
@@ -110,6 +140,19 @@ def paired_ms(torch, kernel_fn, plain_fn, setup=lambda: ()):
     return statistics.median(kern), statistics.median(plain)
 
 
+def bound(flop, nbytes):
+    """(ms, what bounds it): the least time the card could take for work of
+    ``flop`` float32 operations moving ``nbytes`` (each input read once,
+    each output written once)."""
+    t_ops, t_bytes = flop / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def tri_bytes(n):
+    """Bytes of the lower triangle of an n x n float32 matrix."""
+    return n * (n + 1) // 2 * 4
+
+
 def oracle_objective(torch, X, Y, ls, var, noise):
     """-log p(Y) of RBF + noise GPR in float64 on the card, written out
     independently of the port (bench.py's oracle formula)."""
@@ -147,6 +190,16 @@ def oracle_predict(torch, X, Y, Xq, ls, var, noise, full_cov=False):
     if full_cov:
         return mean, var * torch.exp(-0.5 * sq_dist64(torch, Qd, Qd)) - A.T @ A
     return mean, var - (A**2).sum(0)[:, None]
+
+
+def gate(what, e_k, e_p, absolute):
+    """The kernel route's error e_k within twice the use_kernels=False
+    float32 route's e_p plus ``absolute``; prints both."""
+    limit = 2 * e_p + absolute
+    print(f"{what}: kernel route {e_k:.3e}, use_kernels=False f32 route {e_p:.3e} "
+          f"(gate 2 x that + {absolute:g} = {limit:.3e})")
+    if not e_k <= limit:
+        raise AssertionError(f"{what}: kernel route {e_k:.3e} > gate {limit:.3e}")
 
 
 def check_serving_kernels(torch, gram, cholesky, trsm, Xs, X3s, Kp, var, rng, dev):
@@ -225,6 +278,305 @@ def serving_requests(gft, torch, model):
                "predict_density": post.predict_density(Xy, Yy),
                "uncached": model.predict_f(requests[0])}
     return post, out
+
+
+def svgp_data():
+    """bench_svgp_natgrad's data: RandomState(0), X uniform on [0, 1],
+    Y = (sin(10 X) > 0), and M inducing points on a grid."""
+    rng = np.random.RandomState(0)
+    X = rng.uniform(0, 1, (SVGP_N, 1)).astype(np.float32)
+    Y = (np.sin(10 * X) > 0).astype(np.float32)
+    Z = np.linspace(0, 1, SVGP_M, dtype=np.float32)[:, None]
+    return X, Y, Z
+
+
+def svgp_model(gft, torch, whiten, dtype):
+    X, Y, Z = svgp_data()
+    return gft.models.SVGP(X, Y, kern=gft.kernels.RBF(1, lengthscales=SVGP_LS),
+                           likelihood=gft.likelihoods.Bernoulli(), Z=Z, whiten=whiten,
+                           device="cuda", dtype=dtype)
+
+
+def oracle_elbo(torch, Xb, Yb, Z, ls, var, q_mu, q_sqrt, whiten):
+    """The SVGP minibatch ELBO of RBF + Bernoulli (probit) with one output
+    in float64 on the card, written out independently of the port: the
+    Grams, the Cholesky of Kuu, the Gaussian KL and 20-point Gauss-Hermite
+    of the probit log-likelihood."""
+    dev = torch.device("cuda")
+
+    def f64(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)
+
+    Zs, Xs = f64(Z) / ls, f64(Xb) / ls
+    M = Zs.shape[0]
+    Kuu = var * torch.exp(-0.5 * sq_dist64(torch, Zs, Zs))
+    Kuu += SVGP_JITTER * torch.eye(M, dtype=torch.float64, device=dev)
+    Kuf = var * torch.exp(-0.5 * sq_dist64(torch, Zs, Xs))
+    Lu = torch.linalg.cholesky(Kuu)
+    m, Lq = f64(q_mu), torch.tril(f64(q_sqrt)[0])
+    A = torch.linalg.solve_triangular(Lu, Kuf, upper=False)
+    logdet_q = torch.log(torch.diagonal(Lq) ** 2).sum()
+    if whiten:
+        W = A
+        kl = 0.5 * ((m ** 2).sum() + (Lq ** 2).sum() - M - logdet_q)
+    else:
+        W = torch.linalg.solve_triangular(Lu.T, A, upper=True)
+        kl = 0.5 * ((torch.linalg.solve_triangular(Lu, m, upper=False) ** 2).sum()
+                    + (torch.linalg.solve_triangular(Lu, Lq, upper=False) ** 2).sum() - M
+                    + 2 * torch.log(torch.diagonal(Lu)).sum() - logdet_q)
+    mean = (W.T @ m)[:, 0]
+    fvar = var - (A ** 2).sum(0) + ((Lq.T @ W) ** 2).sum(0)
+    x, w = np.polynomial.hermite.hermgauss(20)
+    f = mean[None, :] + torch.sqrt(2 * fvar)[None, :] * f64(x)[:, None]  # (20, B)
+    p = 0.5 * (1 + torch.erf(f / math.sqrt(2))) * (1 - 2e-3) + 1e-3
+    logp = torch.log(torch.where(f64(Yb)[:, 0][None, :] == 1, p, 1 - p))
+    ve = (f64(w / math.sqrt(math.pi))[:, None] * logp).sum(0)
+    return float(ve.sum() * (SVGP_N / len(Xb)) - kl)
+
+
+def check_batched_trsm(torch, trsm, Luu, rng, dev):
+    """Phase 3 for the batched TRSM: each mode at each shape, the config's
+    chol(Kuu), and the backward; returns the max abs error."""
+    worst = 0.0
+
+    def compare(got, want):
+        nonlocal worst
+        err = float((got.double() - want).abs().max())
+        worst = max(worst, err)
+        return err / float(want.abs().max())
+
+    for P in (1, 16):
+        for M in (1, 65, 200, 256, 1024):
+            L = np.stack([np.tril(rng.randn(M, M)) + M * np.eye(M) for _ in range(P)])
+            L = torch.tensor(L, dtype=torch.float32, device=dev)
+            Ld = L.double()
+            rels = {"lower": 0.0, "upper, L.mT view": 0.0, "stride-0 batch": 0.0}
+            for K in sorted({1, 40, M}):
+                B = torch.tensor(rng.randn(P, M, K), dtype=torch.float32, device=dev)
+                for name, T, Td, lower in (
+                        ("lower", L, Ld, True), ("upper, L.mT view", L.mT, Ld.mT, False),
+                        ("stride-0 batch", L[:1].expand(P, -1, -1), Ld[:1].expand(P, -1, -1), True)):
+                    want = trsm.batched_solve_triangular_plain(Td, B.double(), lower)
+                    rels[name] = max(rels[name], compare(trsm.batched_trsm_cuda(T, B, lower), want))
+            print(f"batched_trsm P={P} M={M} K in {sorted({1, 40, M})}: rel err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" (tol {TRSM_TOL:g})")
+            if not max(rels.values()) <= TRSM_TOL:
+                raise AssertionError(f"batched TRSM kernel (P={P}, M={M}) disagrees with its plain version")
+
+    # the config's chol(Kuu) (as the KL factors it), against the initial
+    # q_sqrt (the identity) and a random right-hand side, and the backward
+    Lb, Lbd = Luu[None], Luu.double()[None]
+    for name, B in (("identity", torch.eye(SVGP_M, device=dev)[None]),
+                    ("random", torch.tensor(rng.randn(1, SVGP_M, SVGP_M), dtype=torch.float32, device=dev))):
+        rel = max(compare(trsm.batched_trsm_cuda(Lb, B, True),
+                          trsm.batched_solve_triangular_plain(Lbd, B.double(), True)),
+                  compare(trsm.batched_trsm_cuda(Lb.mT, B, False),
+                          trsm.batched_solve_triangular_plain(Lbd.mT, B.double(), False)))
+        print(f"batched_trsm on the config's chol(Kuu) (M={SVGP_M}), {name} right-hand side, lower and "
+              f"upper: rel err {rel:.3e} (tol {TRSM_TOL:g})")
+        if not rel <= TRSM_TOL:
+            raise AssertionError("batched TRSM kernel disagrees on chol(Kuu)")
+    B = torch.tensor(rng.randn(1, SVGP_M, SVGP_M), dtype=torch.float32, device=dev)
+    G = torch.tensor(rng.randn(1, SVGP_M, SVGP_M), dtype=torch.float32, device=dev)
+    grads = []
+    for t, b, solve in ((Luu.clone(), B.clone(), trsm.batched_solve_lower),
+                        (Luu.double(), B.double(),
+                         lambda a, c: trsm.batched_solve_triangular_plain(a, c, True))):
+        t.requires_grad_()
+        b.requires_grad_()
+        torch.sum(solve(t.expand(1, -1, -1), b) * G.to(t.dtype)).backward()
+        grads.append((b.grad, t.grad))
+    rel_gB, rel_dL = (compare(got, want.double()) for got, want in zip(*grads))
+    print(f"batched_trsm backward on chol(Kuu): gB rel err {rel_gB:.3e}, dL rel err {rel_dL:.3e} "
+          f"(tol {TRSM_TOL:g})")
+    if not (rel_gB <= TRSM_TOL and rel_dL <= TRSM_TOL):
+        raise AssertionError("batched TRSM backward disagrees with the plain autograd")
+    return worst
+
+
+def svgp_checks(gft, torch, gram, cholesky, trsm, dev):
+    """Phase 4c: checks 1-5 of the SVGP path; returns the launches of the
+    unwhitened 20-step fit (the path's run) and the fixed minibatch."""
+    X, Y, Z = svgp_data()
+    idx = np.random.RandomState(3).permutation(SVGP_N)[:SVGP_B]
+    Xb, Yb = X[idx], Y[idx]
+
+    # 1. the unwhitened ELBO on a fixed minibatch, at the model as built
+    # (q = N(0, I)). Its KL, ~0.5 tr(Kuu^-1), is most of it: the batched
+    # TRSM's Lp^-1 q_sqrt. (Moving q towards the posterior makes the f32
+    # gradients' errors larger on both routes, up to O(1) on q_sqrt:
+    # cancellations of Kuu^-1-sized terms.)
+    m32 = svgp_model(gft, torch, False, torch.float32)
+    elbos, grads = {}, {}
+    for flag in (True, False):
+        with gft.config.temp_settings(use_kernels=flag):
+            m32.zero_grad(set_to_none=True)
+            elbo = m32.build_likelihood_batch(Xb, Yb)
+            (-elbo).backward()
+        elbos[flag] = elbo.item()
+        grads[flag] = {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(m32)}
+    ls = m32.kern.lengthscales.value.item()
+    var = m32.kern.variance.value.item()
+    oracle = oracle_elbo(torch, Xb, Yb, m32.feature.Z.value.detach().cpu().numpy(), ls, var,
+                         m32.q_mu.value.detach().cpu().numpy(), m32.q_sqrt.value.detach().cpu().numpy(),
+                         whiten=False)
+    print(f"SVGP (unwhitened) minibatch ELBO: kernel route {elbos[True]:.6f}, use_kernels=False "
+          f"{elbos[False]:.6f}, f64 oracle {oracle:.6f}")
+    gate("SVGP ELBO rel err vs the f64 oracle", abs(elbos[True] - oracle) / abs(oracle),
+         abs(elbos[False] - oracle) / abs(oracle), SVGP_VALUE_ABS)
+
+    # 2. every unconstrained gradient against the f64 plain path
+    m64 = svgp_model(gft, torch, False, torch.float64)
+    gft.interop.load_unconstrained(m64, {
+        n: p.unconstrained.detach().cpu().numpy() for n, p in gft.params.parameters(m32)})
+    with gft.config.temp_settings(jitter=SVGP_JITTER):
+        (-m64.build_likelihood_batch(Xb, Yb)).backward()
+    for n, p in gft.params.parameters(m64):
+        want = p.unconstrained.grad
+        e = [float((grads[flag][n] - want).abs().max()) / float(want.abs().max()) for flag in (True, False)]
+        gate(f"SVGP grad {n} {tuple(want.shape)} rel err (max-norm) vs the f64 plain path", *e,
+             SVGP_GRAD_ABS)
+    del m32, m64
+
+    # 3. the conjugate oracle: a Gaussian SVGP with Z = X; one natgrad step
+    # with gamma = 1 lands on the optimal q, whose ELBO is the GPR log
+    # marginal likelihood of the same data (up to the jitter's effect)
+    rng = np.random.RandomState(4)
+    Xc = rng.uniform(0, 1, (SVGP_M, 1)).astype(np.float32)
+    Yc = (np.sin(10 * Xc) + 0.1 * rng.randn(SVGP_M, 1)).astype(np.float32)
+    gpr = gft.models.GPR(Xc, Yc, kern=gft.kernels.RBF(1, lengthscales=SVGP_LS), device="cuda",
+                         dtype=torch.float64)
+    with torch.no_grad():
+        gpr.likelihood.variance.unconstrained.copy_(
+            gpr.likelihood.variance.transform.backward(torch.tensor(0.1, dtype=torch.float64)))
+        lml = gpr.build_likelihood().item()
+    after = {}
+    for key, dtype, flag in (("kernels", torch.float32, True), ("plain f32", torch.float32, False),
+                             ("plain f64", torch.float64, False)):
+        with gft.config.temp_settings(use_kernels=flag, jitter=SVGP_JITTER):
+            mc = gft.models.SVGP(Xc, Yc, kern=gft.kernels.RBF(1, lengthscales=SVGP_LS),
+                                 likelihood=gft.likelihoods.Gaussian(variance=0.1), Z=Xc.copy(),
+                                 whiten=False, device="cuda", dtype=dtype)
+            halvings = gft.training.natgrad_step.halvings
+            gft.training.natgrad_step(mc, lambda mm: -mm.build_likelihood(), gamma=1.0)
+            with torch.no_grad():
+                after[key] = mc.build_likelihood().item()
+        print(f"conjugate oracle ({key}): ELBO after one gamma=1 step {after[key]:.6f}, GPR log "
+              f"marginal likelihood {lml:.6f}, gamma halvings {gft.training.natgrad_step.halvings - halvings}")
+    gate("conjugate oracle rel err vs the GPR log marginal likelihood",
+         abs(after["kernels"] - lml) / abs(lml), abs(after["plain f32"] - lml) / abs(lml), SVGP_VALUE_ABS)
+
+    # 4. the path's run: 20 steps of fit_svgp_natgrad on the unwhitened model
+    path_kernels = {"gram": gram.gram_cuda, "cholesky": cholesky.cholesky_cuda, "trsm": trsm.trsm_cuda,
+                    "batched_trsm": trsm.batched_trsm_cuda}
+    for whiten in (False, True):
+        model = svgp_model(gft, torch, whiten, torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ng = gft.training.natgrad_step
+        ng.backtracked = ng.halvings = ng.kept = 0
+        for fn in path_kernels.values():
+            fn.launches = 0
+        _, losses = gft.training.fit_svgp_natgrad(model, SVGP_STEPS, gen, gamma=SVGP_GAMMA,
+                                                  learning_rate=SVGP_LR, batch_size=SVGP_B)
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in path_kernels.items()}
+        losses = losses.cpu().numpy()
+        label = "whitened" if whiten else "unwhitened"
+        print(f"fit_svgp_natgrad {label}, {SVGP_STEPS} steps: launches {launches}; natgrad steps that "
+              f"halved gamma {ng.backtracked}, halvings {ng.halvings}, kept q {ng.kept}; losses "
+              f"{np.array2string(losses, precision=2, max_line_width=1000)}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"fit_svgp_natgrad ({label}) gave non-finite losses")
+        if whiten:  # 5. the whitened model never forms Kuu in the KL
+            if launches["batched_trsm"] != 0:
+                raise AssertionError("the whitened SVGP launched the batched TRSM")
+        else:
+            if not losses[-5:].mean() < losses[:5].mean():
+                raise AssertionError("20 natgrad steps did not lower the unwhitened loss")
+            if not all(n > 0 for n in launches.values()):
+                raise AssertionError(f"the unwhitened SVGP path did not run all four kernels: {launches}")
+            svgp_launches = launches
+    return svgp_launches, (Xb, Yb)
+
+
+def svgp_times(gft, torch, trsm, batch, rng, dev):
+    """Phase 5 for the SVGP path: the batched TRSM at three shapes, then the
+    ELBO, one step and the 20-step rate on both routes. Returns the kernel's
+    row of the kernels line at the path's shape (1, 256, 256)."""
+    rows = {}
+    for P, M, K in ((1, SVGP_M, SVGP_M), (16, SVGP_M, SVGP_M), (1, 1024, 1024)):
+        L = np.stack([np.tril(rng.randn(M, M)) + M * np.eye(M) for _ in range(P)])
+        L = torch.tensor(L, dtype=torch.float32, device=dev)
+        B = torch.tensor(rng.randn(P, M, K), dtype=torch.float32, device=dev)
+        k_ms, p_ms = paired_ms(torch, lambda: trsm.batched_trsm_cuda(L, B, True),
+                               lambda: trsm.batched_solve_triangular_plain(L, B, True))
+        lib_ms = statistics.median(cuda_ms(torch, lambda: torch.linalg.solve_triangular(L, B, upper=False)))
+        b_ms, b_by = bound(P * M * M * K, P * tri_bytes(M) + 2 * P * M * K * 4)
+        rows[(P, M, K)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                           "bound_by": b_by}
+        print(f"  batched trsm P={P} M={M} K={K}: kernel {k_ms:.4f} ms, plain f32 {p_ms:.4f} ms, "
+              f"torch.linalg.solve_triangular {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+
+    Xb, Yb = (torch.tensor(a, device=dev) for a in batch)
+
+    def routed(fn, flag):
+        def run():
+            with gft.config.temp_settings(use_kernels=flag):
+                fn()
+        return run
+
+    ng = gft.training.natgrad_step
+    for whiten in (False, True):
+        label = "whitened" if whiten else "unwhitened"
+        # every timed run starts from the model as built, as
+        # bench_svgp_natgrad times its 20 steps (a long f32 natgrad run can
+        # reach a q whose precision no longer factors in f32)
+        model = svgp_model(gft, torch, whiten, torch.float32)
+        init = {n: p.unconstrained.detach().cpu().numpy().copy() for n, p in gft.params.parameters(model)}
+
+        def reset():
+            gft.interop.load_unconstrained(model, init)
+            return ()
+
+        def elbo():
+            with torch.no_grad():
+                model.build_likelihood_batch(Xb, Yb)
+
+        def elbo_grad():
+            model.zero_grad(set_to_none=True)
+            (-model.build_likelihood_batch(Xb, Yb)).backward()
+
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def fit(steps):
+            gft.training.fit_svgp_natgrad(model, steps, gen, gamma=SVGP_GAMMA, learning_rate=SVGP_LR,
+                                          batch_size=SVGP_B)
+
+        for what, fn in (("ELBO", elbo), ("ELBO+grad", elbo_grad), ("natgrad+Adam step", lambda: fit(1))):
+            k_ms, p_ms = paired_ms(torch, routed(fn, True), routed(fn, False), setup=reset)
+            print(f"  SVGP {label} {what} (B={SVGP_B}, M={SVGP_M}): kernels {k_ms:.3f} ms, "
+                  f"use_kernels=False {p_ms:.3f} ms")
+        # steps per second of 20-step fits from the model as built
+        rates = {True: [], False: []}
+        stats = {True: [0, 0, 0], False: [0, 0, 0]}
+        for flag in (False, True, True, False, False, True):
+            reset()
+            before = (ng.backtracked, ng.halvings, ng.kept)
+            with gft.config.temp_settings(use_kernels=flag):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fit(SVGP_STEPS)
+                torch.cuda.synchronize()
+                rates[flag].append(SVGP_STEPS / (time.perf_counter() - t0))
+            stats[flag] = [s + a - b for s, a, b in zip(stats[flag], (ng.backtracked, ng.halvings, ng.kept),
+                                                        before)]
+        for flag in (True, False):
+            route = "kernels" if flag else "use_kernels=False"
+            print(f"  svgp_natgrad_iters_per_sec_N{SVGP_N}_M{SVGP_M}_B{SVGP_B}_{label} ({route}): best "
+                  f"{max(rates[flag]):.2f} steps/s of 3 x {SVGP_STEPS} steps "
+                  f"({', '.join(f'{r:.2f}' for r in rates[flag])}); natgrad steps that halved gamma "
+                  f"{stats[flag][0]} of {3 * SVGP_STEPS}, halvings {stats[flag][1]}, kept q {stats[flag][2]}")
+    return rows[(1, SVGP_M, SVGP_M)]
 
 
 def main():
@@ -306,6 +658,10 @@ def main():
 
     serve_errs, Xqs, Lp, L = check_serving_kernels(torch, gram, cholesky, trsm, Xs, X3s, Kp, var,
                                                    rng, dev)
+    # the SVGP path's batched TRSM, with the config's chol(Kuu) as the KL factors it
+    Zs = torch.tensor(svgp_data()[2], device=dev) / SVGP_LS
+    Kuu = gram.gram_reference("rbf", Zs, Zs, 1.0) + SVGP_JITTER * torch.eye(SVGP_M, device=dev)
+    batched_err = check_batched_trsm(torch, trsm, torch.linalg.cholesky(Kuu), rng, dev)
 
     # 4. the training path at full width, through the public entry points
     model = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE),
@@ -392,14 +748,12 @@ def main():
         plain = plain_answers[key] if key != "predict_f" else plain_answers[key][0]
         for what, k_t, p_t, o_t in (("mean", got[0], plain[0], m_o), ("var", got[1], plain[1], v_o)):
             o_t = o_t.reshape(k_t.shape)
-            e_k = float((k_t.double() - o_t).abs().max())
-            e_p = float((p_t.double() - o_t).abs().max())
-            gate = 2 * e_p + SERVE_ABS
-            print(f"serving {key} {what} vs f64 oracle: kernel route {e_k:.3e}, use_kernels=False "
-                  f"f32 route {e_p:.3e} (gate 2 x that + {SERVE_ABS:g} = {gate:.3e})")
-            if not e_k <= gate:
-                raise AssertionError(f"serving {key} {what}: kernel route {e_k:.3e} > gate {gate:.3e}")
+            gate(f"serving {key} {what} vs f64 oracle", float((k_t.double() - o_t).abs().max()),
+                 float((p_t.double() - o_t).abs().max()), SERVE_ABS)
     del plain_answers, oracles
+
+    # 4c. the SVGP natural-gradient training path at full width
+    svgp_launches, svgp_batch = svgp_checks(gft, torch, gram, cholesky, trsm, dev)
 
     # 5. times on the card, kernel route against plain
     def on_card(ms):
@@ -453,10 +807,12 @@ def main():
         lambda: gram.gram_lower_plain("rbf", Xs, var))
     fac_ms, fac_plain_ms = paired_ms(
         torch, cholesky.cholesky_cuda, cholesky.cholesky_plain, setup=lambda: (Kp.clone(),))
+    fac_lib_ms = statistics.median(cuda_ms(torch, torch.linalg.cholesky_ex, setup=lambda: (Kp.clone(),)))
     Bq = torch.tensor(rng.randn(N, NQ), dtype=torch.float32, device=dev)
     trsm_ms, trsm_plain_ms = paired_ms(
         torch, lambda: trsm.trsm_cuda(L, Bq, True),
         lambda: trsm.solve_triangular_plain(L, Bq, True))
+    trsm_lib_ms = statistics.median(cuda_ms(torch, lambda: torch.linalg.solve_triangular(L, Bq, upper=False)))
     B1 = Bq[:, :1].contiguous()
     trsm1_ms, trsm1_plain_ms = paired_ms(
         torch, lambda: trsm.trsm_cuda(L.T, B1, False),
@@ -495,9 +851,11 @@ def main():
     print(f"  cross gram ({N} x {NQ}): kernel {on_card(gram_ms)}, plain f32 {on_card(gram_plain_ms)}")
     print(f"  lower-tile gram ({N}): kernel {on_card(glow_ms)}, plain f32 {on_card(glow_plain_ms)}")
     print(f"  cholesky factor only ({pad_to}): kernel {on_card(fac_ms)}, plain f32 (cuSOLVER) "
-          f"{on_card(fac_plain_ms)}")
-    print(f"  trsm lower P={NQ}: kernel {on_card(trsm_ms)}, plain f32 (cuBLAS) {on_card(trsm_plain_ms)}; "
-          f"upper through L.T, P=1: kernel {on_card(trsm1_ms)}, plain f32 {on_card(trsm1_plain_ms)}")
+          f"{on_card(fac_plain_ms)}, torch.linalg.cholesky_ex {on_card(fac_lib_ms)}")
+    print(f"  trsm lower P={NQ}: kernel {on_card(trsm_ms)}, plain f32 (cuBLAS) {on_card(trsm_plain_ms)}, "
+          f"torch.linalg.solve_triangular {on_card(trsm_lib_ms)}; "
+          f"upper through L.T, P=1: kernel {on_card(trsm1_ms)}, plain f32 {on_card(trsm1_plain_ms)}, "
+          "bound %.4f ms (%s)" % bound(N * N, tri_bytes(N) + 2 * N * 4))
     print(f"  posterior(): kernels {on_card(post_ms)}, use_kernels=False {on_card(post_plain_ms)}; "
           f"peak memory above the model {peaks[True]:.2f} GB and {peaks[False]:.2f} GB")
     print(f"  predict_f request, N*={NQ}: kernels {on_card(req_ms)}, use_kernels=False "
@@ -505,36 +863,44 @@ def main():
     print(f"  predict_f full_cov request, N*={NQ_FULL}: kernels {on_card(full_ms)}, use_kernels=False "
           f"{on_card(full_plain_ms)}")
 
+    # the SVGP path
+    bt_row = svgp_times(gft, torch, trsm, svgp_batch, rng, dev)
+
+    # each kernel's bound at the shape it was timed at (D = 1 inputs; a map
+    # entry counted as 5 flop: the difference, its square, the scale, exp)
+    gram_flop = 5
+    bounds = {
+        "gram_chol_operand": bound(gram_flop * pad_to * (pad_to + 1) // 2, tri_bytes(pad_to) + N * 4),
+        "chol_solve_logdet": bound(pad_to ** 3 / 3 + 2 * pad_to ** 2, 2 * tri_bytes(pad_to) + 2 * pad_to * 4),
+        "gram": bound(gram_flop * N * NQ, N * NQ * 4 + (N + NQ) * 4),
+        "gram_lower": bound(gram_flop * N * (N + 1) // 2, N * N * 4 + N * 4),
+        "cholesky": bound(pad_to ** 3 / 3, 2 * tri_bytes(pad_to)),
+        "trsm": bound(N * N * NQ, tri_bytes(N) + 2 * N * NQ * 4),
+    }
     print(card)
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, library_ms):
+        b_ms, b_by = bounds[name]
+        return {"name": name, "route": "cuda", "source": f"gpflow_slim_tpu_torch/csrc/{source}",
+                "replaces": f"gpflow_slim_tpu/ops/{replaces}", "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+    bounds["batched_trsm"] = (bt_row["bound_ms"], bt_row["bound_by"])
     print(json.dumps({"kernels": [
-        {"name": "gram_chol_operand", "route": "cuda",
-         "source": "gpflow_slim_tpu_torch/csrc/gram_operand.cu",
-         "replaces": "gpflow_slim_tpu/ops/pallas_gram.py:328",
-         "launches": n_opnd, "max_abs_err": operand_err, "ms": opnd_ms, "plain_ms": opnd_plain_ms},
-        {"name": "chol_solve_logdet", "route": "cuda",
-         "source": "gpflow_slim_tpu_torch/csrc/chol_solve.cu",
-         "replaces": "gpflow_slim_tpu/ops/pallas_cholesky.py:857",
-         "launches": n_chol, "max_abs_err": chol_err, "ms": chol_ms, "plain_ms": chol_plain_ms},
-        {"name": "gram", "route": "cuda",
-         "source": "gpflow_slim_tpu_torch/csrc/gram.cu",
-         "replaces": "gpflow_slim_tpu/ops/pallas_gram.py:95",
-         "launches": serve_launches["gram"], "max_abs_err": serve_errs["gram"],
-         "ms": gram_ms, "plain_ms": gram_plain_ms},
-        {"name": "gram_lower", "route": "cuda",
-         "source": "gpflow_slim_tpu_torch/csrc/gram.cu",
-         "replaces": "gpflow_slim_tpu/ops/pallas_gram.py:173",
-         "launches": serve_launches["gram_lower"], "max_abs_err": serve_errs["gram_lower"],
-         "ms": glow_ms, "plain_ms": glow_plain_ms},
-        {"name": "cholesky", "route": "cuda",
-         "source": "gpflow_slim_tpu_torch/csrc/chol_solve.cu",
-         "replaces": "gpflow_slim_tpu/ops/pallas_cholesky.py:716",
-         "launches": serve_launches["cholesky"], "max_abs_err": serve_errs["cholesky"],
-         "ms": fac_ms, "plain_ms": fac_plain_ms},
-        {"name": "trsm", "route": "cuda",
-         "source": "gpflow_slim_tpu_torch/csrc/trsm.cu",
-         "replaces": "gpflow_slim_tpu/ops/pallas_trsm.py:116",
-         "launches": serve_launches["trsm"], "max_abs_err": serve_errs["trsm"],
-         "ms": trsm_ms, "plain_ms": trsm_plain_ms},
+        row("gram_chol_operand", "gram_operand.cu", "pallas_gram.py:328", n_opnd, operand_err, opnd_ms,
+            opnd_plain_ms, None),
+        row("chol_solve_logdet", "chol_solve.cu", "pallas_cholesky.py:857", n_chol, chol_err, chol_ms,
+            chol_plain_ms, None),
+        row("gram", "gram.cu", "pallas_gram.py:95", serve_launches["gram"], serve_errs["gram"], gram_ms,
+            gram_plain_ms, None),
+        row("gram_lower", "gram.cu", "pallas_gram.py:173", serve_launches["gram_lower"],
+            serve_errs["gram_lower"], glow_ms, glow_plain_ms, None),
+        row("cholesky", "chol_solve.cu", "pallas_cholesky.py:716", serve_launches["cholesky"],
+            serve_errs["cholesky"], fac_ms, fac_plain_ms, fac_lib_ms),
+        row("trsm", "trsm.cu", "pallas_trsm.py:116", serve_launches["trsm"], serve_errs["trsm"], trsm_ms,
+            trsm_plain_ms, trsm_lib_ms),
+        row("batched_trsm", "batched_trsm.cu", "pallas_trsm.py:208", svgp_launches["batched_trsm"],
+            batched_err, bt_row["ms"], bt_row["plain_ms"], bt_row["library_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

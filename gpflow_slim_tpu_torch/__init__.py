@@ -3,9 +3,10 @@
 The same module layout and public names as the JAX package (``models.GPR``,
 ``kernels.RBF``, ``training.fit``, ``config.temp_settings``), in PyTorch's
 idiom: modules are ``nn.Module``s, each ``Param`` holds one unconstrained
-``nn.Parameter``, and the device and dtype are explicit. On CUDA float32
-tensors the exact-GPR objective runs on hand-written CUDA kernels
-(``csrc/``); elsewhere on their plain PyTorch versions.
+``nn.Parameter``, and models are placed on the CUDA device unless the
+caller passes ``device="cpu"``. On CUDA float32 tensors the exact-GPR
+objective and predictions and the SVGP's ELBO run on hand-written CUDA
+kernels (``csrc/``); elsewhere on their plain PyTorch versions.
 
     import gpflow_slim_tpu_torch as gft
     m = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=0.1),
@@ -14,16 +15,20 @@ tensors the exact-GPR objective runs on hand-written CUDA kernels
 """
 
 from . import (
+    conditionals,
     config,
     densities,
+    features,
     interop,
     kernels,
+    kullback_leiblers,
     likelihoods,
     mean_functions,
     models,
     ops,
     params,
     priors,
+    quadrature,
     training,
     transforms,
 )

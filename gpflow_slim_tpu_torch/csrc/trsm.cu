@@ -52,49 +52,16 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kBs = 64;            // block size
+constexpr int kBs = gfs::kTriBs;   // block size
 constexpr int kDiagThreads = kBs;  // diag: one column of X per thread, one pivot per thread
 constexpr int kThreads = 256;      // update: 16 x 16 threads, 4 x 4 outputs each
-constexpr int kLd4 = kBs + 4;      // padded shared row that keeps 16-byte alignment for float4
+constexpr int kLd4 = gfs::kTriLd;  // padded shared row that keeps 16-byte alignment for float4
 constexpr int kGroup = 4;          // block columns applied together by one wide update
 constexpr int kMaxGridY = 65535;
-
-// Stages the 64 x 64 logical tile of T at (row0, col0) through registers
-// into shared memory, as s[r][c], or as s[c][r] when kStoreT. Global reads
-// run along memory rows (coalesced) in either orientation, and each of the
-// kNT threads issues all its loads before its first store, so they are in
-// flight together. Entries outside N x N are the identity when
-// `unit_diag`, else 0.
-template <int kNT, bool kTrans, bool kStoreT, int kLdS>
-__device__ __forceinline__ void load_tile(const float* __restrict__ T, int N, int ld, int row0,
-                                          int col0, float (*s)[kLdS], bool unit_diag) {
-  constexpr int kIt = kBs * kBs / kNT;
-  float v[kIt];
-#pragma unroll
-  for (int q = 0; q < kIt; ++q) {
-    const int e = threadIdx.x + q * kNT;
-    const int m = e / kBs, n = e % kBs;  // memory row, memory column
-    const int gr = row0 + (kTrans ? n : m), gc = col0 + (kTrans ? m : n);
-    if (gr < N && gc < N) {
-      v[q] = kTrans ? T[static_cast<size_t>(gc) * ld + gr] : T[static_cast<size_t>(gr) * ld + gc];
-    } else {
-      v[q] = (unit_diag && gr == gc) ? 1.0f : 0.0f;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kIt; ++q) {
-    const int e = threadIdx.x + q * kNT;
-    const int m = e / kBs, n = e % kBs;
-    const int r = kTrans ? n : m, c = kTrans ? m : n;
-    if (kStoreT) {
-      s[c][r] = v[q];
-    } else {
-      s[r][c] = v[q];
-    }
-  }
-}
 
 template <bool kLower, bool kTrans>
 __global__ void __launch_bounds__(kDiagThreads)
@@ -102,7 +69,7 @@ __global__ void __launch_bounds__(kDiagThreads)
   __shared__ __align__(16) float lt[kBs][kLd4];  // T_kk transposed: lt[c][r] = T_kk[r][c]
   __shared__ float dinv[kBs];                     // 1 / T_kk[j][j]
   const int row0 = k * kBs;
-  load_tile<kDiagThreads, kTrans, true, kLd4>(T, N, ld, row0, row0, lt, true);
+  gfs::load_tri_tile<kDiagThreads, kTrans, true>(T, N, ld, row0, row0, lt, true);
   __syncthreads();
   // the divisions leave the dependent chain: one reciprocal per row, all at
   // once (kDiagThreads == kBs), then a multiply in the chain
@@ -114,41 +81,7 @@ __global__ void __launch_bounds__(kDiagThreads)
   float v[kBs];
 #pragma unroll
   for (int r = 0; r < kBs; ++r) v[r] = r < rows ? X[static_cast<size_t>(row0 + r) * P + c] : 0.0f;
-  // column-oriented substitution: once x_j is final, it is eliminated from
-  // every row still to solve. The rows' updates are independent, so the
-  // dependent chain is one multiply and one FMA per row; column j of T_kk
-  // is row j of lt, read four entries at a time.
-  if (kLower) {
-#pragma unroll
-    for (int j = 0; j < kBs; ++j) {
-      v[j] *= dinv[j];
-#pragma unroll
-      for (int i0 = 0; i0 < kBs; i0 += 4) {
-        if (i0 + 3 > j) {
-          const float4 t = *reinterpret_cast<const float4*>(&lt[j][i0]);
-          if (i0 > j) v[i0] = fmaf(-t.x, v[j], v[i0]);
-          if (i0 + 1 > j) v[i0 + 1] = fmaf(-t.y, v[j], v[i0 + 1]);
-          if (i0 + 2 > j) v[i0 + 2] = fmaf(-t.z, v[j], v[i0 + 2]);
-          v[i0 + 3] = fmaf(-t.w, v[j], v[i0 + 3]);
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = kBs - 1; j >= 0; --j) {
-      v[j] *= dinv[j];
-#pragma unroll
-      for (int i0 = 0; i0 < kBs; i0 += 4) {
-        if (i0 < j) {
-          const float4 t = *reinterpret_cast<const float4*>(&lt[j][i0]);
-          v[i0] = fmaf(-t.x, v[j], v[i0]);
-          if (i0 + 1 < j) v[i0 + 1] = fmaf(-t.y, v[j], v[i0 + 1]);
-          if (i0 + 2 < j) v[i0 + 2] = fmaf(-t.z, v[j], v[i0 + 2]);
-          if (i0 + 3 < j) v[i0 + 3] = fmaf(-t.w, v[j], v[i0 + 3]);
-        }
-      }
-    }
-  }
+  gfs::substitute<kLower>(v, lt, dinv);
 #pragma unroll
   for (int r = 0; r < kBs; ++r) {
     if (r < rows) X[static_cast<size_t>(row0 + r) * P + c] = v[r];
@@ -175,7 +108,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int d = 0; d < depth; ++d) {
     const int k = kLower ? k0 + d : k0 - d;
     if (d > 0) __syncthreads();  // every thread is done with the previous tiles
-    load_tile<kThreads, kTrans, false, kLd4>(T, N, ld, i * kBs, k * kBs, a, false);
+    gfs::load_tri_tile<kThreads, kTrans, false>(T, N, ld, i * kBs, k * kBs, a, false);
     constexpr int kIt = kBs * kBs / kThreads;
     float xv[kIt];  // all loads in flight before the first store
 #pragma unroll
@@ -190,26 +123,7 @@ __global__ void __launch_bounds__(kThreads)
       bt[e % kBs][e / kBs] = xv[q];
     }
     __syncthreads();
-    // the inner dimension is read four at a time
-    for (int t = 0; t < kBs; t += 4) {
-      float4 av[4], bv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        av[q] = *reinterpret_cast<const float4*>(&a[ty + 16 * q][t]);
-        bv[q] = *reinterpret_cast<const float4*>(&bt[tx + 16 * q][t]);
-      }
-#pragma unroll
-      for (int qa = 0; qa < 4; ++qa) {
-#pragma unroll
-        for (int qb = 0; qb < 4; ++qb) {
-          float s = acc[qa][qb];
-          s = fmaf(av[qa].x, bv[qb].x, s);
-          s = fmaf(av[qa].y, bv[qb].y, s);
-          s = fmaf(av[qa].z, bv[qb].z, s);
-          acc[qa][qb] = fmaf(av[qa].w, bv[qb].w, s);
-        }
-      }
-    }
+    gfs::tile_fma(acc, a, bt, tx, ty);
   }
 #pragma unroll
   for (int qa = 0; qa < 4; ++qa) {

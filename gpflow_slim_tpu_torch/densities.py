@@ -12,7 +12,7 @@ import math
 
 import torch
 
-__all__ = ["gaussian", "lognormal", "gamma", "beta", "laplace"]
+__all__ = ["gaussian", "bernoulli", "lognormal", "gamma", "beta", "laplace"]
 
 
 def _like(v, x):
@@ -22,6 +22,10 @@ def _like(v, x):
 def gaussian(x, mu, var):
     var = _like(var, x)
     return -0.5 * torch.log(2.0 * math.pi * var) - 0.5 * torch.square(x - mu) / var
+
+
+def bernoulli(p, y):
+    return torch.log(torch.where(y == 1, p, 1.0 - p))
 
 
 def lognormal(x, mu, var):

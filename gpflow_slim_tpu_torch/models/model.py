@@ -7,7 +7,8 @@ convention of the reference. A training step is plain PyTorch::
     loss.backward()
 
 ``GPModel`` holds the data ``X`` and ``Y`` as buffers and moves itself,
-data and parameters, to one explicit device and dtype. It adds the
+data and parameters, to one device and dtype: the CUDA device unless the
+caller asks for another (``device="cpu"``). It adds the
 predictive API: ``predict_f`` (-> ``build_predict``), ``predict_f_full_cov``,
 ``predict_f_samples``, ``predict_y`` and ``predict_density``, routed through
 the likelihood as the reference does. ``full_cov=True`` predictions have
@@ -67,13 +68,19 @@ class Model(Module):
 class GPModel(Model):
     """A GP model on data ``X`` (N, D) and ``Y`` (N, P).
 
-    ``device`` and ``dtype`` place the data and every parameter; ``dtype``
+    ``device`` and ``dtype`` place the data and every parameter. ``device``
+    defaults to CUDA, and without a CUDA device leaving it out raises: the
+    port runs on the card unless the caller asks for the CPU. ``dtype``
     defaults to the float dtype the data was given in (float64 otherwise).
     """
 
     def __init__(self, X, Y, kern, likelihood, mean_function=None, num_latent=None,
                  name="gp_model", device=None, dtype=None):
         super().__init__(name=name)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError('no CUDA device: pass device="cpu" to build the model on the CPU')
+            device = "cuda"
         dtype = dtype if dtype is not None else _data_dtype(X)
         X = torch.as_tensor(X, dtype=dtype, device=device)
         Y = torch.as_tensor(Y, dtype=dtype, device=device)

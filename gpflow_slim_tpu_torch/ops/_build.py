@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # per-kernel registers, shared memory and spills, into the build log
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> argument types (each returns a cudaError_t as int)
 _ENTRIES = {
     # X, N, D, scal, kind, pad_to, out, stream
@@ -46,6 +46,8 @@ _ENTRIES = {
     "gfs_cholesky": (_P, _I, _P, _P),
     # L, N, ld, trans, lower, X, P, stream
     "gfs_trsm": (_P, _I, _I, _I, _I, _P, _I, _P),
+    # L, P, M, ld, batch_stride, trans, lower, X, K, stream
+    "gfs_batched_trsm": (_P, _I, _I, _I, _L, _I, _I, _P, _I, _P),
 }
 
 

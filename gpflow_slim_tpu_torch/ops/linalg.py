@@ -1,15 +1,17 @@
-"""Routed dense linear algebra of exact GPR: its objective and its
-predictions.
+"""Routed dense linear algebra: the exact-GPR objective and predictions,
+and the variational models' batched solves.
 
 Counterpart of ``gpr_chol_terms``, ``chol_logdet_quad``, ``cholesky``,
-``solve_lower``, ``solve_upper`` and ``cho_solve_lower`` in
-``gpflow_slim_tpu/ops/linalg.py``, with the same dispatch shape. The route
+``solve_lower``, ``solve_upper``, ``cho_solve_lower`` and the
+``batched_*`` solves in ``gpflow_slim_tpu/ops/linalg.py``, with the same
+dispatch shape. The route
 is decided here and nowhere else, by ``kernels_active``: for a CUDA
 float32 tensor with ``config.settings().use_kernels`` on, it is the
 hand-written kernels at every N and every right-hand-side width: the
 one-pass operand (``ops.gram``) feeding the fused factor/solve/logdet
 (``ops.cholesky``) for the objective, the factor-only Cholesky
-(``ops.cholesky``) and the wide TRSM (``ops.trsm``) for predictions.
+(``ops.cholesky``) and the wide TRSM (``ops.trsm``) for predictions, the
+batched TRSM (``ops.trsm``) for the batched solves.
 Otherwise it is the plain PyTorch composite (``torch.linalg``), with
 autograd's own gradients; with ``use_kernels=False`` on CUDA this is the
 explicit on/off pair, not a fallback.
@@ -87,3 +89,24 @@ def solve_upper(U, B):
 def cho_solve_lower(L, B):
     """Solve ``(L L^T) X = B`` given the lower Cholesky factor."""
     return solve_upper(L.mT, solve_lower(L, B))
+
+
+def batched_solve_lower(L, B):
+    """Solve ``L[p] X[p] = B[p]`` over a leading batch dim, ``L`` (P, M, M)
+    lower triangular (one triangle broadcast with ``expand`` is read in
+    place), ``B`` (P, M, K): the variational q_sqrt / per-output solves."""
+    if kernels_active(L):
+        return _trsm.batched_solve_lower(L, B)
+    return _trsm.batched_solve_triangular_plain(L, B, lower=True)
+
+
+def batched_solve_upper(U, B):
+    """Solve ``U[p] X[p] = B[p]`` over a leading batch dim, ``U`` upper."""
+    if kernels_active(U):
+        return _trsm.batched_solve_upper(U, B)
+    return _trsm.batched_solve_triangular_plain(U, B, lower=False)
+
+
+def batched_cho_solve_lower(L, B):
+    """Solve ``(L[p] L[p]^T) X[p] = B[p]`` given batched lower factors."""
+    return batched_solve_upper(L.mT, batched_solve_lower(L, B))

@@ -1,15 +1,22 @@
-"""Blocked triangular solve with a wide right-hand side.
+"""Blocked triangular solves: one wide right-hand side, and a batch.
 
-Counterpart of the wide path of ``gpflow_slim_tpu/ops/pallas_trsm.py``
-(``_trsm_pallas``, ``solve_lower``, ``solve_upper``). The Pallas kernel
-``_make_trsm_kernel`` becomes the hand-written CUDA kernel in
-``csrc/trsm.cu``; beside it stands its plain PyTorch version
-(``solve_triangular_plain``).
+Counterpart of ``gpflow_slim_tpu/ops/pallas_trsm.py``. Its two Pallas
+kernels become hand-written CUDA kernels, each with its plain PyTorch
+version beside it:
 
-The kernel reads the triangle through a row stride and a transpose flag,
-so ``solve_upper(L.T, B)`` with ``L`` row-major, or ``L`` a view into a
-padded buffer (``ops.cholesky.cholesky``), is solved without a copy of
-``L``. It masks the ragged edge itself: nothing is padded.
+- ``_make_trsm_kernel`` (``_trsm_pallas``, ``solve_lower``,
+  ``solve_upper``): ``trsm_cuda`` in ``csrc/trsm.cu``; plain
+  ``solve_triangular_plain``;
+- ``_make_batched_trsm_kernel`` (``_batched_trsm_pallas``,
+  ``batched_solve_lower``, ``batched_solve_upper``): ``batched_trsm_cuda``
+  in ``csrc/batched_trsm.cu``; plain ``batched_solve_triangular_plain``.
+
+The kernels read the triangle through a row stride and a transpose flag
+(and the batched one through a batch stride, which may be 0), so
+``solve_upper(L.T, B)`` with ``L`` row-major, ``L`` a view into a padded
+buffer (``ops.cholesky.cholesky``), or one triangle broadcast over a batch
+with ``expand`` is solved without a copy of ``L``. They mask the ragged
+edge themselves: nothing is padded.
 """
 
 from __future__ import annotations
@@ -118,3 +125,100 @@ def solve_upper(U, B):
     """Differentiable ``U^-1 B``, ``U`` upper triangular (``L.T`` of a
     lower factor is read in place), ``B`` (N, P) or (N,)."""
     return _apply(U, B, False)
+
+
+def batched_solve_triangular_plain(T, B, lower):
+    """Plain ``T[p]^-1 B[p]`` by one batched ``torch.linalg.solve_triangular``."""
+    return torch.linalg.solve_triangular(T, B, upper=not lower)
+
+
+def _batched_layout(T):
+    """``(batch_stride, ld, trans)`` of a (P, M, M) batch of triangles the
+    kernel can read in place: each a row-major matrix with row stride
+    ``ld`` or the transpose of one, ``batch_stride`` apart (0 for one
+    triangle broadcast by ``expand``)."""
+    layout = _layout(T[0])
+    if layout is None:
+        return None
+    return (T.stride(0) if T.shape[0] > 1 else 0, *layout)
+
+
+def batched_trsm_cuda(T, B, lower):
+    """Launch ``csrc/batched_trsm.cu`` on CUDA float32 tensors: returns
+    ``X`` with ``T[p] X[p] = B[p]``, ``T`` (P, M, M) lower (``lower``) or
+    upper triangular, ``B`` (P, M, K), K >= 1, contiguous. Each ``T[p]`` is
+    row major (any row stride of at least M) or the transposed view of
+    such a matrix, and the batch may have stride 0; only the triangles are
+    read."""
+    for name, t in (("T", T), ("B", B)):
+        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 3:
+            raise ValueError(
+                f"batched_trsm_cuda takes 3-D CUDA float32 tensors; {name} is {t.dim()}-D "
+                f"{t.dtype} on {t.device}")
+    P, M, K = B.shape
+    if T.shape != (P, M, M) or min(P, M, K) < 1:
+        raise ValueError(f"bad shapes: T {tuple(T.shape)}, B {tuple(B.shape)} "
+                         f"(T (P, M, M), B (P, M, K), each at least 1)")
+    if B.device != T.device:
+        raise ValueError(f"T on {T.device} but B on {B.device}")
+    if not B.is_contiguous():
+        raise ValueError("batched_trsm_cuda needs a contiguous B")
+    layout = _batched_layout(T)
+    if layout is None:
+        raise ValueError(f"batched_trsm_cuda reads each T[p] row major or transposed; got strides "
+                         f"{T.stride()}")
+    batch_stride, ld, trans = layout
+    X = B.clone()
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(T.device).cuda_stream
+    code = lib.gfs_batched_trsm(T.data_ptr(), P, M, ld, batch_stride, trans, int(lower),
+                                X.data_ptr(), K, stream)
+    _build.check(lib, code, "batched_trsm")
+    batched_trsm_cuda.launches += 1
+    return X
+
+
+batched_trsm_cuda.launches = 0
+
+
+def _batched_solve(T, B, lower):
+    # plain for CPU tensors; any other tensor goes to the kernel, which
+    # launches or raises
+    if T.device.type == "cpu":
+        return batched_solve_triangular_plain(T, B, lower)
+    return batched_trsm_cuda(T, B, lower)
+
+
+class _BatchedTrsm(torch.autograd.Function):
+    """Forward: the batched TRSM (kernel or plain). Backward:
+    ``_batched_trsm_bwd`` of the JAX package: gB = T^-T g by the same TRSM
+    on the transposed views, read in place, and dT = -tri(gB X^T) by a
+    batched matrix product (outside any kernel in the JAX package too). A
+    ``T`` broadcast with ``expand`` gets the sum over the batch from
+    autograd's ``expand`` backward."""
+
+    @staticmethod
+    def forward(ctx, T, B, lower):
+        X = _batched_solve(T, B, lower)
+        ctx.lower = lower
+        ctx.save_for_backward(T, X)
+        return X
+
+    @staticmethod
+    def backward(ctx, g):
+        T, X = ctx.saved_tensors
+        gB = _batched_solve(T.mT, g.contiguous(), not ctx.lower)
+        dT = -(gB @ X.mT)
+        return (dT.tril() if ctx.lower else dT.triu()), gB, None
+
+
+def batched_solve_lower(L, B):
+    """Differentiable ``L[p]^-1 B[p]``, ``L`` (P, M, M) lower triangular
+    (a stride-0 batch is read in place), ``B`` (P, M, K)."""
+    return _BatchedTrsm.apply(L, B, True)
+
+
+def batched_solve_upper(U, B):
+    """Differentiable ``U[p]^-1 B[p]``, ``U`` (P, M, M) upper triangular
+    (``L.mT`` of lower factors is read in place), ``B`` (P, M, K)."""
+    return _BatchedTrsm.apply(U, B, False)

@@ -5,7 +5,8 @@ Each transform maps an unconstrained ``x`` to the constrained value
 
 Parity constants: ``Log1pe`` (the default ``positive``) is
 ``softplus(x) + 1e-6`` with ``log_jacobian = sum(-softplus(-x))``; ``Exp`` is
-``exp(x) + lower``; ``Logistic(a, b)`` is an affine sigmoid into (a, b).
+``exp(x) + lower``; ``Logistic(a, b)`` is an affine sigmoid into (a, b);
+``LowerTriangular`` packs lower triangles row-wise into a flat vector.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import math
 
 import torch
 
-__all__ = ["Transform", "Identity", "Exp", "Log1pe", "Logistic", "Chain", "positive"]
+__all__ = ["Transform", "Identity", "Exp", "Log1pe", "Logistic", "Chain", "LowerTriangular",
+           "positive"]
 
 
 def _softplus(x):
@@ -115,6 +117,40 @@ class Chain(Transform):
     def log_jacobian(self, x):
         mid = self.inner.forward(x)
         return self.inner.log_jacobian(x) + self.outer.log_jacobian(mid)
+
+
+@dataclasses.dataclass(frozen=True)
+class LowerTriangular(Transform):
+    """Pack flat vector(s) into lower-triangular matrices.
+
+    ``forward`` maps a vector of length ``num_matrices * n(n+1)/2`` to a
+    tensor (num_matrices, n, n) (or (n, n) when ``squeeze``) whose lower
+    triangles are filled row-wise, in ``np.tril_indices`` order (the same
+    order as ``torch.tril_indices``), so the JAX package's packed vector
+    loads as it is. A linear embedding: its log-Jacobian is 0.
+    """
+
+    n: int
+    num_matrices: int = 1
+    squeeze: bool = False
+
+    def forward(self, x):
+        rows, cols = torch.tril_indices(self.n, self.n, device=x.device)
+        xs = x.reshape(self.num_matrices, rows.numel())
+        out = x.new_zeros((self.num_matrices, self.n, self.n))
+        out[:, rows, cols] = xs
+        if self.squeeze and self.num_matrices == 1:
+            out = out[0]
+        return out
+
+    def backward(self, y):
+        if y.dim() == 2:
+            y = y[None]
+        rows, cols = torch.tril_indices(self.n, self.n, device=y.device)
+        return y[:, rows, cols].reshape(-1)
+
+    def log_jacobian(self, x):
+        return torch.zeros((), dtype=x.dtype, device=x.device)
 
 
 def positive(lower: float | None = None) -> Transform:

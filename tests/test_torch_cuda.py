@@ -214,3 +214,105 @@ def test_posterior_kernel_route_matches_f64_plain(dev):
     # here (noise 1) keeps the f32 error near 1e-5
     assert float((mean.double() - mean64).abs().max()) <= 1e-4 * float(mean64.abs().max())
     assert float((var.double() - var64).abs().max()) <= 1e-4
+
+
+def _tri_batch(P, M, dev, seed=0):
+    # well-conditioned lower triangles, as tests/test_pallas.py makes them
+    rng = np.random.RandomState(seed)
+    L = np.stack([np.tril(rng.randn(M, M)) + M * np.eye(M) for _ in range(P)])
+    return torch.tensor(L, dtype=torch.float32, device=dev)
+
+
+# chip_smoke.py's phase-3 shapes: M = 1 and 65 are ragged against the
+# 64-row block, 1024 is the TPU kernel's stated size
+@pytest.mark.parametrize("P", [1, 16])
+@pytest.mark.parametrize("M", [1, 65, 200, 256, 1024])
+@pytest.mark.parametrize("Kc", ["1", "40", "M"])
+def test_batched_trsm_kernel_matches_plain(dev, P, M, Kc):
+    K = M if Kc == "M" else int(Kc)
+    L = _tri_batch(P, M, dev)
+    B = torch.tensor(np.random.RandomState(1).randn(P, M, K), dtype=torch.float32, device=dev)
+    B0 = B.clone()
+    Ld = L.double()
+    cases = [(L, Ld, True), (L.mT, Ld.mT, False),  # lower, and upper through the transposed view
+             (L[:1].expand(P, -1, -1), Ld[:1].expand(P, -1, -1), True)]  # a stride-0 batch
+    for T, Td, lower in cases:
+        got = trsm.batched_trsm_cuda(T, B, lower)
+        want = trsm.batched_solve_triangular_plain(Td, B.double(), lower)
+        # f32 substitution against f64: 1e-3 relative (max-norm), TRSM_TOL
+        assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert torch.equal(B, B0)  # B untouched
+
+
+@pytest.mark.parametrize("M", [65, 256])
+def test_batched_trsm_backward_kernel_matches_plain(dev, M):
+    P, K = 4, 40
+    L = _tri_batch(1, M, dev, 3)
+    B = torch.tensor(np.random.RandomState(4).randn(P, M, K), dtype=torch.float32, device=dev)
+    G = torch.tensor(np.random.RandomState(5).randn(P, M, K), dtype=torch.float32, device=dev)
+    grads = []
+    for dtype in (torch.float32, torch.float64):
+        t = L.to(dtype).clone().requires_grad_()  # fresh leaves in each dtype
+        b = B.to(dtype).clone().requires_grad_()
+        before = trsm.batched_trsm_cuda.launches
+        X = (trsm.batched_solve_lower if dtype == torch.float32 else
+             lambda a, c: trsm.batched_solve_triangular_plain(a, c, True))(t.expand(P, -1, -1), b)
+        torch.sum(X * G.to(dtype)).backward()
+        if dtype == torch.float32:  # forward and backward both launched the kernel
+            assert trsm.batched_trsm_cuda.launches == before + 2
+        grads.append((t.grad.double(), b.grad.double()))
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def test_batched_trsm_wrapper_raises_instead_of_falling_back(dev):
+    L = torch.eye(64, device=dev)[None]
+    with pytest.raises(ValueError, match="CUDA float32"):
+        trsm.batched_trsm_cuda(L.double(), torch.ones(1, 64, 1, device=dev, dtype=torch.float64), True)
+    with pytest.raises(ValueError, match="contiguous B"):
+        trsm.batched_trsm_cuda(L, torch.ones(1, 64, 2, device=dev)[:, :, :1], True)
+    with pytest.raises(ValueError, match="row major or transposed"):
+        trsm.batched_trsm_cuda(torch.eye(128, device=dev)[None, ::2, ::2], torch.ones(1, 64, 1, device=dev),
+                               True)
+    with pytest.raises(ValueError, match="bad shapes"):
+        trsm.batched_trsm_cuda(L, torch.ones(2, 64, 1, device=dev), True)
+
+
+@pytest.mark.parametrize("whiten", [False, True])
+def test_svgp_elbo_kernel_route_matches_f64_plain(dev, whiten):
+    rng = np.random.RandomState(0)
+    X = rng.uniform(0, 1, (2000, 1)).astype(np.float32)
+    Y = (np.sin(10 * X) > 0).astype(np.float32)
+    Z = np.linspace(0, 1, 64, dtype=np.float32)[:, None]
+    Xb, Yb = X[:512], Y[:512]
+
+    def elbo_and_grads(dtype, use_kernels):
+        m = gft.models.SVGP(X, Y, kern=gft.kernels.RBF(1, lengthscales=0.2),
+                            likelihood=gft.likelihoods.Bernoulli(), Z=Z, whiten=whiten,
+                            device=dev, dtype=dtype)
+        # the f32 jitter on every route, so the three compute one function
+        with gft.config.temp_settings(use_kernels=use_kernels, jitter=1e-4):
+            loss = -m.build_likelihood_batch(Xb, Yb)
+            loss.backward()
+        return loss.item(), {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(m)}
+
+    kernels = (gram.gram_cuda, cholesky.cholesky_cuda, trsm.trsm_cuda, trsm.batched_trsm_cuda)
+    before = [k.launches for k in kernels]
+    k32 = elbo_and_grads(torch.float32, True)
+    after = [k.launches for k in kernels]
+    assert all(a > b for a, b in zip(after[:3], before[:3])), (before, after)
+    assert (after[3] > before[3]) == (not whiten)  # only the unwhitened KL solves in a batch
+    p32 = elbo_and_grads(torch.float32, False)
+    assert [k.launches for k in kernels] == after  # use_kernels=False launches nothing
+    v64, g64 = elbo_and_grads(torch.float64, False)
+    # the kernel route within 2x the stock f32 route's error against f64,
+    # plus 1e-6 relative on the value and 1e-5 (max-norm) on each gradient:
+    # the f32 conditioning of Kuu sets the scale of both routes' errors
+    err = [abs(v - v64) / abs(v64) for v, _ in (k32, p32)]
+    assert err[0] <= 2 * err[1] + 1e-6, err
+    for n, want in g64.items():
+        # (whitened, at q = N(0, I) the ELBO does not depend on Z or the
+        # lengthscale: an exact 0 is compared in absolute terms)
+        scale = float(want.abs().max()) or 1.0
+        e = [float((g[n] - want).abs().max()) / scale for _, g in (k32, p32)]
+        assert e[0] <= 2 * e[1] + 1e-5, (n, e)

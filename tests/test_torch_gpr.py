@@ -56,7 +56,7 @@ def _pair(kern_name, prior=False, mean=None, D=1, N=60, P=1):
         A, b = 0.3 * np.ones((D, 1)), np.array([0.1])
         jmean, tmean = gfs.mean_functions.Linear(A, b), gft.mean_functions.Linear(A, b)
     jm = gfs.models.GPR(X, Y, kern=jk, mean_function=jmean)
-    tm = gft.models.GPR(X, Y, kern=tk, mean_function=tmean, dtype=torch.float64)
+    tm = gft.models.GPR(X, Y, kern=tk, mean_function=tmean, device="cpu", dtype=torch.float64)
     gft.interop.load_unconstrained(tm, _unconstrained(jm))
     return jm, tm
 
@@ -148,7 +148,7 @@ def test_interop_round_trip_and_mismatch():
     arrays = {n: p.unconstrained.detach().numpy().copy() for n, p in gft.params.parameters(tm)}
     fresh = gft.models.GPR(*_data(60, 3), kern=gft.kernels.Matern52(3, ARD=True),
                            mean_function=gft.mean_functions.Linear(np.zeros((3, 1))),
-                           dtype=torch.float64)
+                           device="cpu", dtype=torch.float64)
     gft.interop.load_unconstrained(fresh, arrays)
     for n, p in gft.params.parameters(fresh):
         assert np.array_equal(p.unconstrained.detach().numpy(), arrays[n]), n
@@ -162,16 +162,17 @@ def test_interop_round_trip_and_mismatch():
 
 def test_model_placement_and_checks():
     X, Y = _data(20)
-    m32 = gft.models.GPR(X.astype(np.float32), Y.astype(np.float32), kern=gft.kernels.RBF(1))
+    m32 = gft.models.GPR(X.astype(np.float32), Y.astype(np.float32), kern=gft.kernels.RBF(1),
+                         device="cpu")
     assert m32.X.dtype == torch.float32
     assert all(p.dtype == torch.float32 for _, p in gft.params.parameters(m32))
     assert "X" in dict(m32.named_buffers()) and "X" not in dict(m32.named_parameters())
     m64 = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1), device="cpu")
     assert m64.X.dtype == torch.float64 and m64.X.device.type == "cpu"
     with pytest.raises(ValueError, match="rank-2"):
-        gft.models.GPR(X[:, 0], Y, kern=gft.kernels.RBF(1))
+        gft.models.GPR(X[:, 0], Y, kern=gft.kernels.RBF(1), device="cpu")
     with pytest.raises(ValueError, match="agree on N"):
-        gft.models.GPR(X, Y[:10], kern=gft.kernels.RBF(1))
+        gft.models.GPR(X, Y[:10], kern=gft.kernels.RBF(1), device="cpu")
 
 
 def test_config_settings():

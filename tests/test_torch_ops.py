@@ -17,8 +17,10 @@ import pytest
 import torch
 from scipy.linalg import solve_triangular
 
+import gpflow_slim_tpu as gfs
+from gpflow_slim_tpu.ops import linalg as jax_linalg
 from gpflow_slim_tpu.ops import pallas_cholesky, pallas_gram, pallas_trsm
-from gpflow_slim_tpu_torch import config
+from gpflow_slim_tpu_torch import config, likelihoods, quadrature, transforms
 from gpflow_slim_tpu_torch.ops import _build, cholesky, gram, linalg, trsm
 
 torch.set_num_threads(2)
@@ -355,6 +357,149 @@ def test_trsm_backward_matches_jax(lower, monkeypatch):
     np.testing.assert_allclose(t.grad.numpy(), tri(np.asarray(gT)), rtol=0, atol=1e-12)
 
 
+def _tri_batch(P, M, seed=0):
+    # tests/test_pallas.py's well-conditioned triangles
+    rng = np.random.RandomState(seed)
+    return np.stack([np.tril(rng.randn(M, M)) + M * np.eye(M) for _ in range(P)])
+
+
+@pytest.mark.parametrize("entry", ["plain", "function", "routed"])
+def test_batched_trsm_matches_pallas_interpret(entry, monkeypatch):
+    # tests/test_pallas.py::test_batched_trsm_matches_vmapped_xla's shapes;
+    # the interpret-mode kernel is f32 inside (atol 2e-5 there too)
+    P, M, K = 3, 96, 40
+    L = _tri_batch(P, M)
+    B = np.random.RandomState(1).randn(P, M, K)
+    solve = {"plain": lambda T, b, lower: trsm.batched_solve_triangular_plain(T, b, lower),
+             "function": lambda T, b, lower: (trsm.batched_solve_lower if lower
+                                              else trsm.batched_solve_upper)(T, b),
+             "routed": lambda T, b, lower: (linalg.batched_solve_lower if lower
+                                            else linalg.batched_solve_upper)(T, b)}[entry]
+    if entry == "routed":
+        monkeypatch.setattr(linalg, "kernels_active", lambda t: True)
+    lo = solve(_t(L), _t(B), True).numpy()
+    up = solve(_t(L).mT, _t(B), False).numpy()  # the transposed view, read in place
+    ref_lo = np.asarray(pallas_trsm.batched_solve_lower_interpret(jnp.asarray(L, jnp.float32),
+                                                                  jnp.asarray(B, jnp.float32)))
+    ref_up = np.asarray(pallas_trsm.batched_solve_upper_interpret(
+        jnp.asarray(np.swapaxes(L, 1, 2), jnp.float32), jnp.asarray(B, jnp.float32)))
+    np.testing.assert_allclose(lo, ref_lo, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(up, ref_up, rtol=0, atol=2e-5)
+    want = np.stack([solve_triangular(l, b, lower=True) for l, b in zip(L, B)])
+    np.testing.assert_allclose(lo, want, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(linalg.batched_cho_solve_lower(_t(L), _t(B)).numpy(),
+                               np.linalg.solve(L @ np.swapaxes(L, 1, 2), B), rtol=1e-10, atol=1e-14)
+
+
+@pytest.mark.parametrize("M", [1, 63, 65])
+@pytest.mark.parametrize("broadcast", [False, True])
+def test_batched_trsm_backward_matches_jax(M, broadcast, monkeypatch):
+    # the autograd Function against JAX's VJP of ops.linalg.batched_solve_lower
+    # (XLA's solve on the CPU) and against `_batched_trsm_bwd` run through the
+    # interpret-mode kernel; ``broadcast``: one triangle expanded over the
+    # batch (stride 0), the KL's Lp, whose gradient sums over it
+    P, K = 3, 5
+    L = _tri_batch(1 if broadcast else P, M, 6)
+    B = np.random.RandomState(7).randn(P, M, K)
+    G = np.random.RandomState(8).randn(P, M, K)
+    t, b = _t(L, True), _t(B, True)
+    T = t.expand(P, -1, -1) if broadcast else t
+    if broadcast:
+        assert T.stride(0) == 0 and trsm._batched_layout(T) == (0, M, 0)
+    X = trsm.batched_solve_lower(T, b)
+    torch.sum(X * _t(G)).backward()
+
+    def f(l, c):
+        lb = jnp.broadcast_to(l, (P, M, M))
+        return jnp.sum(jax_linalg.batched_solve_lower(lb, c) * jnp.asarray(G))
+
+    gL, gB = jax.grad(f, argnums=(0, 1))(jnp.asarray(L), jnp.asarray(B))
+    np.testing.assert_allclose(b.grad.numpy(), np.asarray(gB), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(t.grad.numpy(), np.tril(np.asarray(gL)), rtol=0, atol=1e-12)
+    if M > 1:  # the interpret-mode kernel computes in f32: ~1e-7 here
+        Lb = np.broadcast_to(L, (P, M, M))
+        interp = pallas_trsm._batched_trsm_pallas
+        monkeypatch.setattr(pallas_trsm, "_batched_trsm_pallas",
+                            lambda *a, **k: interp(*a, interpret=True, **k))
+        dL, dB = pallas_trsm._batched_trsm_bwd(
+            True, (jnp.asarray(Lb), jnp.asarray(X.detach().numpy())), jnp.asarray(G))
+        dL = np.asarray(dL).sum(0, keepdims=True) if broadcast else np.asarray(dL)
+        np.testing.assert_allclose(b.grad.numpy(), np.asarray(dB), rtol=0, atol=1e-5)
+        np.testing.assert_allclose(t.grad.numpy(), dL, rtol=0, atol=1e-5)
+
+
+def test_batched_trsm_layouts():
+    L = torch.zeros(4, 10, 12, dtype=torch.float64)[:, :, :10]
+    assert trsm._batched_layout(L) == (120, 12, 0)
+    assert trsm._batched_layout(L.mT) == (120, 12, 1)
+    assert trsm._batched_layout(torch.zeros(10, 10).expand(3, -1, -1).mT) == (0, 10, 1)
+    assert trsm._batched_layout(torch.zeros(3, 20, 20)[:, ::2, ::2]) is None
+
+
+@pytest.mark.parametrize("P,squeeze", [(1, False), (3, False), (1, True)])
+def test_lower_triangular_matches_jax(P, squeeze):
+    M = 6
+    jt = gfs.transforms.LowerTriangular(M, num_matrices=P, squeeze=squeeze)
+    tt = transforms.LowerTriangular(M, num_matrices=P, squeeze=squeeze)
+    x = np.random.RandomState(9).randn(P * M * (M + 1) // 2)
+    want = np.asarray(jt.forward(x))
+    got = tt.forward(_t(x))
+    np.testing.assert_array_equal(got.numpy(), want)  # the packing order of np.tril_indices
+    np.testing.assert_array_equal(tt.backward(got).numpy(), x)
+    np.testing.assert_array_equal(tt.backward(got).numpy(), np.asarray(jt.backward(want)))
+    assert float(tt.log_jacobian(_t(x))) == 0.0
+    # autograd sees the embedding: the gradient of a lower-triangle sum is 1
+    xt = _t(x, True)
+    tt.forward(xt).sum().backward()
+    np.testing.assert_array_equal(xt.grad.numpy(), np.ones_like(x))
+
+
+def test_ndiagquad_matches_jax():
+    rng = np.random.RandomState(10)
+    Fmu, Fvar, Y = rng.randn(7, 2), rng.uniform(0.1, 1.0, (7, 2)), rng.randn(7, 2)
+    jq, tq = gfs.quadrature, quadrature
+    for H in (5, 20):
+        for logspace in (False, True):
+            want = jq.ndiagquad(lambda f, Y: -0.5 * (f - Y) ** 2, H, Fmu, Fvar, logspace=logspace, Y=Y)
+            got = tq.ndiagquad(lambda f, Y: -0.5 * (f - Y) ** 2, H, _t(Fmu), _t(Fvar),
+                               logspace=logspace, Y=_t(Y))
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-13, atol=1e-14)
+        # a list of functions of two latents
+        funcs = [lambda a, b: a * b, lambda a, b: np.exp(0) * (a + b) ** 2]
+        want = jq.ndiagquad(funcs, H, (Fmu[:, 0], Fmu[:, 1]), (Fvar[:, 0], Fvar[:, 1]))
+        got = tq.ndiagquad(funcs, H, (_t(Fmu[:, 0]), _t(Fmu[:, 1])), (_t(Fvar[:, 0]), _t(Fvar[:, 1])))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-13, atol=1e-14)
+    x, w = tq.mvhermgauss(4, 2)
+    jx, jw = jq.mvhermgauss(4, 2)
+    np.testing.assert_array_equal(x, jx)
+    np.testing.assert_array_equal(w, jw)
+
+
+def test_bernoulli_matches_jax():
+    rng = np.random.RandomState(11)
+    F, Fv = 2.0 * rng.randn(9, 1), rng.uniform(0.05, 2.0, (9, 1))
+    Y = (rng.rand(9, 1) > 0.5).astype(float)
+    jl, tl = gfs.likelihoods.Bernoulli(), likelihoods.Bernoulli()
+    pairs = [
+        (tl.logp(_t(F), _t(Y)), jl.logp(F, Y)),
+        (tl.conditional_mean(_t(F)), jl.conditional_mean(F)),
+        (tl.conditional_variance(_t(F)), jl.conditional_variance(F)),
+        (tl.variational_expectations(_t(F), _t(Fv), _t(Y)), jl.variational_expectations(F, Fv, Y)),
+        (tl.predict_density(_t(F), _t(Fv), _t(Y)), jl.predict_density(F, Fv, Y)),
+        *zip(tl.predict_mean_and_var(_t(F), _t(Fv)), jl.predict_mean_and_var(F, Fv)),
+        # the quadrature defaults of the base class, through another link
+        *zip(likelihoods.Likelihood.predict_mean_and_var(tl, _t(F), _t(Fv)),
+             gfs.likelihoods.Likelihood.predict_mean_and_var(jl, F, Fv)),
+        (likelihoods.Likelihood.predict_density(tl, _t(F), _t(Fv), _t(Y)),
+         gfs.likelihoods.Likelihood.predict_density(jl, F, Fv, Y)),
+    ]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(likelihoods.probit(_t(F)).numpy(), np.asarray(gfs.likelihoods.probit(F)),
+                               rtol=1e-14)
+
+
 def test_wrappers_take_plain_versions_on_cpu():
     # a CPU tensor runs the plain version and launches nothing
     Xs, _ = _inputs(30, 1)
@@ -388,6 +533,8 @@ def test_serving_kernel_wrappers_refuse_cpu_tensors():
         cholesky.cholesky_cuda(torch.eye(64))
     with pytest.raises(ValueError, match="CUDA float32"):
         trsm.trsm_cuda(torch.eye(64), torch.ones(64, 1), True)
+    with pytest.raises(ValueError, match="CUDA float32"):
+        trsm.batched_trsm_cuda(torch.eye(64)[None], torch.ones(1, 64, 1), True)
 
 
 def test_serving_route_on_cpu_launches_nothing(monkeypatch):
@@ -431,9 +578,10 @@ def test_library_path_keyed_by_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libgfs_kernels_")
     assert {f.name for f in _build.CSRC.glob("*.cu")} == {
-        "gram_operand.cu", "chol_solve.cu", "gram.cu", "trsm.cu"}
+        "gram_operand.cu", "chol_solve.cu", "gram.cu", "trsm.cu", "batched_trsm.cu"}
     assert set(_build._ENTRIES) == {"gfs_gram_chol_operand", "gfs_chol_solve_logdet", "gfs_gram",
-                                    "gfs_gram_lower", "gfs_cholesky", "gfs_trsm"}
+                                    "gfs_gram_lower", "gfs_cholesky", "gfs_trsm",
+                                    "gfs_batched_trsm"}
 
 
 def _imported_modules(path):
@@ -448,7 +596,8 @@ def _imported_modules(path):
 def test_port_never_imports_jax():
     # static: the test process has jax imported already
     files = sorted((REPO / "gpflow_slim_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_gpr.py"]
+        REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_gpr.py",
+        REPO / "tools" / "profile_torch_svgp.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imported_modules(f):

@@ -115,7 +115,7 @@ def test_model_aliases_and_stub():
     np.testing.assert_allclose(tm.compute_log_prior().item(), float(jm.compute_log_prior()),
                                rtol=1e-12)
     bare = gft.models.GPModel(np.zeros((3, 1)), np.zeros((3, 1)), gft.kernels.RBF(1),
-                              gft.likelihoods.Gaussian())
+                              gft.likelihoods.Gaussian(), device="cpu")
     with pytest.raises(NotImplementedError):
         bare.predict_f(np.zeros((2, 1)))
 

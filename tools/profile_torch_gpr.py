@@ -15,7 +15,8 @@ each:
   device activity (kernels, memcpy, memset) that torch.profiler records
   over 3 evaluations;
 - the device idle share, 1 - busy / wall, and within the device span;
-- the ten device activities with the most time, per evaluation.
+- the ten device activities with the most time, per evaluation (and, on
+  request, the host operators with the most self CPU time).
 
 The card's name and power limit come first. Needs a CUDA device.
 """
@@ -53,7 +54,7 @@ def busy_ms(events):
     return total / 1e3
 
 
-def report(label, fn):
+def report(label, fn, host_top=0):
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -89,6 +90,12 @@ def report(label, fn):
         t[1] += 1
     for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"{t / ITERS:9.3f} ms/iter  n={n // ITERS:5d}  {name}")
+    if host_top:
+        # where the host's time goes when the device waits on it
+        print("  host: the operators with the most self CPU time")
+        for a in sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:host_top]:
+            print(f"  {a.self_cpu_time_total / 1e3 / ITERS:9.3f} ms/iter  n={a.count // ITERS:5d}  "
+                  f"{a.key[:100]}")
 
 
 def main():
