@@ -19,7 +19,10 @@ unwhitened (the path of the batched TRSM) and whitened.
    factor/solve/logdet of the training path; the cross Gram (10000 x 2048,
    six kinds and D=3), the lower-tile Gram, the factor-only Cholesky and
    the TRSM (lower, and upper through the transposed view; P = 1, 7, 2048)
-   of the serving path; the batched TRSM of the SVGP path (P = 1, 16; M =
+   of the serving path; the same three at the SVGP path's shapes (the
+   cross Gram for Kuu and a 1024-point Kuf, the factor-only Cholesky of the
+   config's Kuu, the TRSM of its factor on Kuf, lower and upper through the
+   transposed view); the batched TRSM of the SVGP path (P = 1, 16; M =
    1, 65, 200, 256, 1024; K = 1, 40, M; lower, upper through the
    transposed view, a stride-0 batch; the config's chol(Kuu); its
    backward's gB and dL);
@@ -45,7 +48,9 @@ unwhitened (the path of the batched TRSM) and whitened.
    and the one PyTorch call computing the same function where there is
    one, each kernel's bound (the larger of its bytes over 3.35 TB/s and its
    flop over 67 TFLOP/s), and of each path's entry points, kernel route
-   against the use_kernels=False route, with peak memory.
+   against the use_kernels=False route, with peak memory; the SVGP
+   training rate by the host's wall clock, over five interleaved 20-step
+   fits per route.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero and prints no result. The
@@ -87,6 +92,7 @@ REPS = 5
 # the SVGP path: benchmarks/bench_svgp_nuts.py's bench_svgp_natgrad model
 SVGP_N, SVGP_M, SVGP_B, SVGP_LS = 100_000, 256, 1024, 0.2
 SVGP_STEPS, SVGP_GAMMA, SVGP_LR = 20, 0.1, 0.01
+SVGP_FITS = 5       # timed 20-step fits per route
 SVGP_JITTER = 1e-4  # the f32 jitter; the f64 references use it too, to compute the same function
 # SVGP gates: the kernel route's error against the f64 reference may be at
 # most twice the use_kernels=False float32 route's, plus these (relative;
@@ -334,6 +340,66 @@ def oracle_elbo(torch, Xb, Yb, Z, ls, var, q_mu, q_sqrt, whiten):
     return float(ve.sum() * (SVGP_N / len(Xb)) - kl)
 
 
+def check_svgp_kernels(torch, gram, cholesky, trsm, dev):
+    """Phase 3 for the serving kernels at the SVGP path's shapes: the cross
+    Gram for Kuu (256 x 256) and Kuf (256 x 1024), the factor-only Cholesky
+    of the config's Kuu and the TRSM of its factor on Kuf (lower, and upper
+    through the transposed view, as base_conditional calls them). Returns
+    each one's max abs error and the f32 Kuu."""
+    errs = {}
+    X, _, Z = svgp_data()
+    Zs = torch.tensor(Z, device=dev) / SVGP_LS
+    Xbs = torch.tensor(X[np.random.RandomState(3).permutation(SVGP_N)[:SVGP_B]], device=dev) / SVGP_LS
+    var = torch.tensor(1.0, dtype=torch.float32, device=dev)
+    errs["gram"], K = 0.0, {}
+    for what, xs in (("Kuu", Zs), ("Kuf", Xbs)):
+        K[what] = gram.gram_cuda("rbf", Zs, xs, var)
+        ref = gram.gram_reference("rbf", Zs.double(), xs.double(), 1.0)
+        err = float((K[what].double() - ref).abs().max())
+        print(f"gram (cross) rbf {what} ({SVGP_M} x {xs.shape[0]}): max abs err {err:.3e} "
+              f"(tol {OPERAND_TOL:g} x variance)")
+        if not err <= OPERAND_TOL * 1.0:
+            raise AssertionError(f"cross-Gram kernel disagrees at the SVGP shape {what}: {err}")
+        errs["gram"] = max(errs["gram"], err)
+    Kuu = K["Kuu"] + SVGP_JITTER * torch.eye(SVGP_M, device=dev)
+    Kuf = K["Kuf"]
+
+    # the factor: cond(Kuu) ~1e6 puts f32's own factor error near 1e-3
+    # (LAPACK's f32 potrf gives 6e-4 on this Kuu), so the factor is gated
+    # like the SVGP path, by twice the stock f32 route's (cuSOLVER's) error
+    # plus FACTOR_TOL; the half-logdet keeps its fixed gate
+    L_ref = cholesky.cholesky_plain(Kuu.double())
+    Lm = cholesky.cholesky_cuda(Kuu.clone()).tril_()  # M = 256 needs no padding
+    errs["cholesky"] = float((Lm.double() - L_ref).abs().max())
+    lib_rel = float((torch.linalg.cholesky(Kuu).double() - L_ref).abs().max()) / float(L_ref.abs().max())
+    h_ref = float(torch.log(torch.diagonal(L_ref)).sum())
+    h_rel = abs(float(torch.log(torch.diagonal(Lm).double()).sum()) - h_ref) / abs(h_ref)
+    gate(f"cholesky (factor only) of the config's Kuu (M={SVGP_M}) factor rel err vs f64",
+         errs["cholesky"] / float(L_ref.abs().max()), lib_rel, FACTOR_TOL)
+    print(f"cholesky (factor only) of the config's Kuu: half_logdet rel err {h_rel:.3e} "
+          f"(tol {FACTOR_HLD_TOL:g})")
+    if not h_rel <= FACTOR_HLD_TOL:
+        raise AssertionError("factor-only Cholesky's half_logdet disagrees on the config's Kuu")
+
+    # the solves of base_conditional on the kernel's own factor: A = Lm^-1
+    # Kuf, then Lm^-T A through the transposed view
+    Ld = Lm.double()
+    A = trsm.trsm_cuda(Lm, Kuf, True)
+    W = trsm.trsm_cuda(Lm.T, A, False)
+    errs["trsm"] = 0.0
+    for name, got, Td, B, lo in (("lower, Lm^-1 Kuf", A, Ld, Kuf, True),
+                                 ("upper, Lm.T view, Lm^-T A", W, Ld.T, A, False)):
+        want = torch.linalg.solve_triangular(Td, B.double(), upper=not lo)
+        err = float((got.double() - want).abs().max())
+        rel = err / float(want.abs().max())
+        print(f"trsm {name} ({SVGP_M} x {SVGP_B}) on the config's chol(Kuu): rel err {rel:.3e} "
+              f"(tol {TRSM_TOL:g})")
+        if not rel <= TRSM_TOL:
+            raise AssertionError(f"TRSM kernel ({name}) disagrees at the SVGP shape")
+        errs["trsm"] = max(errs["trsm"], err)
+    return errs, Kuu
+
+
 def check_batched_trsm(torch, trsm, Luu, rng, dev):
     """Phase 3 for the batched TRSM: each mode at each shape, the config's
     chol(Kuu), and the backward; returns the max abs error."""
@@ -356,7 +422,7 @@ def check_batched_trsm(torch, trsm, Luu, rng, dev):
                 for name, T, Td, lower in (
                         ("lower", L, Ld, True), ("upper, L.mT view", L.mT, Ld.mT, False),
                         ("stride-0 batch", L[:1].expand(P, -1, -1), Ld[:1].expand(P, -1, -1), True)):
-                    want = trsm.batched_solve_triangular_plain(Td, B.double(), lower)
+                    want = trsm.solve_triangular_plain(Td, B.double(), lower)
                     rels[name] = max(rels[name], compare(trsm.batched_trsm_cuda(T, B, lower), want))
             print(f"batched_trsm P={P} M={M} K in {sorted({1, 40, M})}: rel err "
                   + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" (tol {TRSM_TOL:g})")
@@ -369,9 +435,9 @@ def check_batched_trsm(torch, trsm, Luu, rng, dev):
     for name, B in (("identity", torch.eye(SVGP_M, device=dev)[None]),
                     ("random", torch.tensor(rng.randn(1, SVGP_M, SVGP_M), dtype=torch.float32, device=dev))):
         rel = max(compare(trsm.batched_trsm_cuda(Lb, B, True),
-                          trsm.batched_solve_triangular_plain(Lbd, B.double(), True)),
+                          trsm.solve_triangular_plain(Lbd, B.double(), True)),
                   compare(trsm.batched_trsm_cuda(Lb.mT, B, False),
-                          trsm.batched_solve_triangular_plain(Lbd.mT, B.double(), False)))
+                          trsm.solve_triangular_plain(Lbd.mT, B.double(), False)))
         print(f"batched_trsm on the config's chol(Kuu) (M={SVGP_M}), {name} right-hand side, lower and "
               f"upper: rel err {rel:.3e} (tol {TRSM_TOL:g})")
         if not rel <= TRSM_TOL:
@@ -381,7 +447,7 @@ def check_batched_trsm(torch, trsm, Luu, rng, dev):
     grads = []
     for t, b, solve in ((Luu.clone(), B.clone(), trsm.batched_solve_lower),
                         (Luu.double(), B.double(),
-                         lambda a, c: trsm.batched_solve_triangular_plain(a, c, True))):
+                         lambda a, c: trsm.solve_triangular_plain(a, c, True))):
         t.requires_grad_()
         b.requires_grad_()
         torch.sum(solve(t.expand(1, -1, -1), b) * G.to(t.dtype)).backward()
@@ -509,7 +575,7 @@ def svgp_times(gft, torch, trsm, batch, rng, dev):
         L = torch.tensor(L, dtype=torch.float32, device=dev)
         B = torch.tensor(rng.randn(P, M, K), dtype=torch.float32, device=dev)
         k_ms, p_ms = paired_ms(torch, lambda: trsm.batched_trsm_cuda(L, B, True),
-                               lambda: trsm.batched_solve_triangular_plain(L, B, True))
+                               lambda: trsm.solve_triangular_plain(L, B, True))
         lib_ms = statistics.median(cuda_ms(torch, lambda: torch.linalg.solve_triangular(L, B, upper=False)))
         b_ms, b_by = bound(P * M * M * K, P * tri_bytes(M) + 2 * P * M * K * 4)
         rows[(P, M, K)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
@@ -556,10 +622,12 @@ def svgp_times(gft, torch, trsm, batch, rng, dev):
             k_ms, p_ms = paired_ms(torch, routed(fn, True), routed(fn, False), setup=reset)
             print(f"  SVGP {label} {what} (B={SVGP_B}, M={SVGP_M}): kernels {k_ms:.3f} ms, "
                   f"use_kernels=False {p_ms:.3f} ms")
-        # steps per second of 20-step fits from the model as built
-        rates = {True: [], False: []}
+        # steps per second of 20-step fits from the model as built, by the
+        # host's wall clock (the step is host-bound), the routes interleaved
+        seconds = {True: [], False: []}
         stats = {True: [0, 0, 0], False: [0, 0, 0]}
-        for flag in (False, True, True, False, False, True):
+        order = (False, True, True, False) * (SVGP_FITS // 2) + (False, True) * (SVGP_FITS % 2)
+        for flag in order:
             reset()
             before = (ng.backtracked, ng.halvings, ng.kept)
             with gft.config.temp_settings(use_kernels=flag):
@@ -567,15 +635,18 @@ def svgp_times(gft, torch, trsm, batch, rng, dev):
                 t0 = time.perf_counter()
                 fit(SVGP_STEPS)
                 torch.cuda.synchronize()
-                rates[flag].append(SVGP_STEPS / (time.perf_counter() - t0))
+                seconds[flag].append(time.perf_counter() - t0)
             stats[flag] = [s + a - b for s, a, b in zip(stats[flag], (ng.backtracked, ng.halvings, ng.kept),
                                                         before)]
         for flag in (True, False):
             route = "kernels" if flag else "use_kernels=False"
-            print(f"  svgp_natgrad_iters_per_sec_N{SVGP_N}_M{SVGP_M}_B{SVGP_B}_{label} ({route}): best "
-                  f"{max(rates[flag]):.2f} steps/s of 3 x {SVGP_STEPS} steps "
-                  f"({', '.join(f'{r:.2f}' for r in rates[flag])}); natgrad steps that halved gamma "
-                  f"{stats[flag][0]} of {3 * SVGP_STEPS}, halvings {stats[flag][1]}, kept q {stats[flag][2]}")
+            rates = sorted(SVGP_STEPS / s for s in seconds[flag])
+            print(f"  svgp_natgrad_iters_per_sec_N{SVGP_N}_M{SVGP_M}_B{SVGP_B}_{label} ({route}): "
+                  f"{SVGP_FITS * SVGP_STEPS / sum(seconds[flag]):.2f} steps/s over all "
+                  f"{SVGP_FITS} x {SVGP_STEPS} timed steps (wall clock); per fit median "
+                  f"{statistics.median(rates):.2f}, min {rates[0]:.2f}, max {rates[-1]:.2f}; natgrad "
+                  f"steps that halved gamma {stats[flag][0]} of {SVGP_FITS * SVGP_STEPS}, halvings "
+                  f"{stats[flag][1]}, kept q {stats[flag][2]}")
     return rows[(1, SVGP_M, SVGP_M)]
 
 
@@ -658,9 +729,10 @@ def main():
 
     serve_errs, Xqs, Lp, L = check_serving_kernels(torch, gram, cholesky, trsm, Xs, X3s, Kp, var,
                                                    rng, dev)
-    # the SVGP path's batched TRSM, with the config's chol(Kuu) as the KL factors it
-    Zs = torch.tensor(svgp_data()[2], device=dev) / SVGP_LS
-    Kuu = gram.gram_reference("rbf", Zs, Zs, 1.0) + SVGP_JITTER * torch.eye(SVGP_M, device=dev)
+    # the SVGP path: its serving kernels at its own shapes, then its batched
+    # TRSM with the config's chol(Kuu) as the KL factors it
+    svgp_errs, Kuu = check_svgp_kernels(torch, gram, cholesky, trsm, dev)
+    serve_errs = {k: max(e, svgp_errs.get(k, 0.0)) for k, e in serve_errs.items()}
     batched_err = check_batched_trsm(torch, trsm, torch.linalg.cholesky(Kuu), rng, dev)
 
     # 4. the training path at full width, through the public entry points

@@ -97,14 +97,14 @@ def batched_solve_lower(L, B):
     place), ``B`` (P, M, K): the variational q_sqrt / per-output solves."""
     if kernels_active(L):
         return _trsm.batched_solve_lower(L, B)
-    return _trsm.batched_solve_triangular_plain(L, B, lower=True)
+    return _trsm.solve_triangular_plain(L, B, lower=True)
 
 
 def batched_solve_upper(U, B):
     """Solve ``U[p] X[p] = B[p]`` over a leading batch dim, ``U`` upper."""
     if kernels_active(U):
         return _trsm.batched_solve_upper(U, B)
-    return _trsm.batched_solve_triangular_plain(U, B, lower=False)
+    return _trsm.solve_triangular_plain(U, B, lower=False)
 
 
 def batched_cho_solve_lower(L, B):

@@ -9,7 +9,11 @@ version beside it:
   ``solve_triangular_plain``;
 - ``_make_batched_trsm_kernel`` (``_batched_trsm_pallas``,
   ``batched_solve_lower``, ``batched_solve_upper``): ``batched_trsm_cuda``
-  in ``csrc/batched_trsm.cu``; plain ``batched_solve_triangular_plain``.
+  in ``csrc/batched_trsm.cu``; plain ``solve_triangular_plain`` on the
+  batch.
+
+The two wrappers share their checks and launch (``_launch``), and one
+autograd Function (``_Trsm``) serves a triangle or a batch.
 
 The kernels read the triangle through a row stride and a transpose flag
 (and the batched one through a batch stride, which may be 0), so
@@ -27,22 +31,63 @@ from . import _build
 
 
 def solve_triangular_plain(T, B, lower):
-    """Plain ``T^-1 B`` by ``torch.linalg.solve_triangular``; a 1-D ``B``
-    gives a 1-D result."""
-    X = torch.linalg.solve_triangular(T, B if B.dim() == 2 else B[:, None], upper=not lower)
-    return X if B.dim() == 2 else X[:, 0]
+    """Plain ``T^-1 B`` by ``torch.linalg.solve_triangular``, over any
+    leading batch dimension of ``T`` and ``B``; a ``B`` of one dimension
+    less than ``T`` (one vector per triangle) gives a result of its shape."""
+    vector = B.dim() < T.dim()
+    X = torch.linalg.solve_triangular(T, B[..., None] if vector else B, upper=not lower)
+    return X[..., 0] if vector else X
 
 
 def _layout(T):
-    """``(ld, trans)`` of a 2-D triangle the kernel can read in place: row
-    major with row stride ``ld``, or the transpose of such a matrix."""
-    N = T.shape[0]
-    s0, s1 = T.stride()
-    if s1 == 1 and s0 >= N:
-        return s0, 0
-    if s0 == 1 and s1 >= N:
-        return s1, 1
+    """``(batch_stride, ld, trans)`` of a triangle (M, M), or a batch of
+    them (P, M, M), that the kernels can read in place: each a row-major
+    matrix with row stride ``ld`` or the transpose of one, ``batch_stride``
+    apart (0 for one triangle, or one broadcast over the batch by
+    ``expand``)."""
+    M = T.shape[-1]
+    s0, s1 = T.stride()[-2:]
+    batch_stride = T.stride(0) if T.dim() == 3 and T.shape[0] > 1 else 0
+    if s1 == 1 and s0 >= M:
+        return batch_stride, s0, 0
+    if s0 == 1 and s1 >= M:
+        return batch_stride, s1, 1
     return None
+
+
+def _launch(entry, T, B, lower):
+    """The checks and the launch the two kernels share: ``entry`` is
+    ``"trsm"`` (T (N, N), B (N, P)) or ``"batched_trsm"`` (T (P, M, M),
+    B (P, M, K)); it solves in place on a clone of ``B`` and returns it."""
+    rank = 2 if entry == "trsm" else 3
+    for name, t in (("T", T), ("B", B)):
+        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != rank:
+            raise ValueError(
+                f"{entry}_cuda takes {rank}-D CUDA float32 tensors; {name} is {t.dim()}-D {t.dtype} "
+                f"on {t.device}")
+    M, K = B.shape[-2:]
+    if T.shape != (*B.shape[:-1], M) or min(B.shape) < 1:
+        raise ValueError(f"bad shapes: T {tuple(T.shape)}, B {tuple(B.shape)} (T square over B's "
+                         f"rows, each dimension at least 1)")
+    if B.device != T.device:
+        raise ValueError(f"T on {T.device} but B on {B.device}")
+    if not B.is_contiguous():
+        raise ValueError(f"{entry}_cuda needs a contiguous B")
+    layout = _layout(T)
+    if layout is None:
+        raise ValueError(f"{entry}_cuda reads each triangle row major or transposed; got strides "
+                         f"{T.stride()}")
+    batch_stride, ld, trans = layout
+    X = B.clone()
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(T.device).cuda_stream
+    if rank == 2:
+        code = lib.gfs_trsm(T.data_ptr(), M, ld, trans, int(lower), X.data_ptr(), K, stream)
+    else:
+        code = lib.gfs_batched_trsm(T.data_ptr(), B.shape[0], M, ld, batch_stride, trans, int(lower),
+                                    X.data_ptr(), K, stream)
+    _build.check(lib, code, entry)
+    return X
 
 
 def trsm_cuda(T, B, lower):
@@ -51,28 +96,7 @@ def trsm_cuda(T, B, lower):
     (N, P), P >= 1, contiguous. ``T`` is row major (any row stride of at
     least N) or the transposed view of such a matrix; only its triangle is
     read."""
-    for name, t in (("T", T), ("B", B)):
-        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 2:
-            raise ValueError(
-                f"trsm_cuda takes 2-D CUDA float32 tensors; {name} is {t.dim()}-D {t.dtype} "
-                f"on {t.device}")
-    N, P = B.shape
-    if T.shape != (N, N) or N < 1 or P < 1:
-        raise ValueError(f"bad shapes: T {tuple(T.shape)}, B {tuple(B.shape)} "
-                         f"(T square, B with its rows and at least one column)")
-    if B.device != T.device:
-        raise ValueError(f"T on {T.device} but B on {B.device}")
-    if not B.is_contiguous():
-        raise ValueError("trsm_cuda needs a contiguous B")
-    layout = _layout(T)
-    if layout is None:
-        raise ValueError(f"trsm_cuda reads T row major or transposed; got strides {T.stride()}")
-    ld, trans = layout
-    X = B.clone()
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(T.device).cuda_stream
-    code = lib.gfs_trsm(T.data_ptr(), N, ld, trans, int(lower), X.data_ptr(), P, stream)
-    _build.check(lib, code, "trsm")
+    X = _launch("trsm", T, B, lower)
     trsm_cuda.launches += 1
     return X
 
@@ -80,20 +104,37 @@ def trsm_cuda(T, B, lower):
 trsm_cuda.launches = 0
 
 
+def batched_trsm_cuda(T, B, lower):
+    """Launch ``csrc/batched_trsm.cu`` on CUDA float32 tensors: returns
+    ``X`` with ``T[p] X[p] = B[p]``, ``T`` (P, M, M) lower (``lower``) or
+    upper triangular, ``B`` (P, M, K), K >= 1, contiguous. Each ``T[p]`` is
+    read as ``trsm_cuda`` reads its ``T``, and the batch may have stride 0;
+    only the triangles are read."""
+    X = _launch("batched_trsm", T, B, lower)
+    batched_trsm_cuda.launches += 1
+    return X
+
+
+batched_trsm_cuda.launches = 0
+
+
 def _solve(T, B, lower):
-    # plain for CPU tensors; any other tensor goes to the kernel, which
-    # launches or raises (ops.linalg.kernels_active decides whether the
-    # kernels are wanted at all)
+    # plain for CPU tensors; any other tensor goes to the kernel of its rank,
+    # which launches or raises (ops.linalg.kernels_active decides whether
+    # the kernels are wanted at all)
     if T.device.type == "cpu":
         return solve_triangular_plain(T, B, lower)
-    return trsm_cuda(T, B, lower)
+    return (trsm_cuda if T.dim() == 2 else batched_trsm_cuda)(T, B, lower)
 
 
 class _Trsm(torch.autograd.Function):
-    """Forward: the TRSM (kernel or plain). Backward: ``_trsm_bwd`` of the
-    JAX package: gB = T^-T g by the same TRSM on the transposed view, and
-    dT = -tri(gB X^T) by a plain matrix product (the JAX package computes
-    that product outside any kernel too)."""
+    """Forward: the TRSM, one triangle or a batch (kernel or plain).
+    Backward: ``_trsm_bwd`` / ``_batched_trsm_bwd`` of the JAX package:
+    gB = T^-T g by the same TRSM on the transposed view, read in place, and
+    dT = -tri(gB X^T) by a (batched) matrix product (the JAX package
+    computes that product outside any kernel too). A ``T`` broadcast with
+    ``expand`` gets the sum over the batch from autograd's ``expand``
+    backward."""
 
     @staticmethod
     def forward(ctx, T, B, lower):
@@ -127,98 +168,13 @@ def solve_upper(U, B):
     return _apply(U, B, False)
 
 
-def batched_solve_triangular_plain(T, B, lower):
-    """Plain ``T[p]^-1 B[p]`` by one batched ``torch.linalg.solve_triangular``."""
-    return torch.linalg.solve_triangular(T, B, upper=not lower)
-
-
-def _batched_layout(T):
-    """``(batch_stride, ld, trans)`` of a (P, M, M) batch of triangles the
-    kernel can read in place: each a row-major matrix with row stride
-    ``ld`` or the transpose of one, ``batch_stride`` apart (0 for one
-    triangle broadcast by ``expand``)."""
-    layout = _layout(T[0])
-    if layout is None:
-        return None
-    return (T.stride(0) if T.shape[0] > 1 else 0, *layout)
-
-
-def batched_trsm_cuda(T, B, lower):
-    """Launch ``csrc/batched_trsm.cu`` on CUDA float32 tensors: returns
-    ``X`` with ``T[p] X[p] = B[p]``, ``T`` (P, M, M) lower (``lower``) or
-    upper triangular, ``B`` (P, M, K), K >= 1, contiguous. Each ``T[p]`` is
-    row major (any row stride of at least M) or the transposed view of
-    such a matrix, and the batch may have stride 0; only the triangles are
-    read."""
-    for name, t in (("T", T), ("B", B)):
-        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 3:
-            raise ValueError(
-                f"batched_trsm_cuda takes 3-D CUDA float32 tensors; {name} is {t.dim()}-D "
-                f"{t.dtype} on {t.device}")
-    P, M, K = B.shape
-    if T.shape != (P, M, M) or min(P, M, K) < 1:
-        raise ValueError(f"bad shapes: T {tuple(T.shape)}, B {tuple(B.shape)} "
-                         f"(T (P, M, M), B (P, M, K), each at least 1)")
-    if B.device != T.device:
-        raise ValueError(f"T on {T.device} but B on {B.device}")
-    if not B.is_contiguous():
-        raise ValueError("batched_trsm_cuda needs a contiguous B")
-    layout = _batched_layout(T)
-    if layout is None:
-        raise ValueError(f"batched_trsm_cuda reads each T[p] row major or transposed; got strides "
-                         f"{T.stride()}")
-    batch_stride, ld, trans = layout
-    X = B.clone()
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(T.device).cuda_stream
-    code = lib.gfs_batched_trsm(T.data_ptr(), P, M, ld, batch_stride, trans, int(lower),
-                                X.data_ptr(), K, stream)
-    _build.check(lib, code, "batched_trsm")
-    batched_trsm_cuda.launches += 1
-    return X
-
-
-batched_trsm_cuda.launches = 0
-
-
-def _batched_solve(T, B, lower):
-    # plain for CPU tensors; any other tensor goes to the kernel, which
-    # launches or raises
-    if T.device.type == "cpu":
-        return batched_solve_triangular_plain(T, B, lower)
-    return batched_trsm_cuda(T, B, lower)
-
-
-class _BatchedTrsm(torch.autograd.Function):
-    """Forward: the batched TRSM (kernel or plain). Backward:
-    ``_batched_trsm_bwd`` of the JAX package: gB = T^-T g by the same TRSM
-    on the transposed views, read in place, and dT = -tri(gB X^T) by a
-    batched matrix product (outside any kernel in the JAX package too). A
-    ``T`` broadcast with ``expand`` gets the sum over the batch from
-    autograd's ``expand`` backward."""
-
-    @staticmethod
-    def forward(ctx, T, B, lower):
-        X = _batched_solve(T, B, lower)
-        ctx.lower = lower
-        ctx.save_for_backward(T, X)
-        return X
-
-    @staticmethod
-    def backward(ctx, g):
-        T, X = ctx.saved_tensors
-        gB = _batched_solve(T.mT, g.contiguous(), not ctx.lower)
-        dT = -(gB @ X.mT)
-        return (dT.tril() if ctx.lower else dT.triu()), gB, None
-
-
 def batched_solve_lower(L, B):
     """Differentiable ``L[p]^-1 B[p]``, ``L`` (P, M, M) lower triangular
     (a stride-0 batch is read in place), ``B`` (P, M, K)."""
-    return _BatchedTrsm.apply(L, B, True)
+    return _Trsm.apply(L, B, True)
 
 
 def batched_solve_upper(U, B):
     """Differentiable ``U[p]^-1 B[p]``, ``U`` (P, M, M) upper triangular
     (``L.mT`` of lower factors is read in place), ``B`` (P, M, K)."""
-    return _BatchedTrsm.apply(U, B, False)
+    return _Trsm.apply(U, B, False)

@@ -168,6 +168,30 @@ def test_trsm_kernel_matches_plain(dev, N, P):
     assert torch.equal(B, B0)  # B untouched
 
 
+def test_serving_kernels_at_svgp_shapes(dev):
+    # the cross Gram, factor-only Cholesky and TRSM as base_conditional runs
+    # them on the SVGP benchmark's Kuu (256 points on [0, 1], lengthscale
+    # 0.2, jitter 1e-4: cond ~1e6) and a 1024-point Kuf. The factor is held
+    # within 2x cuSOLVER's f32 error + 1e-4 (f32's own error is ~6e-4 at
+    # this conditioning), the solves at 1e-3 relative
+    Zs = torch.linspace(0, 1, 256, device=dev)[:, None] / 0.2
+    Xs = _xs(1024, 1, dev)  # on [0, 1], scaled by the lengthscale 0.2
+    Kzz, Kuf = (gram.gram_cuda("rbf", Zs, X2, 1.0) for X2 in (Zs, Xs))
+    for K, X2 in ((Kzz, Zs), (Kuf, Xs)):
+        want = gram.gram_reference("rbf", Zs.double(), X2.double(), 1.0)
+        assert float((K.double() - want).abs().max()) <= 1e-5
+    Kuu = Kzz + 1e-4 * torch.eye(256, device=dev)
+    L_ref = cholesky.cholesky_plain(Kuu.double())
+    Lm = cholesky.cholesky_cuda(Kuu.clone()).tril_()
+    e_kernel = float((Lm.double() - L_ref).abs().max())
+    e_lib = float((torch.linalg.cholesky(Kuu).double() - L_ref).abs().max())
+    assert e_kernel <= 2 * e_lib + 1e-4 * float(L_ref.abs().max()), (e_kernel, e_lib)
+    A = trsm.trsm_cuda(Lm, Kuf, True)
+    for got, T, B, lower in ((A, Lm, Kuf, True), (trsm.trsm_cuda(Lm.T, A, False), Lm.T, A, False)):
+        want = torch.linalg.solve_triangular(T.double(), B.double(), upper=not lower)
+        assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
 def test_serving_wrappers_raise_instead_of_falling_back(dev):
     x = _xs(10, 1, dev)
     with pytest.raises(ValueError, match="CUDA float32"):
@@ -238,7 +262,7 @@ def test_batched_trsm_kernel_matches_plain(dev, P, M, Kc):
              (L[:1].expand(P, -1, -1), Ld[:1].expand(P, -1, -1), True)]  # a stride-0 batch
     for T, Td, lower in cases:
         got = trsm.batched_trsm_cuda(T, B, lower)
-        want = trsm.batched_solve_triangular_plain(Td, B.double(), lower)
+        want = trsm.solve_triangular_plain(Td, B.double(), lower)
         # f32 substitution against f64: 1e-3 relative (max-norm), TRSM_TOL
         assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
     assert torch.equal(B, B0)  # B untouched
@@ -256,7 +280,7 @@ def test_batched_trsm_backward_kernel_matches_plain(dev, M):
         b = B.to(dtype).clone().requires_grad_()
         before = trsm.batched_trsm_cuda.launches
         X = (trsm.batched_solve_lower if dtype == torch.float32 else
-             lambda a, c: trsm.batched_solve_triangular_plain(a, c, True))(t.expand(P, -1, -1), b)
+             lambda a, c: trsm.solve_triangular_plain(a, c, True))(t.expand(P, -1, -1), b)
         torch.sum(X * G.to(dtype)).backward()
         if dtype == torch.float32:  # forward and backward both launched the kernel
             assert trsm.batched_trsm_cuda.launches == before + 2

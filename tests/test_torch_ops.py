@@ -370,7 +370,7 @@ def test_batched_trsm_matches_pallas_interpret(entry, monkeypatch):
     P, M, K = 3, 96, 40
     L = _tri_batch(P, M)
     B = np.random.RandomState(1).randn(P, M, K)
-    solve = {"plain": lambda T, b, lower: trsm.batched_solve_triangular_plain(T, b, lower),
+    solve = {"plain": lambda T, b, lower: trsm.solve_triangular_plain(T, b, lower),
              "function": lambda T, b, lower: (trsm.batched_solve_lower if lower
                                               else trsm.batched_solve_upper)(T, b),
              "routed": lambda T, b, lower: (linalg.batched_solve_lower if lower
@@ -405,7 +405,7 @@ def test_batched_trsm_backward_matches_jax(M, broadcast, monkeypatch):
     t, b = _t(L, True), _t(B, True)
     T = t.expand(P, -1, -1) if broadcast else t
     if broadcast:
-        assert T.stride(0) == 0 and trsm._batched_layout(T) == (0, M, 0)
+        assert T.stride(0) == 0 and trsm._layout(T) == (0, M, 0)
     X = trsm.batched_solve_lower(T, b)
     torch.sum(X * _t(G)).backward()
 
@@ -430,10 +430,14 @@ def test_batched_trsm_backward_matches_jax(M, broadcast, monkeypatch):
 
 def test_batched_trsm_layouts():
     L = torch.zeros(4, 10, 12, dtype=torch.float64)[:, :, :10]
-    assert trsm._batched_layout(L) == (120, 12, 0)
-    assert trsm._batched_layout(L.mT) == (120, 12, 1)
-    assert trsm._batched_layout(torch.zeros(10, 10).expand(3, -1, -1).mT) == (0, 10, 1)
-    assert trsm._batched_layout(torch.zeros(3, 20, 20)[:, ::2, ::2]) is None
+    assert trsm._layout(L) == (120, 12, 0)
+    assert trsm._layout(L.mT) == (120, 12, 1)
+    assert trsm._layout(torch.zeros(10, 10).expand(3, -1, -1).mT) == (0, 10, 1)
+    assert trsm._layout(torch.zeros(3, 20, 20)[:, ::2, ::2]) is None
+    # one triangle: the 2-D kernel's reads, with no batch stride
+    assert trsm._layout(torch.zeros(10, 12)[:, :10]) == (0, 12, 0)
+    assert trsm._layout(torch.zeros(10, 12)[:, :10].T) == (0, 12, 1)
+    assert trsm._layout(torch.zeros(20, 20)[::2, ::2]) is None
 
 
 @pytest.mark.parametrize("P,squeeze", [(1, False), (3, False), (1, True)])
