@@ -18,8 +18,12 @@ unwhitened (the path of the batched TRSM) and whitened.
    card on the same inputs: the Gram operand and the fused
    factor/solve/logdet of the training path; the cross Gram (10000 x 2048,
    six kinds and D=3), the lower-tile Gram, the factor-only Cholesky and
-   the TRSM (lower, and upper through the transposed view; P = 1, 7, 2048)
-   of the serving path; the same three at the SVGP path's shapes (the
+   the TRSM (lower, and upper through the transposed view; P = 1, 7, 64,
+   2048) of the serving path; the TRSM's thin schedule (P <= 64) at
+   N = 1, 63, 64, 65 and P = 1, 64 (lower, upper through the transposed
+   view, a view with row stride > N); both Cholesky modes at sides that are
+   not multiples of the 256-wide panel (a last panel of 64 and of 192
+   columns); the same three at the SVGP path's shapes (the
    cross Gram for Kuu and a 1024-point Kuf, the factor-only Cholesky of the
    config's Kuu, the TRSM of its factor on Kuf, lower and upper through the
    transposed view); the batched TRSM of the SVGP path (P = 1, 16; M =
@@ -252,7 +256,7 @@ def check_serving_kernels(torch, gram, cholesky, trsm, Xs, X3s, Kp, var, rng, de
 
     errs["trsm"] = 0.0
     Ld = L.double()
-    for P in (1, 7, NQ):
+    for P in (1, 7, 64, NQ):
         B = torch.tensor(rng.randn(N, P), dtype=torch.float32, device=dev)
         for name, T, Td, lo in (("lower", L, Ld, True), ("upper, L.T view", L.T, Ld.T, False)):
             got = trsm.trsm_cuda(T, B, lo)
@@ -265,6 +269,63 @@ def check_serving_kernels(torch, gram, cholesky, trsm, Xs, X3s, Kp, var, rng, de
             errs["trsm"] = max(errs["trsm"], err)
     del Ld
     return errs, Xqs, Lp, L
+
+
+def check_schedule_edges(torch, gram, cholesky, trsm, rng, dev):
+    """Phase 3 at the edges of the redesigned schedules: the TRSM's thin
+    schedule at small and ragged N, and both Cholesky modes at sides whose
+    last 256-wide panel is narrower. Returns the max abs errors."""
+    errs = {"trsm": 0.0, "cholesky": 0.0, "chol_solve": 0.0}
+    for N in (1, 63, 64, 65):
+        Lw = np.tril(rng.randn(N, N)) * 0.1 + 2 * np.eye(N)
+        buf = torch.zeros(N, N + 3, dtype=torch.float32, device=dev)
+        buf[:, :N] = torch.tensor(Lw, dtype=torch.float32, device=dev)
+        Lv = buf[:, :N]  # a view with row stride N + 3
+        Ld = Lv.double()
+        for P in (1, 64):
+            B = torch.tensor(rng.randn(N, P), dtype=torch.float32, device=dev)
+            for name, T, Td, lo in (("lower, ld > N", Lv, Ld, True), ("upper, .T of ld > N", Lv.T, Ld.T, False),
+                                    ("lower, contiguous", Lv.contiguous(), Ld, True)):
+                got = trsm.trsm_cuda(T, B, lo)
+                want = torch.linalg.solve_triangular(Td, B.double(), upper=not lo)
+                err = float((got.double() - want).abs().max())
+                rel = err / float(want.abs().max())
+                print(f"trsm thin N={N} P={P} {name}: rel err {rel:.3e} (tol {TRSM_TOL:g})")
+                if not rel <= TRSM_TOL:
+                    raise AssertionError(f"TRSM thin schedule (N={N}, P={P}, {name}) disagrees")
+                errs["trsm"] = max(errs["trsm"], err)
+    # Np = 320: one full panel and one of 64 columns; 1216: four full
+    # panels and one of 192
+    for n in (300, 1200):
+        Np = n + (-n) % cholesky.BLOCK
+        xs = torch.tensor(rng.uniform(0, 1, (n, 1)) / 0.2, dtype=torch.float32, device=dev)
+        Kp = gram.gram_chol_operand_cuda("matern52", xs, 1.0, 0.5, Np)
+        L_ref = cholesky.cholesky_plain(torch.tril(Kp).double())
+        Lg = torch.tril(cholesky.cholesky_cuda(Kp.clone()))
+        e = float((Lg.double() - L_ref).abs().max())
+        rel = e / float(L_ref.abs().max())
+        h_ref = float(torch.log(torch.diagonal(L_ref)).sum())
+        h_rel = abs(float(torch.log(torch.diagonal(Lg).double()).sum()) - h_ref) / abs(h_ref)
+        print(f"cholesky (factor only) Np={Np} (last panel {Np % 256 or 256} wide): factor rel err "
+              f"{rel:.3e} (tol {FACTOR_TOL:g}), half_logdet rel err {h_rel:.3e} (tol {FACTOR_HLD_TOL:g})")
+        if not (rel <= FACTOR_TOL and h_rel <= FACTOR_HLD_TOL):
+            raise AssertionError(f"factor-only Cholesky disagrees at Np={Np}")
+        errs["cholesky"] = max(errs["cholesky"], e)
+        for P in (1, 9):
+            Dp = torch.zeros(Np, P, dtype=torch.float32, device=dev)
+            Dp[:n] = torch.tensor(rng.randn(n, P), dtype=torch.float32, device=dev)
+            _, a_ref, h_ref = cholesky.cholesky_solve_plain(torch.tril(Kp).double(), Dp.double())
+            _, a_got, h_got = cholesky.cholesky_solve_cuda(Kp.clone(), Dp)
+            h_rel = abs(float(h_got) - float(h_ref)) / abs(float(h_ref))
+            a_abs = float((a_got.double() - a_ref).abs().max())
+            a_rel = a_abs / float(a_ref.abs().max())
+            pad_zero = bool((a_got[n:] == 0).all())
+            print(f"chol_solve Np={Np} P={P}: half_logdet rel err {h_rel:.3e} (tol {HLD_TOL:g}), alpha rel "
+                  f"err {a_rel:.3e} (tol {ALPHA_TOL:g}), pad rows of alpha exactly 0: {pad_zero}")
+            if not (h_rel <= HLD_TOL and a_rel <= ALPHA_TOL and pad_zero):
+                raise AssertionError(f"fused Cholesky disagrees at Np={Np}, P={P}")
+            errs["chol_solve"] = max(errs["chol_solve"], a_abs)
+    return errs
 
 
 def serving_requests(gft, torch, model):
@@ -729,6 +790,10 @@ def main():
 
     serve_errs, Xqs, Lp, L = check_serving_kernels(torch, gram, cholesky, trsm, Xs, X3s, Kp, var,
                                                    rng, dev)
+    edge_errs = check_schedule_edges(torch, gram, cholesky, trsm, rng, dev)
+    serve_errs["trsm"] = max(serve_errs["trsm"], edge_errs["trsm"])
+    serve_errs["cholesky"] = max(serve_errs["cholesky"], edge_errs["cholesky"])
+    chol_err = max(chol_err, edge_errs["chol_solve"])
     # the SVGP path: its serving kernels at its own shapes, then its batched
     # TRSM with the config's chol(Kuu) as the KL factors it
     svgp_errs, Kuu = check_svgp_kernels(torch, gram, cholesky, trsm, dev)
@@ -792,13 +857,16 @@ def main():
                            device="cuda", dtype=torch.float32)
     for fn in serve_kernels.values():
         fn.launches = 0
+    trsm.trsm_cuda.by_schedule = {"thin": 0, "wide": 0}
     post, answers = serving_requests(gft, torch, serve)
     torch.cuda.synchronize()
     serve_launches = {name: fn.launches for name, fn in serve_kernels.items()}
+    serve_launches.update({f"trsm_{k}": n for k, n in trsm.trsm_cuda.by_schedule.items()})
     print(f"serving path (posterior, 4 x predict_f at {NQ}, full_cov at {NQ_FULL}, predict_y, "
           f"predict_density, uncached predict_f): launches {serve_launches}")
     if not all(n > 0 for n in serve_launches.values()):
-        raise AssertionError(f"the serving path did not run all four of its kernels: {serve_launches}")
+        raise AssertionError(f"the serving path did not run all four of its kernels and both TRSM "
+                             f"schedules: {serve_launches}")
     shapes = [(NQ, 1)] * 2 * 4 + [(NQ_FULL, 1), (1, NQ_FULL, NQ_FULL)] + [(NQ, 1)] * 5
     tensors = [t for m_v in answers["predict_f"] for t in m_v] + list(answers["full_cov"]) + [
         *answers["predict_y"], answers["predict_density"], *answers["uncached"]]
@@ -889,6 +957,7 @@ def main():
     trsm1_ms, trsm1_plain_ms = paired_ms(
         torch, lambda: trsm.trsm_cuda(L.T, B1, False),
         lambda: trsm.solve_triangular_plain(L.T, B1, False))
+    trsm1_lib_ms = statistics.median(cuda_ms(torch, lambda: torch.linalg.solve_triangular(L.T, B1, upper=True)))
 
     def build_posterior():
         with torch.no_grad():
@@ -924,10 +993,12 @@ def main():
     print(f"  lower-tile gram ({N}): kernel {on_card(glow_ms)}, plain f32 {on_card(glow_plain_ms)}")
     print(f"  cholesky factor only ({pad_to}): kernel {on_card(fac_ms)}, plain f32 (cuSOLVER) "
           f"{on_card(fac_plain_ms)}, torch.linalg.cholesky_ex {on_card(fac_lib_ms)}")
-    print(f"  trsm lower P={NQ}: kernel {on_card(trsm_ms)}, plain f32 (cuBLAS) {on_card(trsm_plain_ms)}, "
-          f"torch.linalg.solve_triangular {on_card(trsm_lib_ms)}; "
-          f"upper through L.T, P=1: kernel {on_card(trsm1_ms)}, plain f32 {on_card(trsm1_plain_ms)}, "
-          "bound %.4f ms (%s)" % bound(N * N, tri_bytes(N) + 2 * N * 4))
+    print(f"  trsm lower P={NQ} (wide schedule): kernel {on_card(trsm_ms)}, plain f32 (cuBLAS) "
+          f"{on_card(trsm_plain_ms)}, torch.linalg.solve_triangular {on_card(trsm_lib_ms)}")
+    nb = (N + trsm.BLOCK - 1) // trsm.BLOCK
+    print(f"  trsm upper through L.T, P=1 (thin schedule): kernel {on_card(trsm1_ms)} "
+          f"({trsm1_ms / nb * 1e3:.2f} us per block row of {nb}), plain f32 {on_card(trsm1_plain_ms)}, "
+          f"torch.linalg.solve_triangular {on_card(trsm1_lib_ms)}")
     print(f"  posterior(): kernels {on_card(post_ms)}, use_kernels=False {on_card(post_plain_ms)}; "
           f"peak memory above the model {peaks[True]:.2f} GB and {peaks[False]:.2f} GB")
     print(f"  predict_f request, N*={NQ}: kernels {on_card(req_ms)}, use_kernels=False "
@@ -948,6 +1019,7 @@ def main():
         "gram_lower": bound(gram_flop * N * (N + 1) // 2, N * N * 4 + N * 4),
         "cholesky": bound(pad_to ** 3 / 3, 2 * tri_bytes(pad_to)),
         "trsm": bound(N * N * NQ, tri_bytes(N) + 2 * N * NQ * 4),
+        "trsm_thin": bound(N * N, tri_bytes(N) + 2 * N * 4),
     }
     print(card)
 
@@ -969,8 +1041,10 @@ def main():
             serve_errs["gram_lower"], glow_ms, glow_plain_ms, None),
         row("cholesky", "chol_solve.cu", "pallas_cholesky.py:716", serve_launches["cholesky"],
             serve_errs["cholesky"], fac_ms, fac_plain_ms, fac_lib_ms),
-        row("trsm", "trsm.cu", "pallas_trsm.py:116", serve_launches["trsm"], serve_errs["trsm"], trsm_ms,
+        row("trsm", "trsm.cu", "pallas_trsm.py:116", serve_launches["trsm_wide"], serve_errs["trsm"], trsm_ms,
             trsm_plain_ms, trsm_lib_ms),
+        row("trsm_thin", "trsm.cu", "pallas_trsm.py:116", serve_launches["trsm_thin"], serve_errs["trsm"],
+            trsm1_ms, trsm1_plain_ms, trsm1_lib_ms),
         row("batched_trsm", "batched_trsm.cu", "pallas_trsm.py:208", svgp_launches["batched_trsm"],
             batched_err, bt_row["ms"], bt_row["plain_ms"], bt_row["library_ms"]),
     ]}))

@@ -9,50 +9,74 @@
 // `_make_chol_kernel(fuse_p=P)` (launched by `_cholesky_solve_pallas`) and
 // `_make_chol_kernel(fuse_p=None)` (launched by `_cholesky_pallas`).
 //
-// Right-looking blocked Cholesky with 64 x 64 blocks (one f32 block is 16 KB
-// of shared memory; the TPU's 512 blocks were a VMEM choice). Each panel k
-// takes three launches on the caller's stream:
-//  1. diag (one block): factor A_kk unblocked in shared memory, in f64,
-//     write L_kk, store sum log diag L_kk into partials[k], and
-//     forward-substitute alpha_k <- L_kk^-1 alpha_k. The right-hand side
-//     may have any number P of columns: the first 8 are substituted in the
-//     factor's own sweep, any further ones in 8-column sweeps against the
-//     finished L_kk (the same arithmetic, so every column gets the same
-//     rounding);
-//  2. panel (one block per row block i > k): L_ik = A_ik L_kk^-T, each row
-//     forward-substituted in registers by its own thread against L_kk in
-//     shared memory (no barriers in the chain), then alpha_i -= L_ik alpha_k
-//     for all P columns, alpha_k read from global memory. Only block i
-//     writes alpha_i, so there is no race;
-//  3. trailing (one block per lower block pair k < j <= i):
-//     A_ij -= L_ik L_jk^T, a shared-memory tiled FMA product reading
-//     16-byte vectors along the inner dimension.
-// A last one-thread launch sums partials in order, so the logdet is
+// Right-looking, with 256-wide outer panels of four 64 x 64 blocks (the
+// last panel may be narrower: Np is a multiple of 64 only). An outer panel
+// is factored from 64-wide steps, each three launches:
+//  1. diag (one block): factor A_bb in f64, write L_bb, store sum log diag
+//     L_bb into partials[b], and forward-substitute alpha_b <- L_bb^-1
+//     alpha_b (any P, 8 columns at a time);
+//  2. panel (one block per row block i > b): L_ib = A_ib L_bb^-T, each row
+//     substituted in registers by its own thread, then alpha_i -= L_ib
+//     alpha_b for all P columns (only block i writes alpha_i: no race);
+//  3. inner update (one block per 64 x 64 lower tile of the panel's later
+//     columns): A_ij -= L_ib L_jb^T, so the panel's next step sees them.
+// Then one trailing launch applies the whole panel (an inner dimension of
+// 256) to the lower triangle beyond it, on common.cuh's 128 x 128 product.
+// A last one-thread launch sums the partials in order, so the logdet is
 // deterministic (no atomics).
+//
+// What bounds it on an H100, and what the design does about it:
+//  * the trailing traffic: each trailing launch reads and rewrites the
+//    remaining lower triangle. With 64-wide panels that is about
+//    4 N^3 / (3 * 64) bytes, 21 GB at N = 10048 (6.3 ms at 3.35 TB/s, more
+//    than the 5.05 ms flop bound); 256-wide panels cut it to ~5 GB (the
+//    TPU kernel's x2 schedule halves the same traffic,
+//    pallas_cholesky.py:331-336);
+//  * the trailing flop, N^3 / 3 FMA-pairs, now most of the time: the 8 x 8
+//    register tile of common.cuh's product reads 1 byte of shared memory
+//    per FMA, the SM's whole shared-memory rate at its FMA rate; measured
+//    at ~23 TFLOP/s in place (31 TFLOP/s for the same product alone);
+//  * the serial chain of diag, panel and inner-update launches (157 steps
+//    at N = 10048). The diag factor is blocked by 16 columns: warp 0
+//    factors each 16 x 16 sub-block in registers with shuffles, one row
+//    per lane, so the block needs 16 barriers, not 64 steps of two (21 us
+//    per block alone on an H100; 64 us with a column per thread in
+//    registers and a barrier per step). The panel solve substitutes
+//    column by column with reciprocal pivots (one multiply and one FMA per
+//    column on the chain). One panel of look-ahead
+//    takes the chain off the critical path while the trailing update is
+//    long: after panel p is applied to panel p + 1's columns, panel p + 1
+//    is factored on a second stream of the highest priority while the rest
+//    of panel p's trailing update runs on the caller's stream; the two join
+//    through events (created once per device) before the next trailing
+//    update and before the entry point returns. The chain's launches still
+//    wait for SM slots that trailing blocks hold (two fill an SM's
+//    registers), so in place they take 1.5-4x their time alone; capping the
+//    trailing kernel at one block per SM (160 registers) shortened the
+//    visible chain but slowed the trailing update more (H100).
 //
 // Arithmetic: f32 FMA for the panels and the trailing products; no tensor
 // cores and no TF32. The pivots are the exception. The logdet error of an
 // f32 factorization is about sum_i (K^-1)_ii dK_ii, so it is set by the
 // rounding of the diagonal entries, which a right-looking schedule
-// re-rounds once per panel. The diagonal is therefore kept in a separate
-// f64 array (`dpiv`, updated by the diagonal tiles of each trailing
-// launch), and each 64 x 64 diagonal block is factored in f64. At N = 10000
-// this takes the half-logdet error from about 1.4e-5 to a few 1e-6
-// relative (a model of the rounding, checked against the kernel, at
-// N = 512..4096). A non-positive pivot gives NaN (sqrt of a negative) and
-// never traps, as the TPU and XLA paths do.
+// re-rounds once per update. The diagonal is therefore kept in a separate
+// f64 array (`dpiv`, updated by the diagonal tiles of every update: sums of
+// squares of f32 factor entries, in f64), and each 64 x 64 diagonal block is
+// factored in f64. At N = 10000 this takes the half-logdet error from about
+// 1.4e-5 to a few 1e-6 relative. The trailing sums start from the entry
+// they update and subtract one FMA at a time (common.cuh), so the wider
+// panel does not round at the magnitude of a 256-term dot product (which
+// put the half-logdet 1.9e-5 off f64 at N = 10000). A non-positive pivot
+// gives NaN (sqrt of a negative) and never traps, as the TPU and XLA paths
+// do.
 //
 // Operand contract (ops/gram.py's operand for the fused mode, the padding of
 // ops/cholesky.py `cholesky` for the factor-only mode): K is the padded
 // operand, Np a multiple of 64, with a unit-diagonal pad extension; only
-// its lower triangle is read,
-// and strictly-upper entries outside the diagonal blocks are never touched.
-// Pad rows have zero off-diagonal entries and zero right-hand sides, so
-// their alpha rows stay exactly 0 and their logdet terms are log 1 = 0.
-//
-// What bounds it on an H100: the N^3 / 3 FMAs of the trailing updates, at
-// the rate of a simple shared-memory kernel without tensor cores, plus the
-// serial chain of 2 x 64 barrier steps in each diag and panel launch.
+// its lower triangle is read, and strictly-upper entries outside the
+// diagonal 64 x 64 blocks are never touched. Pad rows have zero
+// off-diagonal entries and zero right-hand sides, so their alpha rows stay
+// exactly 0 and their logdet terms are log 1 = 0.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,26 +86,33 @@
 namespace {
 
 constexpr int kBs = 64;       // block size
+constexpr int kPanel = 4;     // blocks per outer panel (256 columns)
 constexpr int kThreads = 256;
-constexpr int kPChunk = 8;    // alpha columns held in shared memory per sweep
+constexpr int kPChunk = 8;    // alpha columns held per thread per sweep
 constexpr int kLd = kBs + 1;  // padded shared row: column walks hit distinct banks
 constexpr int kLd4 = kBs + 4; // padded shared row that keeps 16-byte alignment for float4
-
-// Column c and first row of this thread in the 64-column x 4-row-group sweep.
-__device__ __forceinline__ int sweep_col() { return threadIdx.x & (kBs - 1); }
-__device__ __forceinline__ int sweep_row0() { return threadIdx.x >> 6; }
+constexpr int kSub = 16;      // columns of a sub-panel of the diag factor
 
 __global__ void pivot_init_kernel(const float* __restrict__ K, int Np, double* __restrict__ dpiv) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < Np) dpiv[i] = K[static_cast<size_t>(i) * Np + i];
 }
 
-__global__ void chol_diag_kernel(float* __restrict__ K, int Np, int k, float* __restrict__ alpha,
-                                 int P, const double* __restrict__ dpiv,
-                                 double* __restrict__ partials) {
-  __shared__ double a[kBs][kLd];
-  __shared__ double al[kPChunk][kBs];  // one chunk of alpha_k, transposed: al[p][r]
-  __shared__ double dinv[kBs];         // 1 / L_jj, for the chunks after the first
+// The 64 x 64 diagonal block in f64, blocked by 16 columns so that most of
+// its 64 dependent steps need no block-wide barrier. For each 16-column
+// sub-panel s: (1) warp 0 factors the 16 x 16 diagonal sub-block in
+// registers, one row per lane, the pivot and the column broadcast by
+// shuffles; (2) one thread per row below substitutes its row against it
+// (L_rs = A_rs L_ss^-T, column by column, reciprocal pivots); (3) all
+// threads update the lower triangle below and right of it. Four barriers per
+// sub-panel, sixteen in all. Then alpha_k <- L_kk^-1 alpha_k in chunks of 8
+// columns, blocked the same way, and the logdet partial.
+__global__ void __launch_bounds__(kThreads)
+    chol_diag_kernel(float* __restrict__ K, int Np, int k, float* __restrict__ alpha, int P,
+                     const double* __restrict__ dpiv, double* __restrict__ partials) {
+  __shared__ double a[kBs][kLd];         // the block; L_kk when done (lower triangle)
+  __shared__ double al[kBs][kPChunk];    // one chunk of alpha_k
+  __shared__ double rdiag[kBs];          // 1 / L_jj
   __shared__ double red[kBs];
   const int tid = threadIdx.x;
   float* Akk = K + static_cast<size_t>(k) * kBs * Np + static_cast<size_t>(k) * kBs;
@@ -91,106 +122,168 @@ __global__ void chol_diag_kernel(float* __restrict__ K, int Np, int k, float* __
     const int r = e / kBs, c = e % kBs;
     a[r][c] = (c < r) ? Akk[static_cast<size_t>(r) * Np + c] : (c == r ? dpiv[k * kBs + r] : 0.0);
   }
-  const int pc0 = min(P, kPChunk);
-  for (int e = tid; e < kBs * pc0; e += kThreads) al[e % pc0][e / pc0] = alk[(e / pc0) * P + e % pc0];
   __syncthreads();
 
-  // thread (c, r0): column c of the block, rows r0, r0 + 4, ...; alpha
-  // columns p = r0, r0 + 4 of row c
-  const int c = sweep_col();
-  const int r0 = sweep_row0();
-  for (int j = 0; j < kBs; ++j) {
-    // phase A: pivot, scale column j below the diagonal, scale alpha row j.
-    // rsqrt of a negative pivot is NaN, and so is everything after it.
-    const double d = a[j][j];
-    const double inv = rsqrt(d);
-    if (tid > j && tid < kBs) a[tid][j] *= inv;
-    if (tid >= kBs && tid < kBs + pc0) al[tid - kBs][j] *= inv;
-    if (tid == 0) dinv[j] = inv;
-    __syncthreads();
-    // phase B: rank-1 update of the lower trailing triangle and of alpha
-    if (tid == 0) a[j][j] = d * inv;
-    if (c > j) {
-      const double lcj = a[c][j];
+  for (int s = 0; s < kBs; s += kSub) {
+    // (1) the sub-block's factor; lanes 16-31 mirror 0-15 (the shuffles
+    // then read defined values everywhere). rsqrt of a negative pivot is
+    // NaN, and so is everything after it.
+    if (tid < 32) {
+      const int l = tid & (kSub - 1);
+      double row[kSub];
 #pragma unroll
-      for (int q = 0; q < kBs / 4; ++q) {
-        const int r = r0 + 4 * q;
-        if (r >= c) a[r][c] = fma(-a[r][j], lcj, a[r][c]);
+      for (int c = 0; c < kSub; ++c) row[c] = a[s + l][s + c];
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const double inv = rsqrt(__shfl_sync(0xffffffffu, row[j], j));
+        const double lj = row[j] * inv;  // L_lj for l > j; L_jj = d / sqrt(d) for l == j
+        row[j] = lj;
+        if (l == j) rdiag[s + j] = inv;
+#pragma unroll
+        for (int c = j + 1; c < kSub; ++c) {
+          const double lcj = __shfl_sync(0xffffffffu, lj, c);
+          row[c] = l >= c ? fma(-lj, lcj, row[c]) : row[c];
+        }
       }
-      for (int p = r0; p < pc0; p += 4) al[p][c] = fma(-lcj, al[p][j], al[p][c]);
+      if (tid < kSub) {
+#pragma unroll
+        for (int c = 0; c < kSub; ++c) {
+          if (c <= l) a[s + l][s + c] = row[c];
+        }
+      }
+    }
+    __syncthreads();
+    const int below = kBs - s - kSub;  // rows below the sub-block
+    // (2) the rows below: x L_ss^T = a_r, column by column
+    if (tid < below) {
+      const int r = s + kSub + tid;
+      double v[kSub];
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) v[j] = a[r][s + j];
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        v[j] *= rdiag[s + j];
+#pragma unroll
+        for (int i = j + 1; i < kSub; ++i) v[i] = fma(-v[j], a[s + i][s + j], v[i]);
+      }
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) a[r][s + j] = v[j];
+    }
+    __syncthreads();
+    // (3) the lower triangle below and right of the sub-block, up to
+    // ceil(48^2 / 256) = 9 entries per thread, their sums interleaved
+    if (below > 0) {
+      constexpr int kMaxQ = ((kBs - kSub) * (kBs - kSub) + kThreads - 1) / kThreads;
+      double acc[kMaxQ];
+      int rr[kMaxQ], cc[kMaxQ];
+#pragma unroll
+      for (int q = 0; q < kMaxQ; ++q) {
+        const int e = tid + q * kThreads;
+        rr[q] = s + kSub + e / below;
+        cc[q] = s + kSub + e % below;
+        const bool live = e < below * below && cc[q] <= rr[q];
+        if (!live) rr[q] = cc[q] = s + kSub;  // a harmless entry, not written
+        acc[q] = live ? a[rr[q]][cc[q]] : 0.0;
+        if (!live) cc[q] = -1;
+      }
+#pragma unroll
+      for (int t = 0; t < kSub; ++t) {
+#pragma unroll
+        for (int q = 0; q < kMaxQ; ++q) {
+          const int c = cc[q] < 0 ? rr[q] : cc[q];
+          acc[q] = fma(-a[rr[q]][s + t], a[c][s + t], acc[q]);
+        }
+      }
+      __syncthreads();  // every thread has read the entries it needs
+#pragma unroll
+      for (int q = 0; q < kMaxQ; ++q) {
+        if (cc[q] >= 0) a[rr[q]][cc[q]] = acc[q];
+      }
     }
     __syncthreads();
   }
 
+  // L_kk to K (upper entries 0), its logdet partial
   for (int e = tid; e < kBs * kBs; e += kThreads) {
-    const int r = e / kBs, cc = e % kBs;
-    Akk[static_cast<size_t>(r) * Np + cc] = static_cast<float>(a[r][cc]);  // upper entries are 0
-  }
-  for (int e = tid; e < kBs * pc0; e += kThreads) {
-    alk[(e / pc0) * P + e % pc0] = static_cast<float>(al[e % pc0][e / pc0]);
+    const int r = e / kBs, c = e % kBs;
+    Akk[static_cast<size_t>(r) * Np + c] = c <= r ? static_cast<float>(a[r][c]) : 0.0f;
   }
   if (partials != nullptr) {  // uniform over the block: the barriers are safe
     if (tid < kBs) red[tid] = log(a[tid][tid]);
     __syncthreads();
-    for (int s = kBs / 2; s > 0; s >>= 1) {
-      if (tid < s) red[tid] += red[tid + s];
+    for (int h = kBs / 2; h > 0; h >>= 1) {
+      if (tid < h) red[tid] += red[tid + h];
       __syncthreads();
     }
     if (tid == 0) partials[k] = red[0];
   }
 
-  // columns beyond the first chunk: the same substitution, against the
-  // finished L_kk (column j of `a` is final once step j is done)
-  for (int p0 = kPChunk; p0 < P; p0 += kPChunk) {
+  // alpha_k <- L_kk^-1 alpha_k, 8 columns at a time: per sub-panel, one
+  // thread per column substitutes its 16 rows, then all threads update the
+  // rows below
+  for (int p0 = 0; p0 < P; p0 += kPChunk) {
     const int pc = min(P - p0, kPChunk);
-    for (int e = tid; e < kBs * pc; e += kThreads) al[e % pc][e / pc] = alk[(e / pc) * P + p0 + e % pc];
+    for (int e = tid; e < kBs * pc; e += kThreads) al[e / pc][e % pc] = alk[(e / pc) * P + p0 + e % pc];
     __syncthreads();
-    for (int j = 0; j < kBs; ++j) {
-      if (tid < pc) al[tid][j] *= dinv[j];
+    for (int s = 0; s < kBs; s += kSub) {
+      if (tid < pc) {
+        double v[kSub];
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) v[j] = al[s + j][tid];
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) {
+          v[j] *= rdiag[s + j];
+#pragma unroll
+          for (int i = j + 1; i < kSub; ++i) v[i] = fma(-v[j], a[s + i][s + j], v[i]);
+        }
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) al[s + j][tid] = v[j];
+      }
       __syncthreads();
-      if (c > j) {
-        const double lcj = a[c][j];
-        for (int p = r0; p < pc; p += 4) al[p][c] = fma(-lcj, al[p][j], al[p][c]);
+      const int below = kBs - s - kSub;
+      for (int e = tid; e < below * pc; e += kThreads) {
+        const int r = s + kSub + e / pc, p = e % pc;
+        double v = al[r][p];
+#pragma unroll
+        for (int t = 0; t < kSub; ++t) v = fma(-a[r][s + t], al[s + t][p], v);
+        al[r][p] = v;
       }
       __syncthreads();
     }
     for (int e = tid; e < kBs * pc; e += kThreads) {
-      alk[(e / pc) * P + p0 + e % pc] = static_cast<float>(al[e % pc][e / pc]);
+      alk[(e / pc) * P + p0 + e % pc] = static_cast<float>(al[e / pc][e % pc]);
     }
     __syncthreads();  // the next chunk's load overwrites al
   }
 }
 
-__global__ void chol_panel_kernel(float* __restrict__ K, int Np, int k, float* __restrict__ alpha,
-                                  int P) {
-  __shared__ float l[kBs][kLd4];  // L_kk
-  __shared__ float x[kBs][kLd];   // A_ik, overwritten by L_ik
+__global__ void __launch_bounds__(kThreads)
+    chol_panel_kernel(float* __restrict__ K, int Np, int k, float* __restrict__ alpha, int P) {
+  __shared__ __align__(16) float lt[kBs][kLd4];  // L_kk transposed: lt[c][r] = L_kk[r][c]
+  __shared__ float x[kBs][kLd];                  // A_ik, overwritten by L_ik
+  __shared__ float dinv[kBs];                    // 1 / L_jj
   const int tid = threadIdx.x;
   const int i = k + 1 + blockIdx.x;
-  const float* Lkk = K + static_cast<size_t>(k) * kBs * Np + static_cast<size_t>(k) * kBs;
   float* Aik = K + static_cast<size_t>(i) * kBs * Np + static_cast<size_t>(k) * kBs;
 
+  gfs::load_tri_tile<kThreads, false, true>(K, Np, Np, k * kBs, k * kBs, lt, false);
   for (int e = tid; e < kBs * kBs; e += kThreads) {
     const int r = e / kBs, c = e % kBs;
-    l[r][c] = (c <= r) ? Lkk[static_cast<size_t>(r) * Np + c] : 0.0f;
     x[r][c] = Aik[static_cast<size_t>(r) * Np + c];
   }
   __syncthreads();
+  if (tid < kBs) dinv[tid] = 1.0f / lt[tid][tid];
+  __syncthreads();
 
-  // X L_kk^T = A row by row: x_rj = (a_rj - sum_{t<j} x_rt l_jt) / l_jj.
-  // Thread r keeps its row in registers; every thread reads the same l_jt
-  // at the same time (a shared-memory broadcast).
+  // X L_kk^T = A row by row: thread r solves L_kk x_r^T = a_r^T in
+  // registers, column by column (gfs::substitute): the dependent chain is
+  // one multiply and one FMA per column; every thread reads the same L_kk
+  // entries at the same time (a shared-memory broadcast).
   if (tid < kBs) {
     float v[kBs];
 #pragma unroll
     for (int j = 0; j < kBs; ++j) v[j] = x[tid][j];
-#pragma unroll
-    for (int j = 0; j < kBs; ++j) {
-      float s = v[j];
-#pragma unroll
-      for (int t = 0; t < j; ++t) s = fmaf(-v[t], l[j][t], s);
-      v[j] = s / l[j][j];
-    }
+    gfs::substitute<true>(v, lt, dinv);
 #pragma unroll
     for (int j = 0; j < kBs; ++j) x[tid][j] = v[j];
   }
@@ -212,14 +305,17 @@ __global__ void chol_panel_kernel(float* __restrict__ K, int Np, int k, float* _
   }
 }
 
-__global__ void chol_trailing_kernel(float* __restrict__ K, int Np, int k,
-                                     double* __restrict__ dpiv) {
+// Inside an outer panel: A_ij -= L_ik L_jk^T for the blocks j = k + 1 +
+// blockIdx.y of the panel's later columns and i = k + 1 + blockIdx.x >= j.
+// A diagonal tile also subtracts its rows' f64 pivot terms (one block per
+// tile, so no two blocks touch the same entry).
+__global__ void __launch_bounds__(kThreads)
+    chol_inner_update_kernel(float* __restrict__ K, int Np, int k, double* __restrict__ dpiv) {
   __shared__ __align__(16) float li[kBs][kLd4];  // L_ik
   __shared__ __align__(16) float lj[kBs][kLd4];  // L_jk
-  int ti, tj;
-  gfs::tri_index(blockIdx.x, ti, tj);
-  const int i = k + 1 + ti;
-  const int j = k + 1 + tj;
+  const int i = k + 1 + blockIdx.x;
+  const int j = k + 1 + blockIdx.y;
+  if (i < j) return;  // uniform over the block
   const int tid = threadIdx.x;
   const float* Lik = K + static_cast<size_t>(i) * kBs * Np + static_cast<size_t>(k) * kBs;
   const float* Ljk = K + static_cast<size_t>(j) * kBs * Np + static_cast<size_t>(k) * kBs;
@@ -236,33 +332,11 @@ __global__ void chol_trailing_kernel(float* __restrict__ K, int Np, int k,
   }
   __syncthreads();
 
-  // 16 x 16 threads, each a 4 x 4 set of outputs: rows ty + 16a, cols tx + 16b;
-  // the inner dimension is read four at a time
   const int tx = tid & 15;
   const int ty = tid >> 4;
   float acc[4][4] = {};
-  for (int t = 0; t < kBs; t += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      av[q] = *reinterpret_cast<const float4*>(&li[ty + 16 * q][t]);
-      bv[q] = *reinterpret_cast<const float4*>(&lj[tx + 16 * q][t]);
-    }
-#pragma unroll
-    for (int qa = 0; qa < 4; ++qa) {
-#pragma unroll
-      for (int qb = 0; qb < 4; ++qb) {
-        float s = acc[qa][qb];
-        s = fmaf(av[qa].x, bv[qb].x, s);
-        s = fmaf(av[qa].y, bv[qb].y, s);
-        s = fmaf(av[qa].z, bv[qb].z, s);
-        acc[qa][qb] = fmaf(av[qa].w, bv[qb].w, s);
-      }
-    }
-  }
-  // a diagonal tile also carries its rows' f64 pivots (one block per tile,
-  // so no two blocks touch the same entry)
-  if (ti == tj && tid < kBs) {
+  gfs::tile_fma(acc, li, lj, tx, ty);
+  if (i == j && tid < kBs) {
     double s = 0.0;
     for (int t = 0; t < kBs; ++t) {
       const double v = li[tid][t];
@@ -280,6 +354,52 @@ __global__ void chol_trailing_kernel(float* __restrict__ K, int Np, int k,
   }
 }
 
+// After an outer panel (columns [p0, p0 + width)): A_IJ -= L_IP L_JP^T over
+// 128 x 128 lower tiles (I >= J, in units of 128) of the tile columns J0
+// .. J0 + ncols - 1 (all when ncols = 0: the tiles then enumerate the lower
+// triangle from J0 by blockIdx.x), rows to Np. Entries of a strictly-upper
+// 64 x 64 block are not written. A diagonal tile subtracts its rows' f64
+// pivot terms, summed in f64 from the A stages as they land.
+__global__ void __launch_bounds__(gfs::kMmThreads, 2)
+    chol_trailing_kernel(float* __restrict__ K, int Np, int p0, int width, int J0, int ncols,
+                         double* __restrict__ dpiv) {
+  __shared__ __align__(16) gfs::MmStage sa[gfs::kMmStages];
+  __shared__ __align__(16) gfs::MmStage sb[gfs::kMmStages];
+  int ti, tj;
+  if (ncols == 0) {
+    gfs::tri_index(blockIdx.x, ti, tj);
+  } else {
+    ti = blockIdx.x;
+    tj = blockIdx.y;
+    if (ti < tj) return;  // uniform over the block
+  }
+  const int I = J0 + ti, J = J0 + tj;
+  const int row0 = I * gfs::kMmTile, col0 = J * gfs::kMmTile;
+  const gfs::MmOperand A = {K + static_cast<size_t>(row0) * Np + p0, Np, 1, Np - row0, width};
+  const gfs::MmOperand B = {K + static_cast<size_t>(col0) * Np + p0, Np, 1, Np - col0, width};
+  const bool diag = I == J;
+  double piv = 0.0;  // thread o < 128 of a diagonal tile: sum_t L[row0 + o][p0 + t]^2
+  // A_IJ, less the product below: entries of a strictly-upper 64 x 64
+  // block are neither read nor written (only a diagonal tile has them)
+  float* const tile = K + static_cast<size_t>(row0) * Np + col0;
+  const auto kept = [&](int r, int c) { return !diag || c / kBs <= r / kBs; };
+  gfs::MmAcc acc;
+  gfs::mm_tile_io<false>(acc, tile, Np, Np - row0, Np - col0, kept);
+  gfs::mm_run<true, true>(acc, A, B, width, sa, sb, [&](const gfs::MmStage& s, int t0) {
+    if (diag && threadIdx.x < gfs::kMmTile) {
+      const int n = min(gfs::kMmBk, width - t0);
+      for (int t = 0; t < n; ++t) {
+        const double v = s[t][threadIdx.x];
+        piv = fma(v, v, piv);
+      }
+    }
+  });
+  if (diag && threadIdx.x < gfs::kMmTile && row0 + static_cast<int>(threadIdx.x) < Np) {
+    dpiv[row0 + threadIdx.x] -= piv;
+  }
+  gfs::mm_tile_io<true>(acc, tile, Np, Np - row0, Np - col0, kept);
+}
+
 __global__ void logdet_sum_kernel(const double* __restrict__ partials, int nb,
                                   float* __restrict__ half_logdet) {
   double s = 0.0;
@@ -287,28 +407,99 @@ __global__ void logdet_sum_kernel(const double* __restrict__ partials, int nb,
   half_logdet[0] = static_cast<float>(s);
 }
 
+// The look-ahead stream, of the highest priority so that its small
+// latency-bound launches take SMs ahead of a running update's waiting
+// blocks, and two events to hand work between it and the caller's stream;
+// created once per device.
+struct LookAhead {
+  cudaStream_t side;
+  cudaEvent_t main_done, side_done;
+};
+
+int look_ahead(LookAhead*& out) {
+  constexpr int kMaxDevices = 64;
+  static LookAhead made[kMaxDevices];
+  static bool ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    int least = 0, greatest = 0;
+    err = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+    if (err == cudaSuccess) {
+      err = cudaStreamCreateWithPriority(&made[dev].side, cudaStreamNonBlocking, greatest);
+    }
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&made[dev].main_done, cudaEventDisableTiming);
+    if (err == cudaSuccess) err = cudaEventCreateWithFlags(&made[dev].side_done, cudaEventDisableTiming);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  out = &made[dev];
+  return static_cast<int>(cudaSuccess);
+}
+
+// Factors outer panel `panel` (its columns fully updated) on stream s.
+void factor_panel(float* K, int Np, int panel, float* alpha, int P, double* dpiv, double* partials,
+                  cudaStream_t s) {
+  const int nb = Np / kBs;
+  const int first = panel * kPanel;
+  const int blocks = min(kPanel, nb - first);
+  for (int d = 0; d < blocks; ++d) {
+    const int b = first + d;
+    chol_diag_kernel<<<1, kThreads, 0, s>>>(K, Np, b, alpha, P, dpiv, partials);
+    const int below = nb - b - 1;
+    if (below > 0) {
+      chol_panel_kernel<<<static_cast<unsigned>(below), kThreads, 0, s>>>(K, Np, b, alpha, P);
+      const int later = blocks - d - 1;  // the panel's columns still to factor
+      if (later > 0) {
+        const dim3 grid(static_cast<unsigned>(below), static_cast<unsigned>(later));
+        chol_inner_update_kernel<<<grid, kThreads, 0, s>>>(K, Np, b, dpiv);
+      }
+    }
+  }
+}
+
 // The launches of one factorization on stream s. P = 0 (alpha null) skips
 // the solve; partials null skips the logdet.
 int factor(float* K, int Np, float* alpha, int P, double* dpiv, double* partials, cudaStream_t s) {
-  const int nb = Np / kBs;
+  LookAhead* la = nullptr;
+  int err = look_ahead(la);
+  if (err != 0) return err;
+  const int panel_cols = kPanel * kBs;
+  const int panels = (Np + panel_cols - 1) / panel_cols;
+  const int tiles = (Np + gfs::kMmTile - 1) / gfs::kMmTile;  // 128-tiles along a side
+  const int tiles_per_panel = panel_cols / gfs::kMmTile;
   pivot_init_kernel<<<(Np + kThreads - 1) / kThreads, kThreads, 0, s>>>(K, Np, dpiv);
-  for (int k = 0; k < nb; ++k) {
-    chol_diag_kernel<<<1, kThreads, 0, s>>>(K, Np, k, alpha, P, dpiv, partials);
-    const long long m = nb - k - 1;
-    if (m > 0) {
-      chol_panel_kernel<<<static_cast<unsigned>(m), kThreads, 0, s>>>(K, Np, k, alpha, P);
-      chol_trailing_kernel<<<static_cast<unsigned>(m * (m + 1) / 2), kThreads, 0, s>>>(K, Np, k,
-                                                                                       dpiv);
+  factor_panel(K, Np, 0, alpha, P, dpiv, partials, s);
+  for (int p = 0; p + 1 < panels; ++p) {
+    const int p0 = p * panel_cols;
+    const int J1 = (p + 1) * tiles_per_panel;  // first tile column of panel p + 1
+    const int next_cols = min(tiles_per_panel, tiles - J1);
+    // panel p applied to panel p + 1's columns, then panel p + 1 factored on
+    // the side stream while panel p is applied to the columns beyond
+    const dim3 next_grid(static_cast<unsigned>(tiles - J1), static_cast<unsigned>(next_cols));
+    chol_trailing_kernel<<<next_grid, gfs::kMmThreads, 0, s>>>(K, Np, p0, panel_cols, J1, next_cols,
+                                                                 dpiv);
+    cudaEventRecord(la->main_done, s);
+    cudaStreamWaitEvent(la->side, la->main_done, 0);
+    factor_panel(K, Np, p + 1, alpha, P, dpiv, partials, la->side);
+    cudaEventRecord(la->side_done, la->side);
+    const long long rest = tiles - J1 - next_cols;  // tile columns beyond panel p + 1
+    if (rest > 0) {
+      chol_trailing_kernel<<<static_cast<unsigned>(rest * (rest + 1) / 2), gfs::kMmThreads, 0, s>>>(
+          K, Np, p0, panel_cols, J1 + next_cols, 0, dpiv);
     }
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaStreamWaitEvent(s, la->side_done, 0);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return static_cast<int>(cudaSuccess);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// work: Np / 64 + Np doubles of scratch (the per-panel logdet partials,
+// work: Np / 64 + Np doubles of scratch (the per-block logdet partials,
 // then the f64 pivots).
 extern "C" int gfs_chol_solve_logdet(float* K, int Np, float* alpha, int P, double* work,
                                      float* half_logdet, void* stream) {

@@ -44,8 +44,8 @@ _ENTRIES = {
     "gfs_gram_lower": (_P, _I, _I, _P, _I, _P, _P),
     # K, Np, work, stream
     "gfs_cholesky": (_P, _I, _P, _P),
-    # L, N, ld, trans, lower, X, P, stream
-    "gfs_trsm": (_P, _I, _I, _I, _I, _P, _I, _P),
+    # L, N, ld, trans, lower, X, P, sync, stream
+    "gfs_trsm": (_P, _I, _I, _I, _I, _P, _I, _P, _P),
     # L, P, M, ld, batch_stride, trans, lower, X, K, stream
     "gfs_batched_trsm": (_P, _I, _I, _I, _L, _I, _I, _P, _I, _P),
 }

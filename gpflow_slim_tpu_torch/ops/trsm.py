@@ -21,6 +21,13 @@ The kernels read the triangle through a row stride and a transpose flag
 buffer (``ops.cholesky.cholesky``), or one triangle broadcast over a batch
 with ``expand`` is solved without a copy of ``L``. They mask the ragged
 edge themselves: nothing is padded.
+
+The wide TRSM has two schedules, picked by a static rule on the width P of
+the right-hand side (``trsm_schedule``; ``csrc/trsm.cu`` states the same
+rule): P <= 64 is "thin", one launch whose blocks take their block rows
+from an atomic ticket and wait on each other's ready flags, in scratch
+that the wrapper zeroes per call (``trsm_scratch``); P > 64 is "wide",
+grouped launches ordered by the stream.
 """
 
 from __future__ import annotations
@@ -28,6 +35,26 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+BLOCK = 64        # the kernels' block rows
+THIN_MAX_P = 64   # the widest right-hand side of the thin schedule
+
+
+def trsm_schedule(P):
+    """The wide TRSM's schedule for a right-hand side of P columns:
+    ``"thin"`` (P <= 64, one launch) or ``"wide"`` (grouped launches)."""
+    if P < 1:
+        raise ValueError(f"a right-hand side needs at least one column; got P = {P}")
+    return "thin" if P <= THIN_MAX_P else "wide"
+
+
+def trsm_scratch(N, P):
+    """Number of int32 words of zeroed scratch the wide TRSM needs for T
+    (N, N) and B (N, P): for the thin schedule the ticket and one ready
+    flag per 64-row block row; none for the wide schedule."""
+    if trsm_schedule(P) == "wide":
+        return 0
+    return -(-N // BLOCK) + 1
 
 
 def solve_triangular_plain(T, B, lower):
@@ -82,7 +109,9 @@ def _launch(entry, T, B, lower):
     lib = _build.load_library()
     stream = torch.cuda.current_stream(T.device).cuda_stream
     if rank == 2:
-        code = lib.gfs_trsm(T.data_ptr(), M, ld, trans, int(lower), X.data_ptr(), K, stream)
+        sync = torch.zeros(trsm_scratch(M, K), dtype=torch.int32, device=T.device)
+        code = lib.gfs_trsm(T.data_ptr(), M, ld, trans, int(lower), X.data_ptr(), K, sync.data_ptr(),
+                            stream)
     else:
         code = lib.gfs_batched_trsm(T.data_ptr(), B.shape[0], M, ld, batch_stride, trans, int(lower),
                                     X.data_ptr(), K, stream)
@@ -95,13 +124,16 @@ def trsm_cuda(T, B, lower):
     ``T X = B``, ``T`` (N, N) lower (``lower``) or upper triangular, ``B``
     (N, P), P >= 1, contiguous. ``T`` is row major (any row stride of at
     least N) or the transposed view of such a matrix; only its triangle is
-    read."""
+    read. ``trsm_cuda.launches`` counts every launch, and
+    ``trsm_cuda.by_schedule`` the launches of each schedule."""
     X = _launch("trsm", T, B, lower)
     trsm_cuda.launches += 1
+    trsm_cuda.by_schedule[trsm_schedule(B.shape[1])] += 1
     return X
 
 
 trsm_cuda.launches = 0
+trsm_cuda.by_schedule = {"thin": 0, "wide": 0}
 
 
 def batched_trsm_cuda(T, B, lower):

@@ -43,7 +43,10 @@ def test_operand_kernel_matches_plain(dev, kind, N, D, pad_to):
     assert float((got.double() - want)[lower].abs().max()) <= 1e-5 * 1.7
 
 
-@pytest.mark.parametrize("N,P", [(64, 1), (130, 8), (500, 3), (130, 9), (333, 20)])
+# 256, 320 and 1000: one full 256-wide panel, then a last panel of 64 and
+# of 232 columns
+@pytest.mark.parametrize("N,P", [(64, 1), (130, 8), (500, 3), (130, 9), (333, 20), (256, 1), (320, 8),
+                                 (1000, 9)])
 def test_chol_kernel_matches_plain(dev, N, P):
     Np = N + (-N) % cholesky.BLOCK
     Kp = gram.gram_chol_operand_cuda("matern52", _xs(N, 1, dev), 1.0, 0.5, Np)
@@ -63,11 +66,24 @@ def test_chol_kernel_matches_plain(dev, N, P):
     assert torch.equal(Dp, D0)  # Dp untouched
 
 
-def test_chol_kernel_nan_on_non_positive_pivot(dev):
-    Kp = gram.gram_chol_operand_cuda("rbf", _xs(100, 1, dev), 1.0, -5.0, 128)
-    _, alpha, hld = cholesky.cholesky_solve_cuda(Kp, torch.ones(128, 1, device=dev))
+# bad: a negative noise (the first pivot fails), or one pivot made negative
+# inside the first 256-wide panel (row 150, its third block) or the second
+# (row 300)
+@pytest.mark.parametrize("bad", [None, 150, 300])
+def test_chol_kernel_nan_on_non_positive_pivot(dev, bad):
+    if bad is None:
+        Kp = gram.gram_chol_operand_cuda("rbf", _xs(100, 1, dev), 1.0, -5.0, 128)
+    else:
+        Kp = gram.gram_chol_operand_cuda("rbf", _xs(400, 1, dev), 1.0, 0.5, 448)
+        Kp[bad, bad] = -10.0
+    Np = Kp.shape[0]
+    L = cholesky.cholesky_cuda(Kp.clone())
+    _, alpha, hld = cholesky.cholesky_solve_cuda(Kp, torch.ones(Np, 1, device=dev))
     torch.cuda.synchronize()
     assert torch.isnan(hld)
+    first = 0 if bad is None else bad
+    assert bool(torch.isnan(L[first, first]))
+    assert bool(torch.isfinite(torch.tril(L[:first, :first])).all())
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -125,7 +141,7 @@ def test_gram_kernels_match_plain(dev, kind, N, M, D):
     assert float((low.double() - want).abs().max()) <= 1e-5 * 1.7
 
 
-@pytest.mark.parametrize("N", [1, 63, 64, 65, 130, 200, 333])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 130, 200, 333, 256, 320, 1000])
 def test_cholesky_kernel_matches_plain(dev, N):
     Np = N + (-N) % cholesky.BLOCK
     Kp = gram.gram_chol_operand_cuda("matern52", _xs(N, 1, dev), 1.0, 0.5, Np)
@@ -147,10 +163,11 @@ def test_cholesky_kernel_matches_plain(dev, N):
     assert bool((torch.triu(L, 1) == 0).all())
 
 
-# 333 and 577: more than one group of four block columns (one, and two
-# and a half)
+# P <= 64 runs the thin schedule (one launch), P > 64 the wide one: 64 and
+# 65 are the boundary. 333 and 577: more than one group of four block
+# columns (one, and two and a half)
 @pytest.mark.parametrize("N,P", [(1, 1), (63, 7), (64, 1), (65, 130), (200, 64), (333, 3),
-                                 (577, 130)])
+                                 (577, 130), (1000, 1), (1000, 64), (1000, 65)])
 def test_trsm_kernel_matches_plain(dev, N, P):
     Np = N + (-N) % cholesky.BLOCK
     Kp = gram.gram_chol_operand_cuda("rbf", _xs(N, 1, dev), 1.0, 0.3, Np)
@@ -160,11 +177,14 @@ def test_trsm_kernel_matches_plain(dev, N, P):
     Ld = L.double()
     for T, Td, lower in ((L, Ld, True), (L.T, Ld.T, False), (L.contiguous(), Ld, True),
                          (L.T.contiguous(), Ld.T, False)):
+        before = dict(trsm.trsm_cuda.by_schedule)
         got = trsm.trsm_cuda(T, B, lower)
         want = torch.linalg.solve_triangular(Td, B.double(), upper=not lower)
         # f32 substitution against f64: 1e-3 relative (max-norm), the fused
         # kernel's alpha gate
         assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+        schedule = "thin" if P <= 64 else "wide"
+        assert trsm.trsm_cuda.by_schedule[schedule] == before[schedule] + 1
     assert torch.equal(B, B0)  # B untouched
 
 

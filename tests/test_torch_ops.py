@@ -541,6 +541,24 @@ def test_serving_kernel_wrappers_refuse_cpu_tensors():
         trsm.batched_trsm_cuda(torch.eye(64)[None], torch.ones(1, 64, 1), True)
 
 
+@pytest.mark.parametrize("P,schedule", [(1, "thin"), (7, "thin"), (64, "thin"), (65, "wide"),
+                                        (2048, "wide")])
+def test_trsm_schedule_rule(P, schedule):
+    # the static rule on P that picks csrc/trsm.cu's schedule, and the
+    # scratch each needs: the thin one's ticket and one ready flag per
+    # 64-row block row (int32 words, zeroed by the wrapper); none for wide
+    assert trsm.trsm_schedule(P) == schedule
+    for N, nb in ((1, 1), (64, 1), (65, 2), (10000, 157)):
+        assert trsm.trsm_scratch(N, P) == (nb + 1 if schedule == "thin" else 0)
+
+
+def test_trsm_schedule_refuses_an_empty_right_hand_side():
+    with pytest.raises(ValueError, match="at least one column"):
+        trsm.trsm_schedule(0)
+    with pytest.raises(ValueError, match="at least one column"):
+        trsm.trsm_scratch(10, 0)
+
+
 def test_serving_route_on_cpu_launches_nothing(monkeypatch):
     # the kernel route forced on for CPU tensors runs every wrapper's plain
     # version: the same answers as the plain route, and no launch
@@ -601,7 +619,8 @@ def test_port_never_imports_jax():
     # static: the test process has jax imported already
     files = sorted((REPO / "gpflow_slim_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_gpr.py",
-        REPO / "tools" / "profile_torch_svgp.py"]
+        REPO / "tools" / "profile_torch_svgp.py", REPO / "tools" / "profile_torch_kernels.py",
+        REPO / "tools" / "svgp_rate.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imported_modules(f):

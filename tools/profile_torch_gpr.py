@@ -54,7 +54,30 @@ def busy_ms(events):
     return total / 1e3
 
 
-def report(label, fn, host_top=0):
+def trailing_flop(Np, panel=256):
+    """Flop of the Cholesky's trailing updates (csrc/chol_solve.cu): after
+    each 256-wide panel but the last, 2 x 256 flop for every entry of the
+    lower triangle beyond it."""
+    rest = [Np - panel * (p + 1) for p in range(-(-Np // panel) - 1)]
+    return sum(2 * panel * m * (m + 1) // 2 for m in rest)
+
+
+def chol_split(dev, Np):
+    """The Cholesky's trailing updates against the rest of its launches: the
+    trailing kernels' summed time and rate, and the device time during which
+    no trailing update runs (the chain of diag, panel and in-panel updates
+    that the look-ahead leaves visible, plus any other kernel)."""
+    trailing = [e for e in dev if "chol_trailing" in e.name]
+    if not trailing:
+        return
+    t_ms = sum(e.time_range.end - e.time_range.start for e in trailing) / 1e3 / ITERS
+    visible = (busy_ms(dev) - busy_ms(trailing)) / ITERS
+    print(f"  cholesky: trailing updates {t_ms:.3f} ms/iter ({trailing_flop(Np) / t_ms / 1e9:.1f} TFLOP/s "
+          f"on the lower-triangle flop of Np={Np}), device time with no trailing update running "
+          f"{visible:.3f} ms/iter")
+
+
+def report(label, fn, host_top=0, Np=None):
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -88,8 +111,10 @@ def report(label, fn, host_top=0):
         t = by.setdefault(e.name[:100], [0.0, 0])
         t[0] += (e.time_range.end - e.time_range.start) / 1e3
         t[1] += 1
-    for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:10]:
+    for name, (t, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"{t / ITERS:9.3f} ms/iter  n={n // ITERS:5d}  {name}")
+    if Np is not None:
+        chol_split(dev, Np)
     if host_top:
         # where the host's time goes when the device waits on it
         print("  host: the operators with the most self CPU time")
@@ -123,11 +148,12 @@ def main():
             model.posterior()
 
     print(card_line())
+    Np = len(X) + (-len(X)) % 64
     for flag in (True, False):
         with gft.config.temp_settings(use_kernels=flag):
-            report(f"use_kernels={flag} objective", objective)
+            report(f"use_kernels={flag} objective", objective, Np=Np)
             report(f"use_kernels={flag} objective+grad", objective_grad)
-            report(f"use_kernels={flag} posterior()", posterior)
+            report(f"use_kernels={flag} posterior()", posterior, Np=Np)
             with torch.no_grad():
                 post = model.posterior()
                 report(f"use_kernels={flag} predict_f N*={NQ}", lambda: post.predict_f(Xq))
