@@ -15,9 +15,10 @@ unwhitened (the path of the batched TRSM) and whitened.
 2. build: the hand-written kernels with nvcc for sm_90a from csrc/ (one
    nvcc per source, in parallel);
 3. each kernel against its plain PyTorch version, run in float64 on the
-   card on the same inputs: the Gram operand and the fused
-   factor/solve/logdet of the training path; the cross Gram (10000 x 2048,
-   six kinds and D=3), the lower-tile Gram, the factor-only Cholesky and
+   card on the same inputs: the Gram operand (six kinds, D = 1 and 3, and
+   at the edges of its 8-row bands: N = 1003 padded to 1024, D = 1 and 5)
+   and the fused factor/solve/logdet of the training path; the cross Gram
+   (10000 x 2048, six kinds and D=3), the lower-tile Gram, the factor-only Cholesky and
    the TRSM (lower, and upper through the transposed view; P = 1, 7, 64,
    2048) of the serving path; the TRSM's thin schedule (P <= 64) at
    N = 1, 63, 64, 65 and P = 1, 64 (lower, upper through the transposed
@@ -27,9 +28,10 @@ unwhitened (the path of the batched TRSM) and whitened.
    cross Gram for Kuu and a 1024-point Kuf, the factor-only Cholesky of the
    config's Kuu, the TRSM of its factor on Kuf, lower and upper through the
    transposed view); the batched TRSM of the SVGP path (P = 1, 16; M =
-   1, 65, 200, 256, 1024; K = 1, 40, M; lower, upper through the
-   transposed view, a stride-0 batch; the config's chol(Kuu); its
-   backward's gB and dL);
+   1, 64, 65, 200, 256, 1024; K = 1, 32, 33, 40, M, so one block row,
+   ragged block rows and 32-column strips, and up to 8192 work items;
+   lower, upper through the transposed view, a stride-0 batch; the
+   config's chol(Kuu); its backward's gB and dL);
 4. the training path: GPR.objective() (both of its kernels must launch),
    against an f64 oracle at the effective hyperparameters (gate 1e-5
    relative, as bench.py); the gradient against the f64 plain path (1e-3
@@ -48,10 +50,12 @@ unwhitened (the path of the batched TRSM) and whitened.
    use_kernels=False float32 route; 20 steps of fit_svgp_natgrad unwhitened
    (the cross Gram, factor-only Cholesky, TRSM and batched TRSM must
    launch) and whitened (the batched TRSM must not);
-5. times (CUDA events, median) of each kernel against its plain version
-   and the one PyTorch call computing the same function where there is
-   one, each kernel's bound (the larger of its bytes over 3.35 TB/s and its
-   flop over 67 TFLOP/s), and of each path's entry points, kernel route
+5. times (CUDA events, median; a function under 1 ms without per-call
+   set-up as the mean of runs of 20 back-to-back calls) of each kernel
+   against its plain version and the one PyTorch call computing the same
+   function where there is one, each kernel's bound (the larger of its bytes over 3.35 TB/s and its
+   flop over 67 TFLOP/s), the cross Gram also at the SVGP path's shapes
+   (256 x 256, 256 x 1024), and of each path's entry points, kernel route
    against the use_kernels=False route, with peak memory; the SVGP
    training rate by the host's wall clock, over five interleaved 20-step
    fits per route.
@@ -93,6 +97,7 @@ SERVE_ABS = 1e-6
 NQ = 2048           # points per predict_f request
 NQ_FULL = 1024      # points of the full-covariance request
 REPS = 5
+SHORT_MS, RUN = 1.0, 20  # cuda_ms: functions under 1 ms are timed over runs of 20 calls
 # the SVGP path: benchmarks/bench_svgp_nuts.py's bench_svgp_natgrad model
 SVGP_N, SVGP_M, SVGP_B, SVGP_LS = 100_000, 256, 1024, 0.2
 SVGP_STEPS, SVGP_GAMMA, SVGP_LR = 20, 0.1, 0.01
@@ -125,23 +130,38 @@ def bench_data():
     return X, Y
 
 
-def cuda_ms(torch, fn, setup=lambda: (), reps=REPS, warmup=2):
-    """Median milliseconds of fn(*setup()) by CUDA events; setup is untimed."""
+def cuda_ms(torch, fn, setup=None, reps=REPS, warmup=2):
+    """Milliseconds of fn(*setup()) by CUDA events, one sample per rep;
+    setup is untimed. Without a setup, a function faster than SHORT_MS is
+    timed as a kernel is: a sample is a run of RUN back-to-back calls
+    between two events, over RUN, so the host's launch work overlaps the
+    device's instead of being counted in full."""
+    run = 1
+    if setup is None:
+        setup = tuple
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 < SHORT_MS / 1e3:
+            run = RUN
     times = []
     for i in range(warmup + reps):
         args = setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn(*args)
+        for _ in range(run):
+            fn(*args)
         end.record()
         torch.cuda.synchronize()
         if i >= warmup:
-            times.append(start.elapsed_time(end))
+            times.append(start.elapsed_time(end) / run)
     return times
 
 
-def paired_ms(torch, kernel_fn, plain_fn, setup=lambda: ()):
+def paired_ms(torch, kernel_fn, plain_fn, setup=None):
     """Plain, kernel, kernel, plain; the median of each side's samples."""
     plain = cuda_ms(torch, plain_fn, setup)
     kern = cuda_ms(torch, kernel_fn, setup)
@@ -472,21 +492,24 @@ def check_batched_trsm(torch, trsm, Luu, rng, dev):
         worst = max(worst, err)
         return err / float(want.abs().max())
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for P in (1, 16):
-        for M in (1, 65, 200, 256, 1024):
+        for M in (1, 64, 65, 200, 256, 1024):
             L = np.stack([np.tril(rng.randn(M, M)) + M * np.eye(M) for _ in range(P)])
             L = torch.tensor(L, dtype=torch.float32, device=dev)
             Ld = L.double()
             rels = {"lower": 0.0, "upper, L.mT view": 0.0, "stride-0 batch": 0.0}
-            for K in sorted({1, 40, M}):
+            Ks = sorted({1, 32, 33, 40, M})
+            for K in Ks:
                 B = torch.tensor(rng.randn(P, M, K), dtype=torch.float32, device=dev)
                 for name, T, Td, lower in (
                         ("lower", L, Ld, True), ("upper, L.mT view", L.mT, Ld.mT, False),
                         ("stride-0 batch", L[:1].expand(P, -1, -1), Ld[:1].expand(P, -1, -1), True)):
                     want = trsm.solve_triangular_plain(Td, B.double(), lower)
                     rels[name] = max(rels[name], compare(trsm.batched_trsm_cuda(T, B, lower), want))
-            print(f"batched_trsm P={P} M={M} K in {sorted({1, 40, M})}: rel err "
-                  + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" (tol {TRSM_TOL:g})")
+            print(f"batched_trsm P={P} M={M} K in {Ks} (up to {trsm.batched_trsm_items(P, M, max(Ks))} "
+                  f"work items on {sms} SMs): rel err " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+                  + f" (tol {TRSM_TOL:g})")
             if not max(rels.values()) <= TRSM_TOL:
                 raise AssertionError(f"batched TRSM kernel (P={P}, M={M}) disagrees with its plain version")
 
@@ -603,6 +626,7 @@ def svgp_checks(gft, torch, gram, cholesky, trsm, dev):
         ng.backtracked = ng.halvings = ng.kept = 0
         for fn in path_kernels.values():
             fn.launches = 0
+        gram.gram_cuda.by_shape = {}
         _, losses = gft.training.fit_svgp_natgrad(model, SVGP_STEPS, gen, gamma=SVGP_GAMMA,
                                                   learning_rate=SVGP_LR, batch_size=SVGP_B)
         torch.cuda.synchronize()
@@ -622,15 +646,30 @@ def svgp_checks(gft, torch, gram, cholesky, trsm, dev):
                 raise AssertionError("20 natgrad steps did not lower the unwhitened loss")
             if not all(n > 0 for n in launches.values()):
                 raise AssertionError(f"the unwhitened SVGP path did not run all four kernels: {launches}")
-            svgp_launches = launches
+            svgp_launches = dict(launches, gram_by_shape=dict(gram.gram_cuda.by_shape))
+            print(f"  cross Gram launches by shape in it: {svgp_launches['gram_by_shape']}")
     return svgp_launches, (Xb, Yb)
 
 
-def svgp_times(gft, torch, trsm, batch, rng, dev):
-    """Phase 5 for the SVGP path: the batched TRSM at three shapes, then the
-    ELBO, one step and the 20-step rate on both routes. Returns the kernel's
-    row of the kernels line at the path's shape (1, 256, 256)."""
+def svgp_times(gft, torch, gram, trsm, batch, rng, dev):
+    """Phase 5 for the SVGP path: the cross Gram at the path's two shapes
+    and the batched TRSM at three, then the ELBO, one step and the 20-step
+    rate on both routes. Returns the rows of the kernels line: the cross
+    Gram's at (256, 256) and (256, 1024), the batched TRSM's at the path's
+    shape (1, 256, 256)."""
     rows = {}
+    X, _, Z = svgp_data()
+    Zs = torch.tensor(Z, device=dev) / SVGP_LS
+    Xbs = torch.tensor(X[:SVGP_B], device=dev) / SVGP_LS
+    var = torch.tensor(1.0, dtype=torch.float32, device=dev)
+    for xs in (Zs, Xbs):
+        n, m = SVGP_M, xs.shape[0]
+        k_ms, p_ms = paired_ms(torch, lambda: gram.gram_cuda("rbf", Zs, xs, var),
+                               lambda: gram.gram_reference("rbf", Zs, xs, var))
+        b_ms, b_by = bound(5 * n * m, n * m * 4 + (n + m) * 4)
+        rows[(n, m)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"  cross gram at the SVGP shape ({n} x {m}): kernel {k_ms:.4f} ms, plain f32 {p_ms:.4f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by})")
     for P, M, K in ((1, SVGP_M, SVGP_M), (16, SVGP_M, SVGP_M), (1, 1024, 1024)):
         L = np.stack([np.tril(rng.randn(M, M)) + M * np.eye(M) for _ in range(P)])
         L = torch.tensor(L, dtype=torch.float32, device=dev)
@@ -641,8 +680,9 @@ def svgp_times(gft, torch, trsm, batch, rng, dev):
         b_ms, b_by = bound(P * M * M * K, P * tri_bytes(M) + 2 * P * M * K * 4)
         rows[(P, M, K)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
                            "bound_by": b_by}
-        print(f"  batched trsm P={P} M={M} K={K}: kernel {k_ms:.4f} ms, plain f32 {p_ms:.4f} ms, "
-              f"torch.linalg.solve_triangular {lib_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        print(f"  batched trsm P={P} M={M} K={K} ({trsm.batched_trsm_items(P, M, K)} work items): kernel "
+              f"{k_ms:.4f} ms, plain f32 {p_ms:.4f} ms, torch.linalg.solve_triangular {lib_ms:.4f} ms "
+              f"({k_ms / lib_ms:.2f}x), bound {b_ms:.6f} ms ({b_by})")
 
     Xb, Yb = (torch.tensor(a, device=dev) for a in batch)
 
@@ -708,7 +748,7 @@ def svgp_times(gft, torch, trsm, batch, rng, dev):
                   f"{statistics.median(rates):.2f}, min {rates[0]:.2f}, max {rates[-1]:.2f}; natgrad "
                   f"steps that halved gamma {stats[flag][0]} of {SVGP_FITS * SVGP_STEPS}, halvings "
                   f"{stats[flag][1]}, kept q {stats[flag][2]}")
-    return rows[(1, SVGP_M, SVGP_M)]
+    return rows[(SVGP_M, SVGP_M)], rows[(SVGP_M, SVGP_B)], rows[(1, SVGP_M, SVGP_M)]
 
 
 def main():
@@ -767,6 +807,22 @@ def main():
             raise AssertionError(f"operand kernel {kind} D={xs.shape[1]} disagrees: {err}")
         operand_err = max(operand_err, err)
         del got, ref
+    # the edges of the kernel's 8-row bands: N = 1003 (not a multiple of 8)
+    # padded to 1024, whose 21 pad rows span whole bands; D = 1 and 5
+    erng = np.random.RandomState(5)
+    lower_e = torch.ones(1024, 1024, dtype=torch.bool, device=dev).tril_()
+    for D in (1, 5):
+        xs = torch.tensor(erng.uniform(0, 1, (1003, D)) / 0.3, dtype=torch.float32, device=dev)
+        errs = {}
+        for kind in gram.KINDS:
+            got = gram.gram_chol_operand_cuda(kind, xs, var, noise, 1024)
+            ref = gram.gram_chol_operand_plain(kind, xs.double(), 1.0, 1.0, 1024)
+            errs[kind] = float((got.double() - ref)[lower_e].abs().max())
+        print(f"operand N=1003 D={D} pad_to=1024: max abs err "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()) + f" (tol {OPERAND_TOL:g} x variance)")
+        if not max(errs.values()) <= OPERAND_TOL * 1.0:
+            raise AssertionError(f"operand kernel disagrees at the band edges (D={D}): {errs}")
+        operand_err = max(operand_err, *errs.values())
 
     Kp = gram.gram_chol_operand_cuda("rbf", Xs, var, noise, pad_to)
     chol_err = 0.0
@@ -1007,7 +1063,7 @@ def main():
           f"{on_card(full_plain_ms)}")
 
     # the SVGP path
-    bt_row = svgp_times(gft, torch, trsm, svgp_batch, rng, dev)
+    kuu_row, kuf_row, bt_row = svgp_times(gft, torch, gram, trsm, svgp_batch, rng, dev)
 
     # each kernel's bound at the shape it was timed at (D = 1 inputs; a map
     # entry counted as 5 flop: the difference, its square, the scale, exp)
@@ -1029,7 +1085,11 @@ def main():
                 "replaces": f"gpflow_slim_tpu/ops/{replaces}", "launches": launches, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
-    bounds["batched_trsm"] = (bt_row["bound_ms"], bt_row["bound_by"])
+    def svgp_row(name, source, replaces, launches, err, timed):
+        bounds[name] = (timed["bound_ms"], timed["bound_by"])
+        return row(name, source, replaces, launches, err, timed["ms"], timed["plain_ms"], timed["library_ms"])
+
+    by_shape = svgp_launches["gram_by_shape"]
     print(json.dumps({"kernels": [
         row("gram_chol_operand", "gram_operand.cu", "pallas_gram.py:328", n_opnd, operand_err, opnd_ms,
             opnd_plain_ms, None),
@@ -1045,8 +1105,12 @@ def main():
             trsm_plain_ms, trsm_lib_ms),
         row("trsm_thin", "trsm.cu", "pallas_trsm.py:116", serve_launches["trsm_thin"], serve_errs["trsm"],
             trsm1_ms, trsm1_plain_ms, trsm1_lib_ms),
-        row("batched_trsm", "batched_trsm.cu", "pallas_trsm.py:208", svgp_launches["batched_trsm"],
-            batched_err, bt_row["ms"], bt_row["plain_ms"], bt_row["library_ms"]),
+        svgp_row("gram_svgp_kuu", "gram.cu", "pallas_gram.py:95", by_shape.get((SVGP_M, SVGP_M), 0),
+                 svgp_errs["gram"], kuu_row),
+        svgp_row("gram_svgp_kuf", "gram.cu", "pallas_gram.py:95", by_shape.get((SVGP_M, SVGP_B), 0),
+                 svgp_errs["gram"], kuf_row),
+        svgp_row("batched_trsm", "batched_trsm.cu", "pallas_trsm.py:208", svgp_launches["batched_trsm"],
+                 batched_err, bt_row),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-// Batched triangular solve, in place: X[p] <- T[p]^-1 X[p] for p < P, each
-// T[p] (M, M) lower or upper triangular, X[p] (M, K) row-major, any M >= 1
-// and K >= 1.
+// Batched triangular solve: X[p] = T[p]^-1 B[p] for p < P, each T[p]
+// (M, M) lower or upper triangular, B[p] and X[p] (M, K) row-major, any
+// M >= 1 and K >= 1.
 //
 // Replaces the TPU kernel gpflow_slim_tpu/ops/pallas_trsm.py
 // `_make_batched_trsm_kernel` (launched by `_batched_trsm_pallas`), whose
@@ -13,32 +13,38 @@
 // reads one triangle for every p (the KL's broadcast Lp, no (P, M, M) copy),
 // and the transposed read makes the backward's upper solve on L.mT free.
 //
-// The TPU kernel runs one grid step per p, inverts the whole padded triangle
-// in VMEM and applies it as one matrix-unit product. Here every strip of 64
-// columns of X[p] is independent of every other, so one launch covers the
-// batch with a grid of (column strips, p) and no dependency between blocks.
-// Each block walks its strip's 64-row block rows in solve order
-// (left-looking): it accumulates T_ik X_k over the block rows k already
-// solved, in registers (a shared-memory tiled FMA product, 4 x 4 outputs per
-// thread), subtracts that from the right-hand side and solves the diagonal
-// block in shared memory, one column per thread against reciprocal pivots
-// (as trsm.cu's diag kernel), writing X_i once. The solved rows are read back
-// from device memory (L2) for the block rows after them.
+// What bounds it on an H100: not the work. At the SVGP path's shape (P = 1,
+// M = K = 256) it is M^2 K = 1.7e7 flop (0.25 us at 67 TFLOP/s) and ~0.7 MB
+// (0.2 us at 3.35 TB/s); at (1, 1024, 1024) 1.1e9 flop (16 us). The chain of
+// M / 64 dependent block rows and the SMs the launch keeps busy bound it: a
+// block per (64-column strip, p) walking its block rows in series, with a
+// 64-step one-column-per-thread substitution on the diagonal, kept 4 of 132
+// SMs busy at (1, 256, 256) and took 18-33 us a block row.
+//
+// The design: one launch, one block per work item (p, 32-column strip j,
+// block row i). Items are handed out by an atomic ticket in solve order,
+// i-major, then p and j, so a block waits only on items with smaller
+// tickets and the launch cannot deadlock. Each item runs common.cuh's
+// dataflow body (`flow_block_row`, the thin schedule of trsm.cu on one
+// strip): T_ii^-1 is formed and the tiles T_ik streamed off the chain, each
+// T_ik x_kj subtracted as soon as item (p, j, k) has released its ready
+// flag, and on the chain only one tile product and the three products of
+// the refined diagonal solve, x = y + T_ii^-1 (b - T_ii y), y = T_ii^-1 b.
+// Strips of 32 columns halve the chain's products against 64 and double the
+// items that fill the card (32 at (1, 256, 256), 512 at (1, 1024, 1024));
+// two blocks fit an SM. The ticket and one ready flag per item are scratch
+// from the wrapper (`ops/trsm.py` `batched_trsm_scratch`) that this entry
+// zeroes on the stream before the launch. The solve is out of place: B is
+// read once per item and X written once, so nothing copies B.
 //
 // The ragged edge is masked in the kernel: entries of T outside M x M read as
-// the identity on the diagonal block and as 0 elsewhere, rows of X past M as
+// the identity on the diagonal block and as 0 elsewhere, rows of B past M as
 // 0, and nothing past M or K is written; the wrapper pads nothing.
 //
 // Arithmetic: f32 FMA, no tensor cores and no TF32 (the TPU pins its product
 // to full f32, pallas_trsm.py:49-53).
-//
-// What bounds it on an H100: at the SVGP path's shape (P = 1, M = K = 256)
-// the work is M^2 K = 1.7e7 flop (0.25 us at 67 TFLOP/s) and ~0.7 MB
-// (0.2 us at 3.35 TB/s), so the launch and each block's serial chain of
-// M / 64 block rows bound it: ceil(K / 64) * P blocks, 4 at that shape. The
-// design spends no launch per block row (the wide TRSM's 2 M / 64 dependent
-// launches) and leaves the chain's length to M / 64 diagonal solves of ~64
-// dependent steps each.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -46,115 +52,62 @@
 
 namespace {
 
-constexpr int kBs = gfs::kTriBs;  // block size: rows of a block row, columns of a strip
-constexpr int kThreads = 256;     // 16 x 16 threads, 4 x 4 outputs each; the first 64 solve
-constexpr int kLd4 = gfs::kTriLd;
-constexpr int kMaxGridY = 65535;
+constexpr int kBs = gfs::kTriBs;  // rows of a block row
+constexpr int kStrip = 32;        // columns of a strip
+constexpr int kThreads = gfs::kFlowThreads;
 
-// At most one block per SM: ptxas may then give a thread the registers the
-// substitution's 64 values need (without the bound, the upper variants were
-// held to 80 registers and spilled ~900 bytes; H100, nvcc 12.9).
 template <bool kLower, bool kTrans>
-__global__ void __launch_bounds__(kThreads, 1)
-    batched_trsm_kernel(const float* __restrict__ L, int M, int ld, long long batch_stride,
-                        float* __restrict__ X, int K) {
-  __shared__ __align__(16) float a[kBs][kLd4];   // T_ik; then T_ii transposed (a[c][r] = T_ii[r][c])
-  __shared__ __align__(16) float bt[kBs][kLd4];  // X_k transposed; then block row i's RHS, transposed
-  __shared__ float dinv[kBs];                    // 1 / T_ii[j][j]
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // columns tx + 16 qb of the strip
-  const int ty = tid >> 4;  // rows ty + 16 qa of the block row
-  const int col0 = blockIdx.x * kBs;
-  const float* T = L + static_cast<long long>(blockIdx.y) * batch_stride;
-  float* Xp = X + static_cast<size_t>(blockIdx.y) * M * K;
+__global__ void __launch_bounds__(kThreads, 2)
+    batched_trsm_kernel(const float* __restrict__ L, int P, int M, int ld, long long batch_stride,
+                        const float* __restrict__ B, float* __restrict__ X, int K, int* __restrict__ sync) {
+  extern __shared__ __align__(16) float smem[];
+  const int item = gfs::take_ticket(sync);
+  const int strips = (K + kStrip - 1) / kStrip;
+  const int s = item / (P * strips);  // the block row's place in the solve order
+  const int pj = item % (P * strips);  // p * strips + j
+  const int p = pj / strips, c0 = (pj % strips) * kStrip;
+  const size_t off = static_cast<size_t>(p) * M * K + c0;
   const int nb = (M + kBs - 1) / kBs;
-  constexpr int kIt = kBs * kBs / kThreads;
+  gfs::flow_block_row<kLower, kTrans, kStrip>(L + p * batch_stride, M, ld, B + off, X + off, K,
+                                              min(kStrip, K - c0), sync + 1 + static_cast<size_t>(pj) * nb, s,
+                                              smem);
+}
 
-  for (int s = 0; s < nb; ++s) {
-    const int i = kLower ? s : nb - 1 - s;
-    // acc = sum of T_ik X_k over the block rows k solved before i
-    float acc[4][4] = {};
-    for (int u = 0; u < s; ++u) {
-      const int k = kLower ? u : nb - 1 - u;
-      // every thread is done with the tiles (and, after the diag solve of
-      // the previous block row, its writes to X are visible to all)
-      __syncthreads();
-      gfs::load_tri_tile<kThreads, kTrans, false>(T, M, ld, i * kBs, k * kBs, a, false);
-      float xv[kIt];  // all loads in flight before the first store
-#pragma unroll
-      for (int q = 0; q < kIt; ++q) {
-        const int e = tid + q * kThreads;
-        const int gr = k * kBs + e / kBs, gc = col0 + e % kBs;
-        xv[q] = (gr < M && gc < K) ? Xp[static_cast<size_t>(gr) * K + gc] : 0.0f;
-      }
-#pragma unroll
-      for (int q = 0; q < kIt; ++q) {
-        const int e = tid + q * kThreads;
-        bt[e % kBs][e / kBs] = xv[q];
-      }
-      __syncthreads();
-      gfs::tile_fma(acc, a, bt, tx, ty);
-    }
-    __syncthreads();
-    // the right-hand side of block row i less acc, transposed, for the
-    // column-per-thread diagonal solve; T_ii transposed beside it
-#pragma unroll
-    for (int qa = 0; qa < 4; ++qa) {
-      const int r = ty + 16 * qa, gr = i * kBs + r;
-#pragma unroll
-      for (int qb = 0; qb < 4; ++qb) {
-        const int c = tx + 16 * qb, gc = col0 + c;
-        bt[c][r] = (gr < M && gc < K) ? Xp[static_cast<size_t>(gr) * K + gc] - acc[qa][qb] : 0.0f;
-      }
-    }
-    gfs::load_tri_tile<kThreads, kTrans, true>(T, M, ld, i * kBs, i * kBs, a, true);
-    __syncthreads();
-    if (tid < kBs) dinv[tid] = 1.0f / a[tid][tid];
-    __syncthreads();
-    const int gc = col0 + tid;
-    if (tid < kBs && gc < K) {
-      float v[kBs];
-#pragma unroll
-      for (int r = 0; r < kBs; r += 4) {
-        const float4 t = *reinterpret_cast<const float4*>(&bt[tid][r]);
-        v[r] = t.x;
-        v[r + 1] = t.y;
-        v[r + 2] = t.z;
-        v[r + 3] = t.w;
-      }
-      gfs::substitute<kLower>(v, a, dinv);
-      const int rows = min(kBs, M - i * kBs);
-#pragma unroll
-      for (int r = 0; r < kBs; ++r) {
-        if (r < rows) Xp[static_cast<size_t>(i * kBs + r) * K + gc] = v[r];
-      }
-    }
-  }
+template <bool kLower, bool kTrans>
+int launch(const float* L, int P, int M, int ld, long long batch_stride, const float* B, float* X, int K,
+           int* sync, unsigned items, cudaStream_t s) {
+  constexpr int bytes = gfs::FlowShape<kStrip>::kSmemFloats * static_cast<int>(sizeof(float));
+  const auto kernel = batched_trsm_kernel<kLower, kTrans>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<items, kThreads, bytes, s>>>(L, P, M, ld, batch_stride, B, X, K, sync);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Solves T[p] X[p] = B[p] in place in X (P, M, K), row-major, for p < P.
-// T[p] is lower (lower != 0) or upper triangular, read from L at
-// p * batch_stride (0: one triangle for all p) with leading dimension ld,
-// transposed when trans != 0 (see above).
-extern "C" int gfs_batched_trsm(const float* L, int P, int M, int ld, long long batch_stride,
-                                int trans, int lower, float* X, int K, void* stream) {
-  if (P < 1 || M < 1 || K < 1 || ld < M || batch_stride < 0 || P > kMaxGridY) {
+// Solves T[p] X[p] = B[p] for p < P into X (P, M, K), row-major; B is not
+// written and must not overlap X. T[p] is lower (lower != 0) or upper
+// triangular, read from L at p * batch_stride (0: one triangle for all p)
+// with leading dimension ld, transposed when trans != 0 (see above). sync:
+// P * ceil(K / 32) * ceil(M / 64) + 1 ints of scratch (the ticket, then one
+// ready flag per item), zeroed here on the stream.
+extern "C" int gfs_batched_trsm(const float* L, int P, int M, int ld, long long batch_stride, int trans,
+                                int lower, const float* B, float* X, int K, int* sync, void* stream) {
+  if (P < 1 || M < 1 || K < 1 || ld < M || batch_stride < 0 || sync == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long items =
+      static_cast<long long>(P) * ((K + kStrip - 1) / kStrip) * ((M + kBs - 1) / kBs);
+  if (items > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>((K + kBs - 1) / kBs), static_cast<unsigned>(P));
+  const unsigned n = static_cast<unsigned>(items);
+  const cudaError_t err = cudaMemsetAsync(sync, 0, (items + 1) * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (lower) {
-    if (trans) {
-      batched_trsm_kernel<true, true><<<grid, kThreads, 0, s>>>(L, M, ld, batch_stride, X, K);
-    } else {
-      batched_trsm_kernel<true, false><<<grid, kThreads, 0, s>>>(L, M, ld, batch_stride, X, K);
-    }
-  } else if (trans) {
-    batched_trsm_kernel<false, true><<<grid, kThreads, 0, s>>>(L, M, ld, batch_stride, X, K);
-  } else {
-    batched_trsm_kernel<false, false><<<grid, kThreads, 0, s>>>(L, M, ld, batch_stride, X, K);
+    return trans ? launch<true, true>(L, P, M, ld, batch_stride, B, X, K, sync, n, s)
+                 : launch<true, false>(L, P, M, ld, batch_stride, B, X, K, sync, n, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return trans ? launch<false, true>(L, P, M, ld, batch_stride, B, X, K, sync, n, s)
+               : launch<false, false>(L, P, M, ld, batch_stride, B, X, K, sync, n, s);
 }

@@ -1,9 +1,12 @@
 // Helpers shared by the hand-written kernels of gpflow_slim_tpu_torch.
 //
-// Two tiled f32 products live here. `tile_fma` (64 x 64 outputs, 4 x 4 per
-// thread, operands staged by the caller) serves the small steps whose
-// latency matters more than their rate: the batched TRSM, the wide TRSM's
-// in-group solve, the Cholesky's updates inside a panel. `mm_run` (128 x 128
+// Two tiled f32 products live here, beside the body of the one-launch
+// dataflow solve (`flow_block_row`, shared by trsm.cu's thin schedule and
+// batched_trsm.cu) and the band writer of the Gram operand (`gram_band`).
+// `tile_fma` (64 x 64 outputs, 4 x 4 per thread, operands staged by the
+// caller) serves the small steps whose latency matters more than their
+// rate: the wide TRSM's in-group solve, the Cholesky's updates inside a
+// panel. `mm_run` (128 x 128
 // outputs, 8 x 8 per thread of 256, the inner dimension streamed through a
 // two-stage cp.async ring) serves the large updates that bound the wide
 // TRSM and the Cholesky on an H100: there the limit of a product without
@@ -325,7 +328,31 @@ __device__ __forceinline__ void mm_tile_io(MmAcc& acc, float* tile, int ld, int 
   }
 }
 
-// -- publishing a block row to the blocks that wait on it (trsm.cu) ---------
+// -- the one-launch dataflow solve (trsm.cu's thin schedule, batched_trsm.cu)
+//
+// One block solves one 64-row block row i of T X = B for one strip of at
+// most kP columns, inside a launch whose blocks take their work from an
+// atomic ticket in solve order (`take_ticket`): a block only ever waits on
+// work held by blocks that took their tickets before it, so already run,
+// and the launch cannot deadlock however the blocks are scheduled.
+//
+// Off the chain, before any wait, the block loads T_ii and inverts it (one
+// column per thread, by substitution), then streams its tiles T_ik for
+// every block row k solved before it (register prefetch, one tile ahead)
+// and subtracts T_ik x_k as soon as block row k has published x_k: a ready
+// flag per block row, released by the producer (__threadfence,
+// st.release.gpu) and polled by one consumer thread (ld.acquire.gpu), with
+// x_k read through L2 (ld.cg), past a stale L1. On the chain, the diagonal
+// step is three parallel products instead of a 64-step substitution:
+// y = T_ii^-1 b, then one step of refinement, x = y + T_ii^-1 (b - T_ii y).
+// The refinement is what makes the explicit inverse safe: without it, at the
+// SVGP path's conditioning (cond(Kuu) ~1e6), applying inverted diagonal
+// blocks put the ELBO's q_mu gradient 0.34 off f64 on the kernel route
+// against the stock f32 route's 0.029 (H100, tests/test_torch_cuda.py::
+// test_svgp_elbo_kernel_route_matches_f64_plain); with it the solve is as
+// close to f64 as the substitution. Every elimination starts from the
+// right-hand side and subtracts one FMA at a time, in order of k and of the
+// inner index.
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -335,6 +362,297 @@ __device__ __forceinline__ int ld_acquire(const int* p) {
 
 __device__ __forceinline__ void st_release(int* p, int v) {
   asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// The block's ticket from `counter` (one atomicAdd by thread 0), for every
+// thread of the block.
+__device__ __forceinline__ int take_ticket(int* counter) {
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(counter, 1);
+  __syncthreads();
+  return ticket;
+}
+
+constexpr int kFlowThreads = 256;
+
+// How the 256 threads of a block split the 64 x kP products of a block row
+// (kP = 1, 8, or a multiple of 16). A thread owns kRows x kCols outputs,
+// rows row(a) and columns col(b), each a run of consecutive indices read as
+// one vector from shared memory:
+//  * kP = 1: thread (r = tid & 63, q = tid >> 6) owns row r and the inner
+//    indices [16 q, 16 q + 16); the four partial sums meet in shared memory;
+//  * kP = 8: thread (r, q) owns row r and columns 2 q, 2 q + 1;
+//  * kP >= 16: thread (tid >> 4, tid & 15) owns four rows and kP / 16
+//    columns: per inner index a warp reads two 16-byte runs of the T tile
+//    (broadcasts) and one 128- or 256-byte run of X, for 4 kP / 16 FMAs a
+//    thread (at kP = 8 the X read is a broadcast for 2 FMAs, which is why
+//    the tile split starts at 16).
+template <int kP>
+struct FlowShape {
+  static_assert(kP == 1 || kP == 8 || kP % 16 == 0, "kP is 1, 8 or a multiple of 16");
+  static constexpr bool kTile = kP >= 16;
+  static constexpr int kRows = kTile ? 4 : 1;
+  static constexpr int kCols = kTile ? kP / 16 : (kP == 1 ? 1 : kP / 4);
+  static constexpr int kSplit = kP == 1 ? 4 : 1;  // inner-dimension split
+  static constexpr int kInner = kTriBs / kSplit;  // inner indices per thread
+  // dynamic shared floats: T_ii, T_ii^-1, the T_ik tile, xs, ys, red, dinv
+  static constexpr int kSmemFloats = 3 * kTriBs * kTriLd + 2 * kTriBs * kP + 4 * kTriBs + kTriBs;
+  __device__ static int row(int a) { return kTile ? 4 * (threadIdx.x >> 4) + a : threadIdx.x & (kTriBs - 1); }
+  __device__ static int col(int b) {
+    if (kTile) return kCols * (threadIdx.x & 15) + b;
+    return kP == 1 ? 0 : kCols * (threadIdx.x >> 6) + b;
+  }
+  // whether this thread's sums carry the right-hand side (with the inner
+  // split only the first part does)
+  __device__ static bool carries() { return kSplit == 1 || (threadIdx.x >> 6) == 0; }
+};
+
+// v <- kN consecutive floats at p, as one 16- or 8-byte read where kN is 4 or 2
+template <int kN>
+__device__ __forceinline__ void load_run(float (&v)[kN], const float* p) {
+  if constexpr (kN == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (kN == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < kN; ++q) v[q] = p[q];
+  }
+}
+
+template <int kP>
+using FlowAcc = float[FlowShape<kP>::kRows][FlowShape<kP>::kCols];
+
+// acc -= (or += with kAdd) the sum over this thread's inner indices t of
+// a[t][row] * xs[t][col] (a holds a tile transposed: a[t][r] = tile[r][t]).
+template <int kP, bool kAdd = false>
+__device__ __forceinline__ void flow_product(FlowAcc<kP>& acc, const float (*a)[kTriLd], const float (*xs)[kP]) {
+  using S = FlowShape<kP>;
+  const int t0 = S::kSplit > 1 ? (threadIdx.x >> 6) * S::kInner : 0;
+  const int r0 = S::row(0), c0 = S::col(0);
+#pragma unroll 16
+  for (int tt = 0; tt < S::kInner; ++tt) {
+    const int t = t0 + tt;
+    float av[S::kRows], xv[S::kCols];
+    load_run<S::kRows>(av, &a[t][r0]);
+    load_run<S::kCols>(xv, &xs[t][c0]);
+#pragma unroll
+    for (int i = 0; i < S::kRows; ++i) {
+#pragma unroll
+      for (int j = 0; j < S::kCols; ++j) acc[i][j] = fmaf(kAdd ? av[i] : -av[i], xv[j], acc[i][j]);
+    }
+  }
+}
+
+// Writes this thread's sums into out (64 x kP); with the inner split the
+// four partial sums meet in red. Every thread calls it; it ends with a
+// barrier, so out may be read at once.
+template <int kP>
+__device__ __forceinline__ void flow_store(const FlowAcc<kP>& acc, float (*out)[kP], float* red) {
+  using S = FlowShape<kP>;
+  if (S::kSplit > 1) {
+    const int r = threadIdx.x & (kTriBs - 1), q = threadIdx.x >> 6;
+    red[q * kTriBs + r] = acc[0][0];
+    __syncthreads();
+    if (q == 0) out[r][0] = ((red[r] + red[kTriBs + r]) + red[2 * kTriBs + r]) + red[3 * kTriBs + r];
+  } else {
+#pragma unroll
+    for (int i = 0; i < S::kRows; ++i) {
+#pragma unroll
+      for (int j = 0; j < S::kCols; ++j) out[S::row(i)][S::col(j)] = acc[i][j];
+    }
+  }
+  __syncthreads();
+}
+
+// out = init + or - a * xs over the whole inner dimension (init may be
+// null, and out may alias init or xs).
+template <int kP, bool kAdd>
+__device__ __forceinline__ void flow_matvec(const float (*a)[kTriLd], const float (*xs)[kP], const float (*init)[kP],
+                                            float (*out)[kP], float* red) {
+  using S = FlowShape<kP>;
+  FlowAcc<kP> acc;
+#pragma unroll
+  for (int i = 0; i < S::kRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < S::kCols; ++j) {
+      acc[i][j] = (init != nullptr && S::carries()) ? init[S::row(i)][S::col(j)] : 0.0f;
+    }
+  }
+  flow_product<kP, kAdd>(acc, a, xs);
+  __syncthreads();  // every thread has read xs and init, which out may alias
+  flow_store<kP>(acc, out, red);
+}
+
+// Solves block row i (the s-th in solve order) of T X = B for columns
+// [0, ncols) of one strip, ncols <= kP: T (N, N) lower or upper triangular,
+// read as load_tri_tile reads it; B and X row-major with row stride ldx (X
+// may be B: in place); ready[k] is block row k's flag, 0 until its x_k is
+// in X. smem holds FlowShape<kP>::kSmemFloats floats, 16-byte aligned.
+// Rows past N are the identity's, columns past ncols zero; nothing past N
+// or ncols is written. Every thread of the block calls it.
+template <bool kLower, bool kTrans, int kP>
+__device__ __forceinline__ void flow_block_row(const float* __restrict__ T, int N, int ld, const float* B,
+                                               float* X, int ldx, int ncols, int* ready, int s,
+                                               float* smem) {
+  using S = FlowShape<kP>;
+  constexpr int kNT = kFlowThreads;
+  auto ltd = reinterpret_cast<float (*)[kTriLd]>(smem);                    // T_ii transposed
+  auto linv = reinterpret_cast<float (*)[kTriLd]>(smem + kTriBs * kTriLd);  // T_ii^-1 transposed
+  auto lt = reinterpret_cast<float (*)[kTriLd]>(smem + 2 * kTriBs * kTriLd);  // each T_ik transposed
+  auto xs = reinterpret_cast<float (*)[kP]>(smem + 3 * kTriBs * kTriLd);   // x_k; then right-hand sides
+  auto ys = reinterpret_cast<float (*)[kP]>(smem + 3 * kTriBs * kTriLd + kTriBs * kP);  // the first solution
+  float* red = smem + 3 * kTriBs * kTriLd + 2 * kTriBs * kP;  // partial sums (kP = 1)
+  float* dinv = red + 4 * kTriBs;                              // 1 / T_ii[j][j]
+
+  const int tid = threadIdx.x;
+  const int nb = (N + kTriBs - 1) / kTriBs;
+  const int i = kLower ? s : nb - 1 - s;
+  const int row0 = i * kTriBs;
+  const int rows = min(kTriBs, N - row0);
+
+  // T_ii and its inverse (one column per thread, by substitution), before
+  // any wait: off the chain
+  load_tri_tile<kNT, kTrans, true>(T, N, ld, row0, row0, ltd, true);
+  __syncthreads();
+  for (int e = tid; e < kTriBs * kTriBs; e += kNT) {  // only the triangle is T's (the products read all)
+    const int c = e / kTriBs, rr = e % kTriBs;
+    if (kLower ? rr < c : rr > c) ltd[c][rr] = 0.0f;
+  }
+  if (tid < kTriBs) dinv[tid] = 1.0f / ltd[tid][tid];
+  __syncthreads();
+  if (tid < kTriBs) {
+    float v[kTriBs];
+#pragma unroll
+    for (int rr = 0; rr < kTriBs; ++rr) v[rr] = rr == tid ? 1.0f : 0.0f;
+    substitute<kLower>(v, ltd, dinv);
+#pragma unroll
+    for (int rr = 0; rr < kTriBs; ++rr) linv[tid][rr] = v[rr];  // linv[t][rr] = (T_ii^-1)[rr][t]
+  }
+
+  // acc starts at this thread's entries of B_i and has T_ik x_k subtracted,
+  // one FMA at a time
+  FlowAcc<kP> acc;
+#pragma unroll
+  for (int a = 0; a < S::kRows; ++a) {
+#pragma unroll
+    for (int b = 0; b < S::kCols; ++b) {
+      const int r = S::row(a), c = S::col(b);
+      acc[a][b] = (r < rows && c < ncols && S::carries()) ? B[static_cast<size_t>(row0 + r) * ldx + c] : 0.0f;
+    }
+  }
+
+  // the tiles T_ik, one ahead in registers, as load_tri_tile stages them
+  constexpr int kIt = kTriBs * kTriBs / kNT;
+  float tv[kIt];
+  const auto load_tile = [&](int k) {
+#pragma unroll
+    for (int e4 = 0; e4 < kIt; ++e4) {
+      const int e = tid + e4 * kNT;
+      const int m = e / kTriBs, n = e % kTriBs;
+      const int gr = row0 + (kTrans ? n : m), gc = k * kTriBs + (kTrans ? m : n);
+      tv[e4] = (gr < N && gc < N)
+                   ? (kTrans ? T[static_cast<size_t>(gc) * ld + gr] : T[static_cast<size_t>(gr) * ld + gc])
+                   : 0.0f;
+    }
+  };
+  if (s > 0) load_tile(kLower ? 0 : nb - 1);
+  for (int u = 0; u < s; ++u) {
+    const int k = kLower ? u : nb - 1 - u;
+    if (tid == 0) {
+      while (ld_acquire(ready + k) == 0) {
+      }
+    }
+    __syncthreads();  // x_k is published; every thread is done with lt and xs
+#pragma unroll
+    for (int e4 = 0; e4 < kIt; ++e4) {
+      const int e = tid + e4 * kNT;
+      const int m = e / kTriBs, n = e % kTriBs;
+      lt[kTrans ? m : n][kTrans ? n : m] = tv[e4];  // lt[t][r] = T_ik[r][t]
+    }
+    for (int e = tid; e < kTriBs * kP; e += kNT) {
+      const int t = e / kP, c = e % kP;
+      const int gr = k * kTriBs + t;
+      xs[t][c] = (c < ncols && gr < N) ? __ldcg(X + static_cast<size_t>(gr) * ldx + c) : 0.0f;
+    }
+    if (u + 1 < s) load_tile(kLower ? u + 1 : nb - 2 - u);  // in flight during this product
+    __syncthreads();
+    flow_product<kP>(acc, lt, xs);
+  }
+  __syncthreads();  // every thread is done with xs
+
+  // the right-hand side b = B_i - sum_k T_ik x_k, into xs
+  flow_store<kP>(acc, xs, red);
+
+  // x_i = T_ii^-1 b with one step of refinement, all parallel products:
+  // y = T_ii^-1 b, then x = y + T_ii^-1 (b - T_ii y)
+  flow_matvec<kP, true>(linv, xs, nullptr, ys, red);
+  flow_matvec<kP, false>(ltd, ys, xs, xs, red);
+  flow_matvec<kP, true>(linv, xs, ys, xs, red);
+#pragma unroll
+  for (int a = 0; a < S::kRows; ++a) {
+#pragma unroll
+    for (int b = 0; b < S::kCols; ++b) {
+      const int r = S::row(a), c = S::col(b);
+      if (r < rows && c < ncols && S::carries()) X[static_cast<size_t>(row0 + r) * ldx + c] = xs[r][c];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) st_release(ready + i, 1);
+}
+
+// -- writing row bands of a Gram matrix (gram_operand.cu) --------------------
+
+constexpr int kBandRows = 8;       // rows of a band
+constexpr int kBandThreads = 256;  // four consecutive columns a thread: 1024 columns a sweep
+
+// Writes rows [r0, r1) (r1 - r0 <= kBandRows) and columns [c0, c1) of out
+// (row stride ld; out, ld and c0 16-byte aligned, c1 a multiple of 4): entry
+// (r, c) is value(r, c, d2) with d2 = sum_d (Xr[r][d] - Xc[c][d])^2, the
+// direct d^2 of sq_dist in its order, for r < nr and c < nc, and
+// pad(r, c) elsewhere; a band of pad rows only (r0 >= nr) reads no input
+// and forms no d^2. Each thread holds four consecutive columns'
+// coordinates in registers, loaded once per sweep and dimension and used for
+// every row of the band; a row's coordinate is one load for the whole warp
+// (the same address in every lane). Each row of four is one 16-byte store,
+// so a warp writes 512 contiguous bytes a row. Every thread of the block
+// calls it.
+template <typename Value, typename Pad>
+__device__ __forceinline__ void gram_band(const float* __restrict__ Xr, int nr, const float* __restrict__ Xc,
+                                          int nc, int D, int r0, int r1, int c0, int c1,
+                                          float* __restrict__ out, long long ld, Value value, Pad pad) {
+  for (int c = c0 + 4 * threadIdx.x; c < c1; c += 4 * kBandThreads) {
+    float d2[kBandRows][4] = {};
+    if (r0 < nr) {
+      for (int d = 0; d < D; ++d) {
+        float xc[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xc[j] = c + j < nc ? Xc[static_cast<size_t>(c + j) * D + d] : 0.0f;
+#pragma unroll
+        for (int q = 0; q < kBandRows; ++q) {
+          const int r = r0 + q;
+          const float xr = r < nr ? Xr[static_cast<size_t>(r) * D + d] : 0.0f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float diff = xr - xc[j];
+            d2[q][j] = fmaf(diff, diff, d2[q][j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBandRows; ++q) {
+      const int r = r0 + q;
+      if (r >= r1) break;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = (r < nr && c + j < nc) ? value(r, c + j, d2[q][j]) : pad(r, c + j);
+      *reinterpret_cast<float4*>(out + r * ld + c) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
 }
 
 }  // namespace gfs

@@ -20,28 +20,15 @@
 // it on an H100 is the chain of N / 64 dependent diagonal solves; the bytes
 // (T's triangle, 0.2 GB at N = 10000, 0.06 ms) are far below it, and the
 // earlier schedule paid two dependent launches per block row. One block per
-// block row; a block takes its block row from an atomic ticket, in solve
-// order, so it only ever waits on block rows held by blocks that already
-// run and the launch cannot deadlock however the blocks are scheduled.
-// Block row i inverts T_ii first (one column per thread, by substitution;
-// off the chain), then streams its tiles T_ik for every solved k (register
-// prefetch, one tile ahead) and subtracts T_ik x_k as soon as block row k
-// has published x_k: a ready flag per block row, released by the producer
-// (__threadfence, st.release.gpu) and polled by one consumer thread
-// (ld.acquire.gpu), with x_k read through L2 (ld.cg), past a stale L1. All
-// 256 threads take part in the products (at P = 1, four threads per row
-// split the inner dimension). The diagonal step on the chain is three
-// parallel products instead of a 64-step substitution: y = T_ii^-1 b, then
-// one step of refinement, x = y + T_ii^-1 (b - T_ii y). The refinement is
-// what makes the explicit inverse safe: without it, at the SVGP path's
-// conditioning (cond(Kuu) ~1e6), applying inverted diagonal blocks put the
-// ELBO's q_mu gradient 0.34 off f64 on the kernel route against the stock
-// f32 route's 0.029 (H100, tests/test_torch_cuda.py::
-// test_svgp_elbo_kernel_route_matches_f64_plain); with it the solve is as
-// close to f64 as the substitution. The ticket and the flags are scratch
-// the wrapper zeroes per call. Measured on an H100: ~2.1 us per block row
-// (the flag's and x_k's trips through L2, then the three products), against
-// ~6 us with the one-thread substitution on the chain.
+// block row, running common.cuh's dataflow body (`flow_block_row`, shared
+// with batched_trsm.cu): an atomic ticket orders the block rows, a ready
+// flag per block row publishes x_k, T_ii^-1 is formed off the chain and
+// applied with one step of refinement. All 256 threads take part in the
+// products (at P = 1, four threads per row split the inner dimension). The
+// ticket and the flags are scratch from the wrapper, zeroed on the stream
+// by the entry before the launch. Measured on an H100: ~2.1 us per block
+// row (the flag's and x_k's trips through L2, then the three products),
+// against ~6 us with the one-thread substitution on the chain.
 //
 // Wide X (P > 64): launches ordered by the stream. Updating every remaining
 // row after every block column would read and write the rest of X once per
@@ -81,193 +68,24 @@ constexpr int kMaxGrid = 65535;
 
 // ---------------------------------------------------------------- thin X ---
 
-// Columns of X the thin kernel is compiled for (1, 8 or 64), and how its
-// 256 threads split the products: thread (r = tid & 63, q = tid >> 6) owns
-// row r of the block row; with kP > 1 it owns columns q, q + 4, ..., with
-// kP = 1 it owns the inner indices [16 q, 16 q + 16), and the four partial
-// sums are added in shared memory.
-template <int kP>
-struct ThinShape {
-  static constexpr int kGroups = kP < 4 ? 1 : 4;  // column groups
-  static constexpr int kSplit = 4 / kGroups;      // inner-dimension split
-  static constexpr int kCols = kP / kGroups;      // columns per thread
-  static constexpr int kInner = kBs / kSplit;     // inner indices per thread
-  // dynamic shared floats: T_ii, T_ii^-1, the T_ik tile, xs, ys, red, dinv
-  static constexpr int kSmemFloats = 3 * kBs * kLd4 + 2 * kBs * kP + 4 * kBs + kBs;
-};
-
-template <int kP>
-__device__ __forceinline__ int thin_col(int q, int j) {
-  return ThinShape<kP>::kGroups > 1 ? q + ThinShape<kP>::kGroups * j : j;
-}
-
-// acc[j] -= (or += with kAdd) sum over this thread's inner indices t of
-// a[t][r] * xs[t][col j] (a holds a tile transposed: a[t][r] = tile[r][t]).
-template <int kP, bool kAdd = false>
-__device__ __forceinline__ void thin_product(float (&acc)[ThinShape<kP>::kCols], const float (*a)[kLd4],
-                                             const float (*xs)[kP], int r, int q) {
-  using S = ThinShape<kP>;
-  const int t0 = S::kSplit > 1 ? q * S::kInner : 0;
-#pragma unroll 16
-  for (int tt = 0; tt < S::kInner; ++tt) {
-    const int t = t0 + tt;
-    const float av = kAdd ? a[t][r] : -a[t][r];
-#pragma unroll
-    for (int j = 0; j < S::kCols; ++j) acc[j] = fmaf(av, xs[t][thin_col<kP>(q, j)], acc[j]);
-  }
-}
-
-// Writes this thread's sums acc into out (64 x kP); with the inner split
-// the four partial sums meet in red. Every thread calls it; it ends with a
-// barrier, so out may be read at once.
-template <int kP>
-__device__ __forceinline__ void thin_store(const float (&acc)[ThinShape<kP>::kCols], float (*out)[kP],
-                                           float* red, int r, int q) {
-  if (ThinShape<kP>::kSplit > 1) {
-    red[q * kBs + r] = acc[0];
-    __syncthreads();
-    if (q == 0) out[r][0] = ((red[r] + red[kBs + r]) + red[2 * kBs + r]) + red[3 * kBs + r];
-  } else {
-#pragma unroll
-    for (int j = 0; j < ThinShape<kP>::kCols; ++j) out[r][thin_col<kP>(q, j)] = acc[j];
-  }
-  __syncthreads();
-}
-
-// acc (this thread's entries of out, rows r) = init + or - a * xs over the
-// whole inner dimension, written to out by thin_store.
-template <int kP, bool kAdd>
-__device__ __forceinline__ void thin_matvec(const float (*a)[kLd4], const float (*xs)[kP],
-                                            const float (*init)[kP], float (*out)[kP], float* red, int r,
-                                            int q) {
-  using S = ThinShape<kP>;
-  float acc[S::kCols];
-#pragma unroll
-  for (int j = 0; j < S::kCols; ++j) {
-    acc[j] = (init != nullptr && (S::kSplit == 1 || q == 0)) ? init[r][thin_col<kP>(q, j)] : 0.0f;
-  }
-  thin_product<kP, kAdd>(acc, a, xs, r, q);
-  __syncthreads();  // every thread has read xs and init, which out may alias
-  thin_store<kP>(acc, out, red, r, q);
-}
-
+// One block per block row: the ticket orders the block rows, the body is
+// common.cuh's flow_block_row on the whole of X (kP = 1, 8 or 64 columns).
 template <bool kLower, bool kTrans, int kP>
 __global__ void __launch_bounds__(kThreads)
     trsm_thin_kernel(const float* __restrict__ T, int N, int ld, float* __restrict__ X, int P,
                      int* __restrict__ sync) {
-  using S = ThinShape<kP>;
   extern __shared__ __align__(16) float smem[];
-  auto ltd = reinterpret_cast<float (*)[kLd4]>(smem);                 // T_ii transposed
-  auto linv = reinterpret_cast<float (*)[kLd4]>(smem + kBs * kLd4);    // T_ii^-1 transposed
-  auto lt = reinterpret_cast<float (*)[kLd4]>(smem + 2 * kBs * kLd4);  // each T_ik transposed
-  auto xs = reinterpret_cast<float (*)[kP]>(smem + 3 * kBs * kLd4);    // x_k; then right-hand sides
-  auto ys = reinterpret_cast<float (*)[kP]>(smem + 3 * kBs * kLd4 + kBs * kP);  // the first solution
-  float* red = smem + 3 * kBs * kLd4 + 2 * kBs * kP;                     // partial sums (kP = 1)
-  float* dinv = red + 4 * kBs;                                           // 1 / T_ii[j][j]
-  __shared__ int ticket;
-
-  const int tid = threadIdx.x;
-  if (tid == 0) ticket = atomicAdd(sync, 1);
-  __syncthreads();
-  int* ready = sync + 1;
-  const int nb = (N + kBs - 1) / kBs;
-  const int s = ticket;  // this block's place in the solve order
-  const int i = kLower ? s : nb - 1 - s;
-  const int row0 = i * kBs;
-  const int rows = min(kBs, N - row0);
-  const int r = tid & (kBs - 1), q = tid >> 6;
-
-  // T_ii and its inverse (one column per thread, by substitution), before
-  // any wait: off the chain
-  gfs::load_tri_tile<kThreads, kTrans, true>(T, N, ld, row0, row0, ltd, true);
-  __syncthreads();
-  for (int e = tid; e < kBs * kBs; e += kThreads) {  // only the triangle is T's (the products read all)
-    const int c = e / kBs, rr = e % kBs;
-    if (kLower ? rr < c : rr > c) ltd[c][rr] = 0.0f;
-  }
-  if (tid < kBs) dinv[tid] = 1.0f / ltd[tid][tid];
-  __syncthreads();
-  if (tid < kBs) {
-    float v[kBs];
-#pragma unroll
-    for (int rr = 0; rr < kBs; ++rr) v[rr] = rr == tid ? 1.0f : 0.0f;
-    gfs::substitute<kLower>(v, ltd, dinv);
-#pragma unroll
-    for (int rr = 0; rr < kBs; ++rr) linv[tid][rr] = v[rr];  // linv[t][rr] = (T_ii^-1)[rr][t]
-  }
-
-  // acc starts at this thread's entries of B_i (with the inner split, only
-  // q = 0 carries them) and has T_ik x_k subtracted, one FMA at a time
-  float acc[S::kCols];
-#pragma unroll
-  for (int j = 0; j < S::kCols; ++j) {
-    const int c = thin_col<kP>(q, j);
-    acc[j] = (r < rows && c < P && (S::kSplit == 1 || q == 0)) ? X[static_cast<size_t>(row0 + r) * P + c]
-                                                                : 0.0f;
-  }
-
-  // the tiles T_ik, one ahead in registers, as load_tri_tile stages them
-  constexpr int kIt = kBs * kBs / kThreads;
-  float tv[kIt];
-  const auto load_tile = [&](int k) {
-#pragma unroll
-    for (int e4 = 0; e4 < kIt; ++e4) {
-      const int e = tid + e4 * kThreads;
-      const int m = e / kBs, n = e % kBs;
-      const int gr = row0 + (kTrans ? n : m), gc = k * kBs + (kTrans ? m : n);
-      tv[e4] = (gr < N && gc < N)
-                   ? (kTrans ? T[static_cast<size_t>(gc) * ld + gr] : T[static_cast<size_t>(gr) * ld + gc])
-                   : 0.0f;
-    }
-  };
-  if (s > 0) load_tile(kLower ? 0 : nb - 1);
-  for (int u = 0; u < s; ++u) {
-    const int k = kLower ? u : nb - 1 - u;
-    if (tid == 0) {
-      while (gfs::ld_acquire(ready + k) == 0) {
-      }
-    }
-    __syncthreads();  // x_k is published; every thread is done with lt and xs
-#pragma unroll
-    for (int e4 = 0; e4 < kIt; ++e4) {
-      const int e = tid + e4 * kThreads;
-      const int m = e / kBs, n = e % kBs;
-      lt[kTrans ? m : n][kTrans ? n : m] = tv[e4];  // lt[t][r] = T_ik[r][t]
-    }
-    for (int e = tid; e < kBs * kP; e += kThreads) {
-      const int t = e / kP, c = e % kP;
-      const int gr = k * kBs + t;
-      xs[t][c] = (c < P && gr < N) ? __ldcg(X + static_cast<size_t>(gr) * P + c) : 0.0f;
-    }
-    if (u + 1 < s) load_tile(kLower ? u + 1 : nb - 2 - u);  // in flight during this product
-    __syncthreads();
-    thin_product<kP>(acc, lt, xs, r, q);
-  }
-  __syncthreads();  // every thread is done with xs
-
-  // the right-hand side b = B_i - sum_k T_ik x_k, into xs
-  thin_store<kP>(acc, xs, red, r, q);
-
-  // x_i = T_ii^-1 b with one step of refinement, all parallel products:
-  // y = T_ii^-1 b, then x = y + T_ii^-1 (b - T_ii y)
-  thin_matvec<kP, true>(linv, xs, nullptr, ys, red, r, q);
-  thin_matvec<kP, false>(ltd, ys, xs, xs, red, r, q);
-  thin_matvec<kP, true>(linv, xs, ys, xs, red, r, q);
-#pragma unroll
-  for (int j = 0; j < S::kCols; ++j) {
-    const int c = thin_col<kP>(q, j);
-    if (r < rows && c < P && (S::kSplit == 1 || q == 0)) X[static_cast<size_t>(row0 + r) * P + c] = xs[r][c];
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) gfs::st_release(ready + i, 1);
+  const int s = gfs::take_ticket(sync);  // this block's place in the solve order
+  gfs::flow_block_row<kLower, kTrans, kP>(T, N, ld, X, X, P, P, sync + 1, s, smem);
 }
 
 template <bool kLower, bool kTrans, int kP>
 int solve_thin(const float* T, int N, int ld, float* X, int P, int* sync, cudaStream_t s) {
-  constexpr int bytes = ThinShape<kP>::kSmemFloats * static_cast<int>(sizeof(float));
+  constexpr int bytes = gfs::FlowShape<kP>::kSmemFloats * static_cast<int>(sizeof(float));
   const auto kernel = trsm_thin_kernel<kLower, kTrans, kP>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemsetAsync(sync, 0, ((N + kBs - 1) / kBs + 1) * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<(N + kBs - 1) / kBs, kThreads, bytes, s>>>(T, N, ld, X, P, sync);
   return static_cast<int>(cudaGetLastError());
@@ -406,8 +224,8 @@ int solve(const float* T, int N, int ld, float* X, int P, int* sync, cudaStream_
 
 // Solves T X = B in place in X (N, P), row-major. T is lower (lower != 0)
 // or upper triangular; trans != 0 reads it transposed from L (see above).
-// sync: for P <= 64, ceil(N / 64) + 1 ints of scratch the caller zeroes (the
-// ticket, then one ready flag per block row); unused for P > 64.
+// sync: for P <= 64, ceil(N / 64) + 1 ints of scratch (the ticket, then one
+// ready flag per block row), zeroed here on the stream; unused for P > 64.
 extern "C" int gfs_trsm(const float* L, int N, int ld, int trans, int lower, float* X, int P, int* sync,
                         void* stream) {
   if (N < 1 || P < 1 || ld < N || (P <= kThinMaxP && sync == nullptr) ||

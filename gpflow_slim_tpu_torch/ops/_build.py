@@ -34,8 +34,8 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points: name -> argument types (each returns a cudaError_t as int)
 _ENTRIES = {
-    # X, N, D, scal, kind, pad_to, out, stream
-    "gfs_gram_chol_operand": (_P, _I, _I, _P, _I, _I, _P, _P),
+    # X, N, D, var, noise, kind, pad_to, out, stream
+    "gfs_gram_chol_operand": (_P, _I, _I, _P, _P, _I, _I, _P, _P),
     # K, Np, alpha, P, work, half_logdet, stream
     "gfs_chol_solve_logdet": (_P, _I, _P, _I, _P, _P, _P),
     # X, N, X2, M, D, var, kind, out, stream
@@ -46,8 +46,8 @@ _ENTRIES = {
     "gfs_cholesky": (_P, _I, _P, _P),
     # L, N, ld, trans, lower, X, P, sync, stream
     "gfs_trsm": (_P, _I, _I, _I, _I, _P, _I, _P, _P),
-    # L, P, M, ld, batch_stride, trans, lower, X, K, stream
-    "gfs_batched_trsm": (_P, _I, _I, _I, _L, _I, _I, _P, _I, _P),
+    # L, P, M, ld, batch_stride, trans, lower, B, X, K, sync, stream
+    "gfs_batched_trsm": (_P, _I, _I, _I, _L, _I, _I, _P, _P, _I, _P, _P),
 }
 
 

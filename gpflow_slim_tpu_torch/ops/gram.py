@@ -88,12 +88,15 @@ def _check_xs(name, *xs):
 
 
 def _variance_on(variance, x):
+    # a float32 scalar on x's device (no copy when it is one already)
     return torch.as_tensor(variance, dtype=torch.float32, device=x.device).reshape(1)
 
 
 def gram_cuda(kind, Xs, X2s, variance):
     """Launch the cross-Gram kernel of ``csrc/gram.cu`` on CUDA float32
-    tensors: returns the (N, M) ``K(Xs, X2s)``."""
+    tensors: returns the (N, M) ``K(Xs, X2s)``. ``gram_cuda.launches``
+    counts every launch, and ``gram_cuda.by_shape`` the launches of each
+    (N, M)."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     _check_xs("gram_cuda", Xs, X2s)
@@ -109,10 +112,12 @@ def gram_cuda(kind, Xs, X2s, variance):
                         out.data_ptr(), stream)
     _build.check(lib, code, "gram")
     gram_cuda.launches += 1
+    gram_cuda.by_shape[(N, M)] = gram_cuda.by_shape.get((N, M), 0) + 1
     return out
 
 
 gram_cuda.launches = 0
+gram_cuda.by_shape = {}
 
 
 def gram_lower_cuda(kind, Xs, variance):
@@ -215,26 +220,24 @@ def gram_chol_operand_plain(kind, Xs, variance, noise, pad_to):
 def gram_chol_operand_cuda(kind, Xs, variance, noise, pad_to):
     """Launch ``csrc/gram_operand.cu`` on CUDA float32 tensors.
 
-    Returns a (pad_to, pad_to) float32 matrix whose lower tiles hold
-    ``K + noise * I`` with the unit-diagonal pad extension. Its strictly
-    upper 32 x 32 tiles are left as ``torch.empty`` made them: consumers
-    read only the lower triangle.
+    Returns a (pad_to, pad_to) float32 matrix whose lower triangle holds
+    ``K + noise * I`` with the unit-diagonal pad extension. Entries above
+    the diagonal outside its 8 x 8 diagonal blocks are left as
+    ``torch.empty`` made them: consumers read only the lower triangle.
+    ``pad_to`` is a multiple of 4 (the kernel stores 16-byte runs of a row).
     """
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
+    if pad_to < Xs.shape[0] or pad_to % 4:
+        raise ValueError(f"bad shapes: Xs {tuple(Xs.shape)}, pad_to {pad_to} (at least N, a multiple of 4)")
     _check_xs("gram_chol_operand_cuda", Xs)
     N, D = Xs.shape
-    if pad_to < N:
-        raise ValueError(f"bad shapes: Xs {tuple(Xs.shape)}, pad_to {pad_to}")
-    scal = torch.stack([
-        torch.as_tensor(variance, dtype=torch.float32, device=Xs.device).reshape(()),
-        torch.as_tensor(noise, dtype=torch.float32, device=Xs.device).reshape(()),
-    ])
+    var, nz = _variance_on(variance, Xs), _variance_on(noise, Xs)
     out = torch.empty((pad_to, pad_to), dtype=torch.float32, device=Xs.device)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(Xs.device).cuda_stream
     code = lib.gfs_gram_chol_operand(
-        Xs.data_ptr(), N, D, scal.data_ptr(), KINDS[kind], pad_to, out.data_ptr(), stream)
+        Xs.data_ptr(), N, D, var.data_ptr(), nz.data_ptr(), KINDS[kind], pad_to, out.data_ptr(), stream)
     _build.check(lib, code, "gram_chol_operand")
     gram_chol_operand_cuda.launches += 1
     return out

@@ -26,8 +26,12 @@ The wide TRSM has two schedules, picked by a static rule on the width P of
 the right-hand side (``trsm_schedule``; ``csrc/trsm.cu`` states the same
 rule): P <= 64 is "thin", one launch whose blocks take their block rows
 from an atomic ticket and wait on each other's ready flags, in scratch
-that the wrapper zeroes per call (``trsm_scratch``); P > 64 is "wide",
-grouped launches ordered by the stream.
+from the wrapper that the C entry zeroes on the stream (``trsm_scratch``);
+P > 64 is "wide", grouped launches ordered by the stream. The batched TRSM
+is one launch of the thin schedule's body over work items (p, 32-column
+strip, block row), with a ticket and one ready flag per item
+(``batched_trsm_scratch``); it writes a new tensor and leaves ``B`` as it
+was.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from . import _build
 
 BLOCK = 64        # the kernels' block rows
 THIN_MAX_P = 64   # the widest right-hand side of the thin schedule
+STRIP = 32        # the batched kernel's columns per work item
 
 
 def trsm_schedule(P):
@@ -49,12 +54,26 @@ def trsm_schedule(P):
 
 
 def trsm_scratch(N, P):
-    """Number of int32 words of zeroed scratch the wide TRSM needs for T
+    """Number of int32 words of scratch the wide TRSM needs for T
     (N, N) and B (N, P): for the thin schedule the ticket and one ready
     flag per 64-row block row; none for the wide schedule."""
     if trsm_schedule(P) == "wide":
         return 0
     return -(-N // BLOCK) + 1
+
+
+def batched_trsm_items(P, M, K):
+    """Work items (blocks) of the batched TRSM for T (P, M, M) and B
+    (P, M, K): one per batch entry, 32-column strip and 64-row block row."""
+    if min(P, M, K) < 1:
+        raise ValueError(f"the batched TRSM needs P, M, K >= 1; got {(P, M, K)}")
+    return P * -(-K // STRIP) * -(-M // BLOCK)
+
+
+def batched_trsm_scratch(P, M, K):
+    """Number of int32 words of scratch the batched TRSM needs: the ticket
+    and one ready flag per work item."""
+    return batched_trsm_items(P, M, K) + 1
 
 
 def solve_triangular_plain(T, B, lower):
@@ -85,7 +104,7 @@ def _layout(T):
 def _launch(entry, T, B, lower):
     """The checks and the launch the two kernels share: ``entry`` is
     ``"trsm"`` (T (N, N), B (N, P)) or ``"batched_trsm"`` (T (P, M, M),
-    B (P, M, K)); it solves in place on a clone of ``B`` and returns it."""
+    B (P, M, K)); it returns ``X``, a new tensor, and leaves ``B``."""
     rank = 2 if entry == "trsm" else 3
     for name, t in (("T", T), ("B", B)):
         if not t.is_cuda or t.dtype != torch.float32 or t.dim() != rank:
@@ -105,16 +124,19 @@ def _launch(entry, T, B, lower):
         raise ValueError(f"{entry}_cuda reads each triangle row major or transposed; got strides "
                          f"{T.stride()}")
     batch_stride, ld, trans = layout
-    X = B.clone()
     lib = _build.load_library()
     stream = torch.cuda.current_stream(T.device).cuda_stream
-    if rank == 2:
-        sync = torch.zeros(trsm_scratch(M, K), dtype=torch.int32, device=T.device)
+    if rank == 2:  # in place on a copy of B
+        X = B.clone()
+        sync = torch.empty(trsm_scratch(M, K), dtype=torch.int32, device=T.device)
         code = lib.gfs_trsm(T.data_ptr(), M, ld, trans, int(lower), X.data_ptr(), K, sync.data_ptr(),
                             stream)
-    else:
-        code = lib.gfs_batched_trsm(T.data_ptr(), B.shape[0], M, ld, batch_stride, trans, int(lower),
-                                    X.data_ptr(), K, stream)
+    else:  # out of place
+        P = B.shape[0]
+        X = torch.empty_like(B)
+        sync = torch.empty(batched_trsm_scratch(P, M, K), dtype=torch.int32, device=T.device)
+        code = lib.gfs_batched_trsm(T.data_ptr(), P, M, ld, batch_stride, trans, int(lower), B.data_ptr(),
+                                    X.data_ptr(), K, sync.data_ptr(), stream)
     _build.check(lib, code, entry)
     return X
 

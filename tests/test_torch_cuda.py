@@ -30,8 +30,12 @@ def _xs(N, D, dev, seed=0):
     return torch.tensor(rng.uniform(0, 1, (N, D)) / 0.2, dtype=torch.float32, device=dev)
 
 
+# the kernel writes bands of 8 rows, 1024 columns a sweep: N = 1003 is not a
+# multiple of 8, its pad of 21 rows spans whole pad bands, and 2100 rows
+# need three sweeps
 @pytest.mark.parametrize("kind", list(gram.KINDS))
-@pytest.mark.parametrize("N,D,pad_to", [(1, 1, 64), (130, 2, 192), (333, 5, 384)])
+@pytest.mark.parametrize("N,D,pad_to", [(1, 1, 64), (130, 2, 192), (333, 5, 384), (1003, 1, 1024),
+                                        (1003, 5, 1024), (2100, 1, 2112)])
 def test_operand_kernel_matches_plain(dev, kind, N, D, pad_to):
     xs = _xs(N, D, dev)
     var = torch.tensor(1.7, device=dev)
@@ -90,6 +94,8 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     x64 = _xs(10, 1, dev).double()
     with pytest.raises(ValueError, match="float32"):
         gram.gram_chol_operand_cuda("rbf", x64, 1.0, 0.1, 64)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gram.gram_chol_operand_cuda("rbf", _xs(10, 1, dev), 1.0, 0.1, 66)
     with pytest.raises(ValueError, match="multiple of 64"):
         cholesky.cholesky_solve_cuda(torch.zeros(100, 100, device=dev), torch.zeros(100, 1, device=dev))
     with pytest.raises(ValueError, match="at least one column"):
@@ -286,6 +292,25 @@ def test_batched_trsm_kernel_matches_plain(dev, P, M, Kc):
         # f32 substitution against f64: 1e-3 relative (max-norm), TRSM_TOL
         assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
     assert torch.equal(B, B0)  # B untouched
+
+
+# the work items' edges: one block row (M <= 64), a strip of 32 and of 33
+# columns, more items than the card has SMs (16 x 32 strips x 16 block
+# rows), each with a stride-0 batch and the transposed upper read
+@pytest.mark.parametrize("P,M,K", [(2, 64, 32), (2, 64, 33), (16, 100, 1), (16, 1024, 1024)])
+def test_batched_trsm_work_items_match_plain(dev, P, M, K):
+    L = _tri_batch(P, M, dev, 6)
+    B = torch.tensor(np.random.RandomState(7).randn(P, M, K), dtype=torch.float32, device=dev)
+    B0 = B.clone()
+    Ld = L.double()
+    for T, Td, lower in ((L[:1].expand(P, -1, -1), Ld[:1].expand(P, -1, -1), True),
+                         (L[:1].expand(P, -1, -1).mT, Ld[:1].expand(P, -1, -1).mT, False), (L.mT, Ld.mT, False)):
+        before = trsm.batched_trsm_cuda.launches
+        got = trsm.batched_trsm_cuda(T, B, lower)
+        assert trsm.batched_trsm_cuda.launches == before + 1
+        want = trsm.solve_triangular_plain(Td, B.double(), lower)
+        assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert torch.equal(B, B0)  # the solve is out of place
 
 
 @pytest.mark.parametrize("M", [65, 256])

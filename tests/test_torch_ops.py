@@ -552,6 +552,32 @@ def test_trsm_schedule_rule(P, schedule):
         assert trsm.trsm_scratch(N, P) == (nb + 1 if schedule == "thin" else 0)
 
 
+@pytest.mark.parametrize("P,M,K", [(1, 1, 1), (1, 64, 32), (1, 65, 33), (3, 200, 40), (1, 256, 256),
+                                   (16, 256, 256), (1, 1024, 1024), (16, 1024, 1024)])
+def test_batched_trsm_items_and_scratch(P, M, K):
+    # one work item per (batch entry, 32-column strip, 64-row block row),
+    # counted directly; the scratch is the ticket and one flag per item
+    items = sum(1 for _ in range(P) for _ in range(0, K, trsm.STRIP) for _ in range(0, M, trsm.BLOCK))
+    assert trsm.batched_trsm_items(P, M, K) == items
+    assert trsm.batched_trsm_scratch(P, M, K) == items + 1
+
+
+def test_batched_trsm_items_refuse_an_empty_batch():
+    for shape in ((0, 4, 4), (1, 0, 4), (1, 4, 0)):
+        with pytest.raises(ValueError, match="P, M, K >= 1"):
+            trsm.batched_trsm_scratch(*shape)
+
+
+@pytest.mark.parametrize("pad_to", [9, 66, 1022])
+def test_operand_kernel_wrapper_refuses_pad_to_off_its_rows(pad_to):
+    # the kernel stores 16-byte runs of a row: pad_to is a multiple of 4
+    # (and at least N); checked before the tensor's device
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gram.gram_chol_operand_cuda("rbf", torch.zeros(8, 1), 1.0, 0.1, pad_to)
+    with pytest.raises(ValueError, match="at least N"):
+        gram.gram_chol_operand_cuda("rbf", torch.zeros(pad_to + 3, 1), 1.0, 0.1, pad_to - pad_to % 4)
+
+
 def test_trsm_schedule_refuses_an_empty_right_hand_side():
     with pytest.raises(ValueError, match="at least one column"):
         trsm.trsm_schedule(0)
@@ -620,7 +646,7 @@ def test_port_never_imports_jax():
     files = sorted((REPO / "gpflow_slim_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_gpr.py",
         REPO / "tools" / "profile_torch_svgp.py", REPO / "tools" / "profile_torch_kernels.py",
-        REPO / "tools" / "svgp_rate.py"]
+        REPO / "tools" / "svgp_rate.py", REPO / "tools" / "kernel_times.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imported_modules(f):

@@ -77,7 +77,11 @@ def chol_split(dev, Np):
           f"{visible:.3f} ms/iter")
 
 
-def report(label, fn, host_top=0, Np=None):
+def report(label, fn, host_top=0, Np=None, watch=None):
+    """Prints label's wall time, device busy time and idle share, its
+    top device activities and, on request, its top host operators, the
+    Cholesky split (Np) and the time, launches and share of device busy
+    time of the kernels whose name holds ``watch``."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -115,6 +119,11 @@ def report(label, fn, host_top=0, Np=None):
         print(f"{t / ITERS:9.3f} ms/iter  n={n // ITERS:5d}  {name}")
     if Np is not None:
         chol_split(dev, Np)
+    if watch is not None:
+        w = [e for e in dev if watch in e.name]
+        w_ms = sum(e.time_range.end - e.time_range.start for e in w) / 1e3 / ITERS
+        print(f"  {watch}: {w_ms:.4f} ms/iter in {len(w) // ITERS} launches/iter, {w_ms / busy:.4f} of the "
+              f"device busy time")
     if host_top:
         # where the host's time goes when the device waits on it
         print("  host: the operators with the most self CPU time")

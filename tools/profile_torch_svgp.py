@@ -12,8 +12,10 @@ fit_svgp_natgrad (a minibatch draw, a natgrad step on q, an Adam step on
 the hyperparameters), each from the model as built, and prints what
 tools/profile_torch_gpr.py prints: the wall time (median of 5, CUDA
 events), the device busy time over 3 profiled steps, the device idle share,
-the ten device activities with the most time, and the twelve host
-operators with the most self CPU time (the step is bound by the host).
+the ten device activities with the most time, the batched TRSM's device
+time, launches and share of the busy time, and the twelve host operators
+with the most self CPU time (the step is bound by the host; the count of
+cudaLaunchKernel there is the step's kernel launches).
 
 The card's name and power limit come first. Needs a CUDA device.
 """
@@ -49,7 +51,8 @@ def main():
         label = "whitened" if whiten else "unwhitened"
         for flag in (True, False):
             with gft.config.temp_settings(use_kernels=flag):
-                report(f"use_kernels={flag} SVGP {label} natgrad+Adam step", step, host_top=12)
+                report(f"use_kernels={flag} SVGP {label} natgrad+Adam step", step, host_top=12,
+                       watch="batched_trsm_kernel")
     return 0
 
 
