@@ -50,11 +50,14 @@ unwhitened (the path of the batched TRSM) and whitened.
    use_kernels=False float32 route; 20 steps of fit_svgp_natgrad unwhitened
    (the cross Gram, factor-only Cholesky, TRSM and batched TRSM must
    launch) and whitened (the batched TRSM must not);
-5. times (CUDA events, median; a function under 1 ms without per-call
-   set-up as the mean of runs of 20 back-to-back calls) of each kernel
+5. times (CUDA events, median; one call between two events) of each kernel
    against its plain version and the one PyTorch call computing the same
-   function where there is one, each kernel's bound (the larger of its bytes over 3.35 TB/s and its
-   flop over 67 TFLOP/s), the cross Gram also at the SVGP path's shapes
+   function where there is one, and of the kernel and the library call by
+   two more methods, named apart in the kernels line: the mean of runs of
+   20 back-to-back calls (run20_ms) and one call queued behind a spin
+   kernel, so the host's launch work is hidden (device_ms); each kernel's
+   bound (the larger of its bytes over 3.35 TB/s and its flop over 67
+   TFLOP/s), the cross Gram also at the SVGP path's shapes
    (256 x 256, 256 x 1024), and of each path's entry points, kernel route
    against the use_kernels=False route, with peak memory; the SVGP
    training rate by the host's wall clock, over five interleaved 20-step
@@ -97,7 +100,8 @@ SERVE_ABS = 1e-6
 NQ = 2048           # points per predict_f request
 NQ_FULL = 1024      # points of the full-covariance request
 REPS = 5
-SHORT_MS, RUN = 1.0, 20  # cuda_ms: functions under 1 ms are timed over runs of 20 calls
+RUN = 20            # calls in a run of the kernels line's run20_ms
+SPIN_CYCLES = 20_000_000  # ~10 ms at the H100's clock: the spin that queues a call for device_ms
 # the SVGP path: benchmarks/bench_svgp_nuts.py's bench_svgp_natgrad model
 SVGP_N, SVGP_M, SVGP_B, SVGP_LS = 100_000, 256, 1024, 0.2
 SVGP_STEPS, SVGP_GAMMA, SVGP_LR = 20, 0.1, 0.01
@@ -130,44 +134,58 @@ def bench_data():
     return X, Y
 
 
-def cuda_ms(torch, fn, setup=None, reps=REPS, warmup=2):
-    """Milliseconds of fn(*setup()) by CUDA events, one sample per rep;
-    setup is untimed. Without a setup, a function faster than SHORT_MS is
-    timed as a kernel is: a sample is a run of RUN back-to-back calls
-    between two events, over RUN, so the host's launch work overlaps the
-    device's instead of being counted in full."""
-    run = 1
-    if setup is None:
-        setup = tuple
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        if time.perf_counter() - t0 < SHORT_MS / 1e3:
-            run = RUN
-    times = []
-    for i in range(warmup + reps):
+def cuda_ms(torch, fn, setup=lambda: (), reps=REPS, warmup=2, run=1, queued=False):
+    """Milliseconds of fn(*setup()) by CUDA events, one sample per rep: a
+    run of ``run`` back-to-back calls between two events, over ``run``;
+    setup is untimed. ``queued``: a spin kernel holds the stream while the
+    host enqueues the run, so the sample is the device's time alone, the
+    host's launch work hidden; a sample whose spin ended before the run was
+    enqueued is taken again with a spin twice as long."""
+    spin, times = SPIN_CYCLES, []
+    while len(times) < warmup + reps:
         args = setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(spin)
         start.record()
         for _ in range(run):
             fn(*args)
         end.record()
+        late = queued and start.query()  # the device reached the run before the host had enqueued it
         torch.cuda.synchronize()
-        if i >= warmup:
+        if not late:
             times.append(start.elapsed_time(end) / run)
-    return times
+        elif spin < 64 * SPIN_CYCLES:
+            spin *= 2
+        else:
+            raise RuntimeError("the host took longer to enqueue a call than a spin of 64 x SPIN_CYCLES")
+    return times[warmup:]
 
 
-def paired_ms(torch, kernel_fn, plain_fn, setup=None):
+def paired_ms(torch, kernel_fn, plain_fn, setup=lambda: ()):
     """Plain, kernel, kernel, plain; the median of each side's samples."""
     plain = cuda_ms(torch, plain_fn, setup)
     kern = cuda_ms(torch, kernel_fn, setup)
     kern += cuda_ms(torch, kernel_fn, setup)
     plain += cuda_ms(torch, plain_fn, setup)
     return statistics.median(kern), statistics.median(plain)
+
+
+def other_ms(torch, kernel_fn, library_fn=None, setup=None):
+    """The kernels line's times of a kernel (and of its library call) by
+    the two other methods, beside its one-call ``ms`` (medians of REPS):
+    ``run20_ms``, a run of RUN back-to-back calls between two events, over
+    RUN (None for a function that needs a fresh input each call), and
+    ``device_ms``, one call queued behind a spin kernel (``cuda_ms``)."""
+    def two(fn):
+        run = None if setup else statistics.median(cuda_ms(torch, fn, run=RUN))
+        return run, statistics.median(cuda_ms(torch, fn, setup or (lambda: ()), queued=True))
+
+    run20, dev_ms = two(kernel_fn)
+    lib_run20, lib_dev = two(library_fn) if library_fn else (None, None)
+    return {"run20_ms": run20, "device_ms": dev_ms, "library_run20_ms": lib_run20,
+            "library_device_ms": lib_dev}
 
 
 def bound(flop, nbytes):
@@ -664,25 +682,31 @@ def svgp_times(gft, torch, gram, trsm, batch, rng, dev):
     var = torch.tensor(1.0, dtype=torch.float32, device=dev)
     for xs in (Zs, Xbs):
         n, m = SVGP_M, xs.shape[0]
-        k_ms, p_ms = paired_ms(torch, lambda: gram.gram_cuda("rbf", Zs, xs, var),
-                               lambda: gram.gram_reference("rbf", Zs, xs, var))
+        kernel = lambda: gram.gram_cuda("rbf", Zs, xs, var)  # noqa: E731
+        k_ms, p_ms = paired_ms(torch, kernel, lambda: gram.gram_reference("rbf", Zs, xs, var))
         b_ms, b_by = bound(5 * n * m, n * m * 4 + (n + m) * 4)
-        rows[(n, m)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        print(f"  cross gram at the SVGP shape ({n} x {m}): kernel {k_ms:.4f} ms, plain f32 {p_ms:.4f} ms, "
-              f"bound {b_ms:.6f} ms ({b_by})")
+        rows[(n, m)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                        **other_ms(torch, kernel)}
+        print(f"  cross gram at the SVGP shape ({n} x {m}): kernel {k_ms:.4f} ms (runs of {RUN} "
+              f"{rows[(n, m)]['run20_ms']:.4f}, device {rows[(n, m)]['device_ms']:.4f}), plain f32 "
+              f"{p_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
     for P, M, K in ((1, SVGP_M, SVGP_M), (16, SVGP_M, SVGP_M), (1, 1024, 1024)):
         L = np.stack([np.tril(rng.randn(M, M)) + M * np.eye(M) for _ in range(P)])
         L = torch.tensor(L, dtype=torch.float32, device=dev)
         B = torch.tensor(rng.randn(P, M, K), dtype=torch.float32, device=dev)
-        k_ms, p_ms = paired_ms(torch, lambda: trsm.batched_trsm_cuda(L, B, True),
-                               lambda: trsm.solve_triangular_plain(L, B, True))
-        lib_ms = statistics.median(cuda_ms(torch, lambda: torch.linalg.solve_triangular(L, B, upper=False)))
+        kernel = lambda: trsm.batched_trsm_cuda(L, B, True)  # noqa: E731
+        library = lambda: torch.linalg.solve_triangular(L, B, upper=False)  # noqa: E731
+        k_ms, p_ms = paired_ms(torch, kernel, lambda: trsm.solve_triangular_plain(L, B, True))
+        lib_ms = statistics.median(cuda_ms(torch, library))
         b_ms, b_by = bound(P * M * M * K, P * tri_bytes(M) + 2 * P * M * K * 4)
-        rows[(P, M, K)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-                           "bound_by": b_by}
+        r = rows[(P, M, K)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, **other_ms(torch, kernel, library)}
         print(f"  batched trsm P={P} M={M} K={K} ({trsm.batched_trsm_items(P, M, K)} work items): kernel "
               f"{k_ms:.4f} ms, plain f32 {p_ms:.4f} ms, torch.linalg.solve_triangular {lib_ms:.4f} ms "
-              f"({k_ms / lib_ms:.2f}x), bound {b_ms:.6f} ms ({b_by})")
+              f"({k_ms / lib_ms:.2f}x); runs of {RUN} {r['run20_ms']:.4f} vs {r['library_run20_ms']:.4f} ms "
+              f"({r['run20_ms'] / r['library_run20_ms']:.2f}x); device {r['device_ms']:.4f} vs "
+              f"{r['library_device_ms']:.4f} ms ({r['device_ms'] / r['library_device_ms']:.2f}x); "
+              f"bound {b_ms:.6f} ms ({b_by})")
 
     Xb, Yb = (torch.tensor(a, device=dev) for a in batch)
 
@@ -957,15 +981,14 @@ def main():
 
     Dp1 = torch.zeros(pad_to, 1, dtype=torch.float32, device=dev)
     Dp1[:N] = torch.tensor(Y, device=dev)
+    opnd = lambda: gram.gram_chol_operand_cuda("rbf", Xs, var, noise, pad_to)  # noqa: E731
     opnd_ms, opnd_plain_ms = paired_ms(
-        torch,
-        lambda: gram.gram_chol_operand_cuda("rbf", Xs, var, noise, pad_to),
-        lambda: gram.gram_chol_operand_plain("rbf", Xs, var, noise, pad_to))
+        torch, opnd, lambda: gram.gram_chol_operand_plain("rbf", Xs, var, noise, pad_to))
+    chol = lambda K: cholesky.cholesky_solve_cuda(K, Dp1)  # noqa: E731
     chol_ms, chol_plain_ms = paired_ms(
-        torch,
-        lambda K: cholesky.cholesky_solve_cuda(K, Dp1),
-        lambda K: cholesky.cholesky_solve_plain(K, Dp1),
-        setup=lambda: (Kp.clone(),))
+        torch, chol, lambda K: cholesky.cholesky_solve_plain(K, Dp1), setup=lambda: (Kp.clone(),))
+    other = {"gram_chol_operand": other_ms(torch, opnd),
+             "chol_solve_logdet": other_ms(torch, chol, setup=lambda: (Kp.clone(),))}
 
     def objective():
         with torch.no_grad():
@@ -995,25 +1018,27 @@ def main():
           f"kernel route, float32 autograd through cuSOLVER on the other)")
 
     # the serving path's kernels, at the shapes of its requests
-    gram_ms, gram_plain_ms = paired_ms(
-        torch, lambda: gram.gram_cuda("rbf", Xs, Xqs, var),
-        lambda: gram.gram_reference("rbf", Xs, Xqs, var))
-    glow_ms, glow_plain_ms = paired_ms(
-        torch, lambda: gram.gram_lower_cuda("rbf", Xs, var),
-        lambda: gram.gram_lower_plain("rbf", Xs, var))
+    gram_k = lambda: gram.gram_cuda("rbf", Xs, Xqs, var)  # noqa: E731
+    gram_ms, gram_plain_ms = paired_ms(torch, gram_k, lambda: gram.gram_reference("rbf", Xs, Xqs, var))
+    glow_k = lambda: gram.gram_lower_cuda("rbf", Xs, var)  # noqa: E731
+    glow_ms, glow_plain_ms = paired_ms(torch, glow_k, lambda: gram.gram_lower_plain("rbf", Xs, var))
     fac_ms, fac_plain_ms = paired_ms(
         torch, cholesky.cholesky_cuda, cholesky.cholesky_plain, setup=lambda: (Kp.clone(),))
     fac_lib_ms = statistics.median(cuda_ms(torch, torch.linalg.cholesky_ex, setup=lambda: (Kp.clone(),)))
     Bq = torch.tensor(rng.randn(N, NQ), dtype=torch.float32, device=dev)
-    trsm_ms, trsm_plain_ms = paired_ms(
-        torch, lambda: trsm.trsm_cuda(L, Bq, True),
-        lambda: trsm.solve_triangular_plain(L, Bq, True))
-    trsm_lib_ms = statistics.median(cuda_ms(torch, lambda: torch.linalg.solve_triangular(L, Bq, upper=False)))
+    trsm_k = lambda: trsm.trsm_cuda(L, Bq, True)  # noqa: E731
+    trsm_lib = lambda: torch.linalg.solve_triangular(L, Bq, upper=False)  # noqa: E731
+    trsm_ms, trsm_plain_ms = paired_ms(torch, trsm_k, lambda: trsm.solve_triangular_plain(L, Bq, True))
+    trsm_lib_ms = statistics.median(cuda_ms(torch, trsm_lib))
     B1 = Bq[:, :1].contiguous()
-    trsm1_ms, trsm1_plain_ms = paired_ms(
-        torch, lambda: trsm.trsm_cuda(L.T, B1, False),
-        lambda: trsm.solve_triangular_plain(L.T, B1, False))
-    trsm1_lib_ms = statistics.median(cuda_ms(torch, lambda: torch.linalg.solve_triangular(L.T, B1, upper=True)))
+    trsm1_k = lambda: trsm.trsm_cuda(L.T, B1, False)  # noqa: E731
+    trsm1_lib = lambda: torch.linalg.solve_triangular(L.T, B1, upper=True)  # noqa: E731
+    trsm1_ms, trsm1_plain_ms = paired_ms(torch, trsm1_k, lambda: trsm.solve_triangular_plain(L.T, B1, False))
+    trsm1_lib_ms = statistics.median(cuda_ms(torch, trsm1_lib))
+    other.update(gram=other_ms(torch, gram_k), gram_lower=other_ms(torch, glow_k),
+                 cholesky=other_ms(torch, cholesky.cholesky_cuda, torch.linalg.cholesky_ex,
+                                   setup=lambda: (Kp.clone(),)),
+                 trsm=other_ms(torch, trsm_k, trsm_lib), trsm_thin=other_ms(torch, trsm1_k, trsm1_lib))
 
     def build_posterior():
         with torch.no_grad():
@@ -1083,10 +1108,12 @@ def main():
         b_ms, b_by = bounds[name]
         return {"name": name, "route": "cuda", "source": f"gpflow_slim_tpu_torch/csrc/{source}",
                 "replaces": f"gpflow_slim_tpu/ops/{replaces}", "launches": launches, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                **other[name]}
 
     def svgp_row(name, source, replaces, launches, err, timed):
         bounds[name] = (timed["bound_ms"], timed["bound_by"])
+        other[name] = {k: timed[k] for k in ("run20_ms", "device_ms", "library_run20_ms", "library_device_ms")}
         return row(name, source, replaces, launches, err, timed["ms"], timed["plain_ms"], timed["library_ms"])
 
     by_shape = svgp_launches["gram_by_shape"]

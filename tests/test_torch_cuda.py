@@ -273,44 +273,31 @@ def _tri_batch(P, M, dev, seed=0):
     return torch.tensor(L, dtype=torch.float32, device=dev)
 
 
-# chip_smoke.py's phase-3 shapes: M = 1 and 65 are ragged against the
-# 64-row block, 1024 is the TPU kernel's stated size
+# chip_smoke.py's phase-3 shapes, the work items' edges: one block row
+# (M <= 64), M = 1, 65 and 200 ragged against the 64-row block, K = 32 and
+# 33 a whole and a ragged 32-column strip, and at (16, 1024, 1024) more
+# items than the card has SMs (16 x 32 strips x 16 block rows); 1024 is the
+# TPU kernel's stated size
 @pytest.mark.parametrize("P", [1, 16])
-@pytest.mark.parametrize("M", [1, 65, 200, 256, 1024])
-@pytest.mark.parametrize("Kc", ["1", "40", "M"])
+@pytest.mark.parametrize("M", [1, 64, 65, 200, 256, 1024])
+@pytest.mark.parametrize("Kc", ["1", "32", "33", "40", "M"])
 def test_batched_trsm_kernel_matches_plain(dev, P, M, Kc):
     K = M if Kc == "M" else int(Kc)
     L = _tri_batch(P, M, dev)
     B = torch.tensor(np.random.RandomState(1).randn(P, M, K), dtype=torch.float32, device=dev)
     B0 = B.clone()
     Ld = L.double()
+    L0, Ld0 = L[:1].expand(P, -1, -1), Ld[:1].expand(P, -1, -1)  # a stride-0 batch
     cases = [(L, Ld, True), (L.mT, Ld.mT, False),  # lower, and upper through the transposed view
-             (L[:1].expand(P, -1, -1), Ld[:1].expand(P, -1, -1), True)]  # a stride-0 batch
+             (L0, Ld0, True), (L0.mT, Ld0.mT, False)]
     for T, Td, lower in cases:
+        before = trsm.batched_trsm_cuda.launches
         got = trsm.batched_trsm_cuda(T, B, lower)
+        assert trsm.batched_trsm_cuda.launches == before + 1  # one launch, whatever the items
         want = trsm.solve_triangular_plain(Td, B.double(), lower)
         # f32 substitution against f64: 1e-3 relative (max-norm), TRSM_TOL
         assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
-    assert torch.equal(B, B0)  # B untouched
-
-
-# the work items' edges: one block row (M <= 64), a strip of 32 and of 33
-# columns, more items than the card has SMs (16 x 32 strips x 16 block
-# rows), each with a stride-0 batch and the transposed upper read
-@pytest.mark.parametrize("P,M,K", [(2, 64, 32), (2, 64, 33), (16, 100, 1), (16, 1024, 1024)])
-def test_batched_trsm_work_items_match_plain(dev, P, M, K):
-    L = _tri_batch(P, M, dev, 6)
-    B = torch.tensor(np.random.RandomState(7).randn(P, M, K), dtype=torch.float32, device=dev)
-    B0 = B.clone()
-    Ld = L.double()
-    for T, Td, lower in ((L[:1].expand(P, -1, -1), Ld[:1].expand(P, -1, -1), True),
-                         (L[:1].expand(P, -1, -1).mT, Ld[:1].expand(P, -1, -1).mT, False), (L.mT, Ld.mT, False)):
-        before = trsm.batched_trsm_cuda.launches
-        got = trsm.batched_trsm_cuda(T, B, lower)
-        assert trsm.batched_trsm_cuda.launches == before + 1
-        want = trsm.solve_triangular_plain(Td, B.double(), lower)
-        assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
-    assert torch.equal(B, B0)  # the solve is out of place
+    assert torch.equal(B, B0)  # B untouched: the solve is out of place
 
 
 @pytest.mark.parametrize("M", [65, 256])
