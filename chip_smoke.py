@@ -31,7 +31,10 @@ unwhitened (the path of the batched TRSM) and whitened.
    1, 64, 65, 200, 256, 1024; K = 1, 32, 33, 40, M, so one block row,
    ragged block rows and 32-column strips, and up to 8192 work items;
    lower, upper through the transposed view, a stride-0 batch; the
-   config's chol(Kuu); its backward's gB and dL);
+   config's chol(Kuu); its backward's gB and dL); the cross Gram at the edges
+   of its row bands and sweeps (six kinds, N = 1, 7, 10001, M = 1, 3, 1023,
+   2049, D = 1, 3, 8: partial bands, rows that are not 16-byte aligned,
+   a last sweep of one column);
 4. the training path: GPR.objective() (both of its kernels must launch),
    against an f64 oracle at the effective hyperparameters (gate 1e-5
    relative, as bench.py); the gradient against the f64 plain path (1e-3
@@ -50,6 +53,16 @@ unwhitened (the path of the batched TRSM) and whitened.
    use_kernels=False float32 route; 20 steps of fit_svgp_natgrad unwhitened
    (the cross Gram, factor-only Cholesky, TRSM and batched TRSM must
    launch) and whitened (the batched TRSM must not);
+4d. composability and precision: torch.func.grad of GPR.objective() with
+   respect to the kernel's variance through the kernel route, against
+   torch.autograd.grad (the gradient gate); TF32 turned on for the process
+   (allow_tf32 and set_float32_matmul_precision("high")), under which the
+   use_kernels=False Gram, the kernel route's Gram VJP and the GPR gradient
+   must hold to the f64 path within their gates (the package runs the
+   Gram expansion with TF32 off); one natgrad_step of the SVGP under
+   torch.cuda.set_sync_debug_mode("warn"), counting the host syncs by the
+   innermost line of the package they came from (none may come from
+   training/natgrad.py);
 5. times (CUDA events, median; one call between two events) of each kernel
    against its plain version and the one PyTorch call computing the same
    function where there is one, and of the kernel and the library call by
@@ -58,7 +71,8 @@ unwhitened (the path of the batched TRSM) and whitened.
    kernel, so the host's launch work is hidden (device_ms); each kernel's
    bound (the larger of its bytes over 3.35 TB/s and its flop over 67
    TFLOP/s), the cross Gram also at the SVGP path's shapes
-   (256 x 256, 256 x 1024), and of each path's entry points, kernel route
+   (256 x 256, 256 x 1024) and with a ragged M (its scalar-store variant),
+   and of each path's entry points, kernel route
    against the use_kernels=False route, with peak memory; the SVGP
    training rate by the host's wall clock, over five interleaved 20-step
    fits per route.
@@ -68,6 +82,7 @@ the package beside this file, it exits non-zero and prints no result. The
 last line is {"ok": true, "device": {...}}.
 """
 
+import collections
 import json
 import math
 import os
@@ -75,6 +90,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 
@@ -113,6 +130,9 @@ SVGP_JITTER = 1e-4  # the f32 jitter; the f64 references use it too, to compute 
 # lengthscale 0.2, jitter 1e-4) sets the scale of both routes' errors
 SVGP_VALUE_ABS = 1e-6
 SVGP_GRAD_ABS = 1e-5
+# the cross Gram's edges: partial 8-row bands, rows that are not 16-byte
+# aligned, last 1024-column sweeps of one column, D up to 8 (ARD)
+GRAM_EDGE_N, GRAM_EDGE_M, GRAM_EDGE_D = (1, 7, 10_001), (1, 3, 1023, 2049), (1, 3, 8)
 # the card's peaks for the bound of each kernel (vendor figures, H100 SXM)
 F32_FLOPS = 67e12   # float32 without tensor cores
 HBM_BYTES = 3.35e12  # bytes per second
@@ -307,6 +327,33 @@ def check_serving_kernels(torch, gram, cholesky, trsm, Xs, X3s, Kp, var, rng, de
             errs["trsm"] = max(errs["trsm"], err)
     del Ld
     return errs, Xqs, Lp, L
+
+
+def check_gram_edges(torch, gram, dev):
+    """Phase 3 at the edges of the cross Gram's bands and sweeps: every kind
+    at each (N, M, D) of the grid against ``gram_reference`` in f64, X2s
+    sharing its first rows with Xs (d = 0, where Matern12 is steepest).
+    Returns the max abs error (at variance 1.7, gated at 1e-5 x variance)."""
+    rng = np.random.RandomState(6)
+    var, worst = 1.7, 0.0
+    for D in GRAM_EDGE_D:
+        for n in GRAM_EDGE_N:
+            xs = torch.tensor(rng.uniform(0, 1, (n, D)) / 0.3, dtype=torch.float32, device=dev)
+            for m in GRAM_EDGE_M:
+                x2 = torch.tensor(rng.uniform(0, 1, (m, D)) / 0.3, dtype=torch.float32, device=dev)
+                k = min(n, m)
+                x2[:k] = xs[:k]
+                errs = {}
+                for kind in gram.KINDS:
+                    got = gram.gram_cuda(kind, xs, x2, torch.tensor(var, device=dev))
+                    want = gram.gram_reference(kind, xs.double(), x2.double(), var)
+                    errs[kind] = float((got.double() - want).abs().max())
+                worst = max(worst, *errs.values())
+                if not max(errs.values()) <= OPERAND_TOL * var:
+                    raise AssertionError(f"cross-Gram kernel disagrees at N={n} M={m} D={D}: {errs}")
+        print(f"gram (cross) edges D={D}, N in {GRAM_EDGE_N}, M in {GRAM_EDGE_M}, six kinds: max abs err "
+              f"{worst:.3e} (tol {OPERAND_TOL:g} x variance {var})")
+    return worst
 
 
 def check_schedule_edges(torch, gram, cholesky, trsm, rng, dev):
@@ -625,12 +672,13 @@ def svgp_checks(gft, torch, gram, cholesky, trsm, dev):
             mc = gft.models.SVGP(Xc, Yc, kern=gft.kernels.RBF(1, lengthscales=SVGP_LS),
                                  likelihood=gft.likelihoods.Gaussian(variance=0.1), Z=Xc.copy(),
                                  whiten=False, device="cuda", dtype=dtype)
-            halvings = gft.training.natgrad_step.halvings
+            halvings = int(gft.training.natgrad_step.halvings)
             gft.training.natgrad_step(mc, lambda mm: -mm.build_likelihood(), gamma=1.0)
             with torch.no_grad():
                 after[key] = mc.build_likelihood().item()
+        halvings = int(gft.training.natgrad_step.halvings) - halvings
         print(f"conjugate oracle ({key}): ELBO after one gamma=1 step {after[key]:.6f}, GPR log "
-              f"marginal likelihood {lml:.6f}, gamma halvings {gft.training.natgrad_step.halvings - halvings}")
+              f"marginal likelihood {lml:.6f}, gamma halvings {halvings}")
     gate("conjugate oracle rel err vs the GPR log marginal likelihood",
          abs(after["kernels"] - lml) / abs(lml), abs(after["plain f32"] - lml) / abs(lml), SVGP_VALUE_ABS)
 
@@ -652,7 +700,7 @@ def svgp_checks(gft, torch, gram, cholesky, trsm, dev):
         losses = losses.cpu().numpy()
         label = "whitened" if whiten else "unwhitened"
         print(f"fit_svgp_natgrad {label}, {SVGP_STEPS} steps: launches {launches}; natgrad steps that "
-              f"halved gamma {ng.backtracked}, halvings {ng.halvings}, kept q {ng.kept}; losses "
+              f"halved gamma {int(ng.backtracked)}, halvings {int(ng.halvings)}, kept q {int(ng.kept)}; losses "
               f"{np.array2string(losses, precision=2, max_line_width=1000)}")
         if not np.isfinite(losses).all():
             raise AssertionError(f"fit_svgp_natgrad ({label}) gave non-finite losses")
@@ -667,6 +715,133 @@ def svgp_checks(gft, torch, gram, cholesky, trsm, dev):
             svgp_launches = dict(launches, gram_by_shape=dict(gram.gram_cuda.by_shape))
             print(f"  cross Gram launches by shape in it: {svgp_launches['gram_by_shape']}")
     return svgp_launches, (Xb, Yb)
+
+
+def func_grad_check(gft, torch, gram, cholesky, model):
+    """Phase 4d, composability: torch.func.grad of GPR.objective() with
+    respect to the kernel's unconstrained variance, through the kernel
+    route (both of its kernels must launch), against torch.autograd.grad."""
+    class Objective(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+
+        def forward(self):
+            return self.model.objective()
+
+    u = model.kern.variance.unconstrained
+    objective = Objective()
+    gram.gram_chol_operand_cuda.launches = cholesky.cholesky_solve_cuda.launches = 0
+    got = torch.func.grad(lambda v: torch.func.functional_call(
+        objective, {"model.kern.variance.unconstrained": v}, ()))(u.detach())
+    launches = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    want = torch.autograd.grad(model.objective(), u)[0]
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    print(f"torch.func.grad of GPR.objective() w.r.t. kern.variance (kernel route; operand and chol_solve "
+          f"launches {launches}): {float(got):.6f}, torch.autograd.grad {float(want):.6f}, rel err {rel:.3e} "
+          f"(tol {GRAD_TOL:g})")
+    if not (rel <= GRAD_TOL and min(launches) > 0):
+        raise AssertionError("torch.func.grad of the GPR objective disagrees or missed the kernels")
+
+
+def tf32_checks(gft, torch, gram, serve, Xs, Xqs, model, grads64, dev):
+    """Phase 4d, precision: with TF32 turned on for the process, the
+    use_kernels=False Gram (gated as the serving path's answers: within
+    twice its own TF32-off error against f64, + 1e-6), the kernel route's
+    Gram VJP and the GPR gradient (the gradient gate against f64) hold, and
+    the Gram and VJP equal the same calls with TF32 off; both settings are
+    restored at the end."""
+    Xq = (Xqs * LENGTHSCALE).contiguous()  # serving inputs, unscaled
+    G = torch.tensor(np.random.RandomState(7).randn(N, NQ), dtype=torch.float32, device=dev)
+
+    def gram_and_vjp():
+        with gft.config.temp_settings(use_kernels=False), torch.no_grad():
+            K = serve.kern.K(serve.X, Xq)
+        xs, xq = Xs.clone().requires_grad_(), Xqs.clone().requires_grad_()
+        v = torch.tensor(1.0, device=dev, requires_grad=True)
+        gs = torch.autograd.grad(torch.sum(gram.stationary_gram("rbf", xs, xq, v) * G), (xs, xq, v))
+        return K, gs
+
+    def gpr_grads():
+        model.zero_grad(set_to_none=True)
+        model.objective().backward()
+        return {n: float(p.unconstrained.grad) for n, p in gft.params.parameters(model)}
+
+    K_off, g_off = gram_and_vjp()
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        A = Xs[:NQ].expand(NQ, 64).contiguous()
+        raw = float((A @ A.T - (A.double() @ A.double().T)).abs().max()) / float((A.double() @ A.double().T).max())
+        K_on, g_on = gram_and_vjp()
+        grads_on = gpr_grads()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    restored = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()) == saved
+    print(f"TF32 on: an unguarded f32 product ({NQ} x 64 x {NQ}) is {raw:.3e} off f64 (relative); "
+          f"settings restored after: {restored}")
+    ls, var = (p.value.detach().double() for p in (serve.kern.lengthscales, serve.kern.variance))
+    K64 = gram.gram_reference("rbf", serve.X.double() / ls, Xq.double() / ls, var)
+    e_off, e_on = (float((K.double() - K64).abs().max()) for K in (K_off, K_on))
+    gate(f"TF32 on: use_kernels=False Gram ({N} x {NQ}) max abs err vs f64", e_on, e_off, SERVE_ABS)
+    xs, xq, v = (t.double().requires_grad_() for t in (Xs, Xqs, torch.tensor(1.0, device=dev)))
+    g64 = torch.autograd.grad(torch.sum(gram.gram_reference("rbf", xs, xq, v) * G.double()), (xs, xq, v))
+    e_vjp = max(float((a.double() - b).abs().max()) / float(b.abs().max()) for a, b in zip(g_on, g64))
+    e_gpr = max(abs(grads_on[n] - grads64[n]) / abs(grads64[n]) for n in grads64)
+    same = torch.equal(K_on, K_off) and all(torch.equal(a, b) for a, b in zip(g_on, g_off))
+    print(f"TF32 on: kernel route's Gram VJP rel err (max-norm) vs f64 {e_vjp:.3e}, GPR gradient rel err "
+          f"{e_gpr:.3e} (tol {GRAD_TOL:g}); the Gram and its VJP equal the TF32-off calls: {same}")
+    if not (e_vjp <= GRAD_TOL and e_gpr <= GRAD_TOL and same and restored):
+        raise AssertionError("with TF32 on, the Gram expansion or its VJP lost precision")
+
+
+def natgrad_syncs(gft, torch, batch, dev):
+    """Phase 4d, host syncs: one natgrad_step of the unwhitened SVGP (after
+    one warm-up step) under torch.cuda.set_sync_debug_mode("warn"), each
+    sync counted at the innermost line of the package on its stack, after
+    a probe shows that the hook sees one known sync. Returns the counts."""
+    model = svgp_model(gft, torch, False, torch.float32)
+    Xb, Yb = (torch.tensor(a, device=dev) for a in batch)
+
+    def loss(mm):
+        return -(mm.build_likelihood_batch(Xb, Yb) + mm.log_prior())
+
+    gft.training.natgrad_step(model, loss, SVGP_GAMMA)
+    torch.cuda.synchronize()
+    counts = collections.Counter()
+    pkg = os.path.join(HERE, "gpflow_slim_tpu_torch")
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return  # e.g. the notice that the debug mode is a prototype
+        stack = [f for f in traceback.extract_stack()[:-1] if not f.filename.endswith("warnings.py")]
+        ours = [f for f in stack if f.filename.startswith(pkg)]
+        if ours:
+            counts[f"{os.path.relpath(ours[-1].filename, HERE)}:{ours[-1].lineno}"] += 1
+        else:  # no line of the package on the stack: name the last three frames
+            counts[" < ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}" for f in stack[:-4:-1])] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            float(torch.ones((), device=dev))  # a known sync: the hook must see it
+            probe, counts = sum(counts.values()), collections.Counter()
+            gft.training.natgrad_step(model, loss, SVGP_GAMMA)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if probe != 1:
+        raise AssertionError(f"the sync hook counted {probe} syncs for one .item()-like read, not 1")
+    mine = sum(n for k, n in counts.items() if k.startswith("gpflow_slim_tpu_torch/training/natgrad.py"))
+    print(f"host syncs in one natgrad_step (SVGP, unwhitened, kernel route): {mine} from training/natgrad.py, "
+          f"{sum(counts.values()) - mine} from elsewhere {dict(counts)}")
+    if mine:
+        raise AssertionError(f"natgrad_step synced the host {mine} times")
+    return counts
 
 
 def svgp_times(gft, torch, gram, trsm, batch, rng, dev):
@@ -754,15 +929,15 @@ def svgp_times(gft, torch, gram, trsm, batch, rng, dev):
         order = (False, True, True, False) * (SVGP_FITS // 2) + (False, True) * (SVGP_FITS % 2)
         for flag in order:
             reset()
-            before = (ng.backtracked, ng.halvings, ng.kept)
+            before = [int(c) for c in (ng.backtracked, ng.halvings, ng.kept)]
             with gft.config.temp_settings(use_kernels=flag):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 fit(SVGP_STEPS)
                 torch.cuda.synchronize()
                 seconds[flag].append(time.perf_counter() - t0)
-            stats[flag] = [s + a - b for s, a, b in zip(stats[flag], (ng.backtracked, ng.halvings, ng.kept),
-                                                        before)]
+            stats[flag] = [s + int(a) - b for s, a, b in zip(stats[flag], (ng.backtracked, ng.halvings, ng.kept),
+                                                             before)]
         for flag in (True, False):
             route = "kernels" if flag else "use_kernels=False"
             rates = sorted(SVGP_STEPS / s for s in seconds[flag])
@@ -789,7 +964,8 @@ def main():
     if os.path.dirname(pkg_dir) != HERE:
         raise RuntimeError(f"imported gpflow_slim_tpu_torch from {pkg_dir}, not from {HERE}")
     if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("TF32 matmul is on; the port's f32 paths need full precision")
+        raise RuntimeError("TF32 matmul is on at the start: this run checks the default (off), and turns it on "
+                           "itself in phase 4d")
 
     # 1. environment
     nvcc = _build.find_nvcc()
@@ -870,6 +1046,7 @@ def main():
 
     serve_errs, Xqs, Lp, L = check_serving_kernels(torch, gram, cholesky, trsm, Xs, X3s, Kp, var,
                                                    rng, dev)
+    serve_errs["gram"] = max(serve_errs["gram"], check_gram_edges(torch, gram, dev))
     edge_errs = check_schedule_edges(torch, gram, cholesky, trsm, rng, dev)
     serve_errs["trsm"] = max(serve_errs["trsm"], edge_errs["trsm"])
     serve_errs["cholesky"] = max(serve_errs["cholesky"], edge_errs["cholesky"])
@@ -910,8 +1087,9 @@ def main():
     gft.interop.load_unconstrained(m64, {
         n: p.unconstrained.detach().cpu().numpy() for n, p in gft.params.parameters(model)})
     m64.objective().backward()
+    grads64 = {}
     for n, p in gft.params.parameters(m64):
-        g64 = float(p.unconstrained.grad)
+        g64 = grads64[n] = float(p.unconstrained.grad)
         g_rel = abs(grads32[n] - g64) / abs(g64)
         print(f"grad {n}: kernel route f32 {grads32[n]:.6f}, plain f64 {g64:.6f}, "
               f"rel err {g_rel:.3e} (tol {GRAD_TOL:g})")
@@ -975,6 +1153,11 @@ def main():
     # 4c. the SVGP natural-gradient training path at full width
     svgp_launches, svgp_batch = svgp_checks(gft, torch, gram, cholesky, trsm, dev)
 
+    # 4d. composability and precision
+    func_grad_check(gft, torch, gram, cholesky, model)
+    tf32_checks(gft, torch, gram, serve, Xs, Xqs, model, grads64, dev)
+    natgrad_syncs(gft, torch, svgp_batch, dev)
+
     # 5. times on the card, kernel route against plain
     def on_card(ms):
         return f"{ms:.3f} ms"
@@ -1020,6 +1203,9 @@ def main():
     # the serving path's kernels, at the shapes of its requests
     gram_k = lambda: gram.gram_cuda("rbf", Xs, Xqs, var)  # noqa: E731
     gram_ms, gram_plain_ms = paired_ms(torch, gram_k, lambda: gram.gram_reference("rbf", Xs, Xqs, var))
+    Xqr = Xqs[:NQ - 1].contiguous()  # a ragged M: the scalar-store variant
+    ragged = {"ms": statistics.median(cuda_ms(torch, lambda: gram.gram_cuda("rbf", Xs, Xqr, var))),
+              **other_ms(torch, lambda: gram.gram_cuda("rbf", Xs, Xqr, var))}
     glow_k = lambda: gram.gram_lower_cuda("rbf", Xs, var)  # noqa: E731
     glow_ms, glow_plain_ms = paired_ms(torch, glow_k, lambda: gram.gram_lower_plain("rbf", Xs, var))
     fac_ms, fac_plain_ms = paired_ms(
@@ -1070,7 +1256,10 @@ def main():
         routed(build_posterior, flag)()
         torch.cuda.synchronize()
         peaks[flag] = (torch.cuda.max_memory_allocated() - base) / 1e9
-    print(f"  cross gram ({N} x {NQ}): kernel {on_card(gram_ms)}, plain f32 {on_card(gram_plain_ms)}")
+    print(f"  cross gram ({N} x {NQ}): kernel {on_card(gram_ms)} (runs of {RUN} {other['gram']['run20_ms']:.4f}, "
+          f"device {other['gram']['device_ms']:.4f}), plain f32 {on_card(gram_plain_ms)}; at {N} x {NQ - 1} "
+          f"(scalar-store variant) {ragged['ms']:.4f} ms (runs of {RUN} {ragged['run20_ms']:.4f}, device "
+          f"{ragged['device_ms']:.4f})")
     print(f"  lower-tile gram ({N}): kernel {on_card(glow_ms)}, plain f32 {on_card(glow_plain_ms)}")
     print(f"  cholesky factor only ({pad_to}): kernel {on_card(fac_ms)}, plain f32 (cuSOLVER) "
           f"{on_card(fac_plain_ms)}, torch.linalg.cholesky_ex {on_card(fac_lib_ms)}")

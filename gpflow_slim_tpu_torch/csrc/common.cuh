@@ -2,7 +2,8 @@
 //
 // Two tiled f32 products live here, beside the body of the one-launch
 // dataflow solve (`flow_block_row`, shared by trsm.cu's thin schedule and
-// batched_trsm.cu) and the band writer of the Gram operand (`gram_band`).
+// batched_trsm.cu) and the band writer of the Gram operand and the cross
+// Gram (`gram_band`).
 // `tile_fma` (64 x 64 outputs, 4 x 4 per thread, operands staged by the
 // caller) serves the small steps whose latency matters more than their
 // rate: the wide TRSM's in-group solve, the Cholesky's updates inside a
@@ -604,35 +605,43 @@ __device__ __forceinline__ void flow_block_row(const float* __restrict__ T, int 
   if (tid == 0) st_release(ready + i, 1);
 }
 
-// -- writing row bands of a Gram matrix (gram_operand.cu) --------------------
+// -- writing row bands of a Gram matrix (gram_operand.cu, gram.cu) ----------
 
 constexpr int kBandRows = 8;       // rows of a band
-constexpr int kBandThreads = 256;  // four consecutive columns a thread: 1024 columns a sweep
+constexpr int kBandThreads = 256;  // four columns a thread: 1024 columns a sweep
 
-// Writes rows [r0, r1) (r1 - r0 <= kBandRows) and columns [c0, c1) of out
-// (row stride ld; out, ld and c0 16-byte aligned, c1 a multiple of 4): entry
-// (r, c) is value(r, c, d2) with d2 = sum_d (Xr[r][d] - Xc[c][d])^2, the
-// direct d^2 of sq_dist in its order, for r < nr and c < nc, and
-// pad(r, c) elsewhere; a band of pad rows only (r0 >= nr) reads no input
-// and forms no d^2. Each thread holds four consecutive columns'
+// Writes rows [r0, r1) (r1 - r0 <= kRows) and columns [c0, c1) of out
+// (row stride ld): entry (r, c) is value(r, c, d2) with d2 = sum_d (Xr[r][d]
+// - Xc[c][d])^2, the direct d^2 of sq_dist in its order, for r < nr and
+// c < nc, and pad(r, c) elsewhere; a band of pad rows only (r0 >= nr)
+// reads no input and forms no d^2. Each thread holds four columns'
 // coordinates in registers, loaded once per sweep and dimension and used for
-// every row of the band; a row's coordinate is one load for the whole warp
-// (the same address in every lane). Each row of four is one 16-byte store,
-// so a warp writes 512 contiguous bytes a row. Every thread of the block
-// calls it.
-template <typename Value, typename Pad>
+// every row of the band (kRows of them, kBandRows unless the caller wants
+// shorter bands); a row's coordinate is one load for the whole warp (the
+// same address in every lane). Every thread of the block calls it.
+//
+// kVec (out, ld and c0 16-byte aligned, c1 a multiple of 4): a thread's
+// columns are four consecutive ones, each row of four one 16-byte store,
+// so a warp writes 512 contiguous bytes a row. Otherwise (any alignment, a
+// ragged c1) they are kBandThreads apart and stored one float each: each
+// store instruction of a warp still writes 128 contiguous bytes.
+template <bool kVec = true, int kRows = kBandRows, typename Value, typename Pad>
 __device__ __forceinline__ void gram_band(const float* __restrict__ Xr, int nr, const float* __restrict__ Xc,
                                           int nc, int D, int r0, int r1, int c0, int c1,
                                           float* __restrict__ out, long long ld, Value value, Pad pad) {
-  for (int c = c0 + 4 * threadIdx.x; c < c1; c += 4 * kBandThreads) {
-    float d2[kBandRows][4] = {};
+  constexpr int kStep = kVec ? 1 : kBandThreads;  // between a thread's columns
+  for (int c = c0 + (kVec ? 4 : 1) * threadIdx.x; c < c1; c += 4 * kBandThreads) {
+    float d2[kRows][4] = {};
     if (r0 < nr) {
       for (int d = 0; d < D; ++d) {
         float xc[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) xc[j] = c + j < nc ? Xc[static_cast<size_t>(c + j) * D + d] : 0.0f;
+        for (int j = 0; j < 4; ++j) {
+          const int cj = c + j * kStep;
+          xc[j] = cj < nc ? Xc[static_cast<size_t>(cj) * D + d] : 0.0f;
+        }
 #pragma unroll
-        for (int q = 0; q < kBandRows; ++q) {
+        for (int q = 0; q < kRows; ++q) {
           const int r = r0 + q;
           const float xr = r < nr ? Xr[static_cast<size_t>(r) * D + d] : 0.0f;
 #pragma unroll
@@ -644,13 +653,24 @@ __device__ __forceinline__ void gram_band(const float* __restrict__ Xr, int nr, 
       }
     }
 #pragma unroll
-    for (int q = 0; q < kBandRows; ++q) {
+    for (int q = 0; q < kRows; ++q) {
       const int r = r0 + q;
       if (r >= r1) break;
       float v[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = (r < nr && c + j < nc) ? value(r, c + j, d2[q][j]) : pad(r, c + j);
-      *reinterpret_cast<float4*>(out + r * ld + c) = make_float4(v[0], v[1], v[2], v[3]);
+      for (int j = 0; j < 4; ++j) {
+        const int cj = c + j * kStep;
+        v[j] = (r < nr && cj < nc) ? value(r, cj, d2[q][j]) : pad(r, cj);
+      }
+      float* row = out + r * ld;
+      if (kVec) {
+        *reinterpret_cast<float4*>(row + c) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (c + j * kStep < c1) row[c + j * kStep] = v[j];
+        }
+      }
     }
   }
 }

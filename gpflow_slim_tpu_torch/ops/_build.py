@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -132,6 +134,13 @@ def load_library() -> ctypes.CDLL:
     lib.gfs_error_string.argtypes = [ctypes.c_int]
     lib.gfs_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def stream_of(x: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``x``'s device, for a C
+    entry point (without building the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream`` returns)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -12,8 +12,10 @@ version beside it:
 
 The kernel factors the padded ``Kp`` in place, as the TPU kernel aliases
 its input to its output: at N = 10000 that saves a 400 MB copy. The fused
-autograd wrapper declares the overwrite with ``ctx.mark_dirty``; the
-factor-only one pads into a buffer of its own and factors that.
+autograd wrapper declares the overwrite with ``ctx.mark_dirty``; inside a
+``torch.func`` transform it factors a copy instead (a transform that
+batches the Function cannot return its input as written). The factor-only
+wrapper pads into a buffer of its own and factors that.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from ._func import transforms_active, vmap_loop
 
 BLOCK = 64  # the kernel's block size; Kp's side must be a multiple of it
 
@@ -60,8 +63,7 @@ def cholesky_cuda(Kp):
     Np = Kp.shape[0]
     work = torch.empty(Np, dtype=torch.float64, device=Kp.device)  # the f64 pivots
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(Kp.device).cuda_stream
-    code = lib.gfs_cholesky(Kp.data_ptr(), Np, work.data_ptr(), stream)
+    code = lib.gfs_cholesky(Kp.data_ptr(), Np, work.data_ptr(), _build.stream_of(Kp))
     _build.check(lib, code, "cholesky")
     cholesky_cuda.launches += 1
     return Kp
@@ -101,18 +103,25 @@ def _chol_vjp(L, g):
 class _Cholesky(torch.autograd.Function):
     """Forward: the padded factor-only Cholesky (kernel or plain). Backward:
     ``_chol_vjp_bwd`` of the JAX package, in torch.linalg (the JAX package
-    also computes it with plain XLA ops, outside any kernel)."""
+    also computes it with plain XLA ops, outside any kernel). ``vmap``: the
+    Function on each matrix of the batch."""
 
     @staticmethod
-    def forward(ctx, K):
-        L = _factor_padded(K)
-        ctx.save_for_backward(L)
-        return L
+    def forward(K):
+        return _factor_padded(K)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):
         (L,) = ctx.saved_tensors
         return _chol_vjp(L, g)
+
+    @staticmethod
+    def vmap(info, in_dims, K):
+        return vmap_loop(_Cholesky.apply, info, in_dims, K)
 
 
 def cholesky(K):
@@ -160,9 +169,8 @@ def cholesky_solve_cuda(Kp, Dp):
     work = torch.empty(Np // BLOCK + Np, dtype=torch.float64, device=Kp.device)
     half_logdet = torch.empty((), dtype=torch.float32, device=Kp.device)
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(Kp.device).cuda_stream
-    code = lib.gfs_chol_solve_logdet(
-        Kp.data_ptr(), Np, alpha.data_ptr(), P, work.data_ptr(), half_logdet.data_ptr(), stream)
+    code = lib.gfs_chol_solve_logdet(Kp.data_ptr(), Np, alpha.data_ptr(), P, work.data_ptr(),
+                                     half_logdet.data_ptr(), _build.stream_of(Kp))
     _build.check(lib, code, "chol_solve_logdet")
     cholesky_solve_cuda.launches += 1
     return Kp, alpha, half_logdet
@@ -182,20 +190,35 @@ def cholesky_solve(Kp, Dp):
 
 
 class _CholSolveLogdet(torch.autograd.Function):
-    """Forward: the fused factor/solve/logdet, in place on ``Kp``.
-    Backward: ``_csl_bwd`` of the JAX package, in torch.linalg (the JAX
-    package also computes it with plain XLA ops, outside any kernel)."""
+    """Forward: the fused factor/solve/logdet, in place on ``Kp``
+    (``in_place``) or on a copy of it. Outputs ``(Lp, half_logdet, quad,
+    alpha)``; ``Lp`` and ``alpha`` are not differentiable. Backward:
+    ``_csl_bwd`` of the JAX package, in torch.linalg (the JAX package also
+    computes it with plain XLA ops, outside any kernel). ``vmap``: the
+    Function on a copy of each system of the batch."""
 
     @staticmethod
-    def forward(ctx, Kp, Dp):
+    def forward(Kp, Dp, in_place):
+        if not in_place:
+            Kp = Kp.clone(memory_format=torch.contiguous_format)
         Lp, alpha, half_logdet = cholesky_solve(Kp, Dp)
-        ctx.mark_dirty(Kp)
-        ctx.mark_non_differentiable(Lp)
-        ctx.save_for_backward(Lp, alpha)
-        return Lp, half_logdet, torch.sum(torch.square(alpha))
+        return Lp, half_logdet, torch.sum(torch.square(alpha)), alpha
 
     @staticmethod
-    def backward(ctx, _gL, ghl, gq):
+    def setup_context(ctx, inputs, output):
+        Lp, _, _, alpha = output
+        if inputs[2]:
+            ctx.mark_dirty(inputs[0])
+        ctx.mark_non_differentiable(Lp, alpha)
+        ctx.save_for_backward(Lp, alpha)
+
+    @staticmethod
+    def vmap(info, in_dims, Kp, Dp, in_place):
+        return vmap_loop(lambda k, d: _CholSolveLogdet.apply(k, d.contiguous(), False), info, in_dims[:2],
+                         Kp, Dp)
+
+    @staticmethod
+    def backward(ctx, _gL, ghl, gq, _galpha):
         # d(half_logdet)/dK = K^-1 / 2; quad = D^T K^-1 D, so dquad/dK =
         # -beta beta^T and dquad/dD = 2 beta with beta = K^-1 D = L^-T alpha.
         # The full symmetric K-bar: the operand's VJP reads all of it, and a
@@ -216,13 +239,14 @@ class _CholSolveLogdet(torch.autograd.Function):
         Kinv = Linv.T @ Linv
         Kbar = 0.5 * ghl * Kinv - gq * (beta @ beta.T)
         Dbar = 2.0 * gq * beta
-        return Kbar.to(dtype), Dbar.to(dtype)
+        return Kbar.to(dtype), Dbar.to(dtype), None
 
 
 def cholesky_solve_logdet(Kp, Dp):
     """Differentiable ``(half_logdet, quad)`` = ``(sum log diag chol(K),
     ||chol(K)^-1 D||_F^2)``. ``Kp`` is the padded operand (unit-diagonal
-    extension) and is overwritten by its factor; ``Dp`` has zero pad rows.
-    Both scalars are then exact for the leading system."""
-    _, half_logdet, quad = _CholSolveLogdet.apply(Kp, Dp)
+    extension) and is overwritten by its factor, except inside a
+    ``torch.func`` transform, which factors a copy; ``Dp`` has zero pad
+    rows. Both scalars are then exact for the leading system."""
+    _, half_logdet, quad, _ = _CholSolveLogdet.apply(Kp, Dp, not transforms_active())
     return half_logdet, quad

@@ -22,16 +22,19 @@ Maps (static ``kind``), with r = sqrt(d^2 + 1e-12):
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
 from . import _build
+from ._func import vmap_loop
 
 EUCLID_EPS = 1e-12
 # kind -> id of the ``Kind`` enum in csrc/common.cuh
 KINDS = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "exponential": 4, "cosine": 5}
-TILE = 32  # the output tile of csrc/gram.cu: the lower-tile Gram zeroes whole tiles
+TILE = 32  # the output tile of the lower-tile Gram in csrc/gram.cu: it zeroes whole tiles
+S3, S5 = math.sqrt(3.0), math.sqrt(5.0)
 
 
 def apply_map(kind, variance, d2):
@@ -41,11 +44,9 @@ def apply_map(kind, variance, d2):
     if kind == "matern12":
         return variance * torch.exp(-r)
     if kind == "matern32":
-        s3 = math.sqrt(3.0)
-        return variance * (1.0 + s3 * r) * torch.exp(-s3 * r)
+        return variance * (1.0 + S3 * r) * torch.exp(-S3 * r)
     if kind == "matern52":
-        s5 = math.sqrt(5.0)
-        return variance * (1.0 + s5 * r + 5.0 / 3.0 * d2) * torch.exp(-s5 * r)
+        return variance * (1.0 + S5 * r + 5.0 / 3.0 * d2) * torch.exp(-S5 * r)
     if kind == "exponential":
         return variance * torch.exp(-0.5 * r)
     if kind == "cosine":
@@ -53,13 +54,55 @@ def apply_map(kind, variance, d2):
     raise ValueError(f"unknown kind {kind!r}")
 
 
-def square_dist(Xs, X2s):
-    """Pairwise squared distance of pre-scaled inputs by the ||x||^2 -
-    2 x.y + ||y||^2 expansion, clamped at 0. The cross product runs in full
-    precision: the package never enables TF32."""
+def _tf32_enabled():
+    matmul = torch.backends.cuda.matmul
+    precision = getattr(matmul, "fp32_precision", None)  # the per-backend setting (torch >= 2.9)
+    return matmul.allow_tf32 if precision is None else precision == "tf32"
+
+
+@contextlib.contextmanager
+def full_precision():
+    """Runs its body with TF32 off for cuBLAS float32 products, whatever the
+    process set, and restores the caller's setting on exit (the JAX
+    package's ``Precision.HIGHEST``). Switched through the API that set it:
+    ``torch.set_float32_matmul_precision`` (or ``allow_tf32``), else the
+    per-backend ``fp32_precision``. The setting is the process's: not for
+    use from several threads at once."""
+    if not _tf32_enabled():
+        yield
+        return
+    try:
+        saved = torch.get_float32_matmul_precision()
+    except RuntimeError:  # TF32 was turned on through the per-backend setting alone
+        saved = None
+    if saved is None:
+        torch.backends.cuda.matmul.fp32_precision = "ieee"
+    else:
+        torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if saved is None:
+            torch.backends.cuda.matmul.fp32_precision = "tf32"
+        else:
+            torch.set_float32_matmul_precision(saved)
+
+
+def _expansion(Xs, X2s):
+    # ||x||^2 - 2 x.y + ||y||^2 before the clamp
     xs = torch.sum(torch.square(Xs), dim=-1)
     ys = torch.sum(torch.square(X2s), dim=-1)
-    return torch.clamp(xs[:, None] - 2.0 * (Xs @ X2s.T) + ys[None, :], min=0.0)
+    with full_precision():
+        cross = Xs @ X2s.T
+    return xs[:, None] - 2.0 * cross + ys[None, :]
+
+
+def square_dist(Xs, X2s):
+    """Pairwise squared distance of pre-scaled inputs by the ||x||^2 -
+    2 x.y + ||y||^2 expansion, clamped at 0, as the JAX package's
+    ``_gram_reference`` forms it. The cross product runs with TF32 off
+    whatever the process set (``full_precision``)."""
+    return torch.clamp(_expansion(Xs, X2s), min=0.0)
 
 
 def gram_reference(kind, Xs, X2s, variance):
@@ -87,9 +130,13 @@ def _check_xs(name, *xs):
             raise ValueError(f"{name}: inputs need at least one column, got {tuple(x.shape)}")
 
 
-def _variance_on(variance, x):
-    # a float32 scalar on x's device (no copy when it is one already)
-    return torch.as_tensor(variance, dtype=torch.float32, device=x.device).reshape(1)
+def _scalar_on(value, x):
+    # a float32 scalar on x's device, for its address: the tensor itself when
+    # it is one already
+    if isinstance(value, torch.Tensor) and value.dtype == torch.float32 and value.numel() == 1 \
+            and value.get_device() == x.get_device():
+        return value
+    return torch.as_tensor(value, dtype=torch.float32, device=x.device)
 
 
 def gram_cuda(kind, Xs, X2s, variance):
@@ -100,19 +147,18 @@ def gram_cuda(kind, Xs, X2s, variance):
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     _check_xs("gram_cuda", Xs, X2s)
-    (N, D), M = Xs.shape, X2s.shape[0]
-    if X2s.shape[1] != D or X2s.device != Xs.device:
+    (N, D), (M, D2) = Xs.shape, X2s.shape
+    if D2 != D or X2s.get_device() != Xs.get_device():
         raise ValueError(f"bad inputs: Xs {tuple(Xs.shape)} on {Xs.device}, "
                          f"X2s {tuple(X2s.shape)} on {X2s.device}")
-    var = _variance_on(variance, Xs)
-    out = torch.empty((N, M), dtype=torch.float32, device=Xs.device)
+    var = _scalar_on(variance, Xs)
+    out = Xs.new_empty((N, M))
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(Xs.device).cuda_stream
     code = lib.gfs_gram(Xs.data_ptr(), N, X2s.data_ptr(), M, D, var.data_ptr(), KINDS[kind],
-                        out.data_ptr(), stream)
+                        out.data_ptr(), _build.stream_of(Xs))
     _build.check(lib, code, "gram")
     gram_cuda.launches += 1
-    gram_cuda.by_shape[(N, M)] = gram_cuda.by_shape.get((N, M), 0) + 1
+    gram_cuda.by_shape[N, M] = gram_cuda.by_shape.get((N, M), 0) + 1
     return out
 
 
@@ -128,12 +174,11 @@ def gram_lower_cuda(kind, Xs, variance):
         raise ValueError(f"unknown kind {kind!r}")
     _check_xs("gram_lower_cuda", Xs)
     N, D = Xs.shape
-    var = _variance_on(variance, Xs)
-    out = torch.empty((N, N), dtype=torch.float32, device=Xs.device)
+    var = _scalar_on(variance, Xs)
+    out = Xs.new_empty((N, N))
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(Xs.device).cuda_stream
     code = lib.gfs_gram_lower(Xs.data_ptr(), N, D, var.data_ptr(), KINDS[kind], out.data_ptr(),
-                              stream)
+                              _build.stream_of(Xs))
     _build.check(lib, code, "gram_lower")
     gram_lower_cuda.launches += 1
     return out
@@ -142,32 +187,95 @@ def gram_lower_cuda(kind, Xs, variance):
 gram_lower_cuda.launches = 0
 
 
-def _gram_vjp(kind, g, Xs, X2s, variance):
-    # the VJP of the plain composite, by recomputation (`_bwd` and
-    # `_lower_bwd` of the JAX package)
-    with torch.enable_grad():
-        a = Xs.detach().requires_grad_()
-        b = a if X2s is None else X2s.detach().requires_grad_()
-        v = variance.detach().requires_grad_()
-        inputs = (a, v) if X2s is None else (a, b, v)
-        return torch.autograd.grad(gram_reference(kind, a, b, v), inputs, g)
+def _unit_map_and_slope(kind, d2):
+    # the map at unit variance, f(d2), and its derivative df/dd2
+    if kind == "rbf":
+        f = torch.exp(-0.5 * d2)
+        return f, -0.5 * f
+    r = torch.sqrt(d2 + EUCLID_EPS)  # dr/dd2 = 1 / (2 r)
+    if kind == "matern12":
+        f = torch.exp(-r)
+        return f, -0.5 * f / r
+    if kind == "matern32":
+        e = torch.exp(-S3 * r)
+        return (1.0 + S3 * r) * e, -1.5 * e
+    if kind == "matern52":
+        e = torch.exp(-S5 * r)
+        return (1.0 + S5 * r + 5.0 / 3.0 * d2) * e, -(5.0 / 6.0) * e * (1.0 + S5 * d2 / r)
+    if kind == "exponential":
+        f = torch.exp(-0.5 * r)
+        return f, -0.25 * f / r
+    if kind == "cosine":
+        return torch.cos(r), -0.5 * torch.sin(r) / r
+    raise ValueError(f"unknown kind {kind!r}")
+
+
+def _gram_vjp(kind, g, Xs, X2s, variance, needs=(True, True, True)):
+    """The VJP of the plain composite ``gram_reference`` in closed form:
+    ``(gXs, gX2s, gvar)``, or ``(gXs, gvar)`` for the same-input Gram
+    (``X2s`` None). ``needs`` masks the three (None where False).
+
+    With G = g * var * f'(d2), where the clamp d2 = max(pre, 0) passes the
+    cotangent (1 above 0, 1/2 at 0, as ``jax.lax.max`` splits a tie, 0
+    below): gXs = 2 (Xs * rowsum(G) - G X2s), gX2s = 2 (X2s * colsum(G) -
+    G^T Xs), both on Xs for the same-input Gram, and gvar = sum(g * f(d2))
+    with f the map at unit variance. It is ``_bwd`` / ``_lower_bwd`` of the
+    JAX package, written out: no nested autograd graph, and composable
+    with ``torch.func``. The products run with TF32 off."""
+    same = X2s is None
+    Y = Xs if same else X2s
+    pre = _expansion(Xs, Y)
+    f, slope = _unit_map_and_slope(kind, torch.clamp(pre, min=0.0))
+    gvar = torch.sum(g * f).reshape(variance.shape) if needs[2] else None
+    gX = gY = None
+    if needs[0] or needs[1]:
+        cut = (pre > 0).to(pre.dtype) + 0.5 * (pre == 0).to(pre.dtype)
+        G = g * (variance * slope) * cut
+        with full_precision():
+            if needs[0] or same:
+                gX = 2.0 * (Xs * torch.sum(G, dim=1, keepdim=True) - G @ Y)
+            if needs[1] or same:
+                gY = 2.0 * (Y * torch.sum(G, dim=0)[:, None] - G.T @ Xs)
+    if same:
+        return (gX + gY if needs[0] else None), gvar
+    return gX, gY, gvar
+
+
+def _gram_forward(kind, Xs, X2s, variance):
+    # plain for CPU tensors; launch or raise otherwise
+    if Xs.device.type == "cpu":
+        return gram_reference(kind, Xs, X2s, variance)
+    return gram_cuda(kind, Xs, X2s, variance)
+
+
+def _gram_lower_forward(kind, Xs, variance):
+    if Xs.device.type == "cpu":
+        return gram_lower_plain(kind, Xs, variance)
+    return gram_lower_cuda(kind, Xs, variance)
 
 
 class _Gram(torch.autograd.Function):
     """Forward: the cross Gram (kernel or plain). Backward: ``_bwd`` of the
-    JAX package, the VJP of the plain composite by recomputation."""
+    JAX package in closed form (``_gram_vjp``). ``vmap``: the Function on
+    each entry of the batch."""
 
     @staticmethod
-    def forward(ctx, kind, Xs, X2s, variance):
-        ctx.kind = kind
-        ctx.save_for_backward(Xs, X2s, variance)
-        if Xs.device.type == "cpu":  # plain for CPU tensors; launch or raise otherwise
-            return gram_reference(kind, Xs, X2s, variance)
-        return gram_cuda(kind, Xs, X2s, variance)
+    def forward(kind, Xs, X2s, variance):
+        return _gram_forward(kind, Xs, X2s, variance)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.kind = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
     def backward(ctx, g):
-        return (None, *_gram_vjp(ctx.kind, g, *ctx.saved_tensors))
+        return (None, *_gram_vjp(ctx.kind, g, *ctx.saved_tensors, needs=ctx.needs_input_grad[1:]))
+
+    @staticmethod
+    def vmap(info, in_dims, kind, Xs, X2s, variance):
+        return vmap_loop(lambda x, y, v: _Gram.apply(kind, x.contiguous(), y.contiguous(), v), info,
+                         in_dims[1:], Xs, X2s, variance)
 
 
 class _GramLower(torch.autograd.Function):
@@ -177,17 +285,24 @@ class _GramLower(torch.autograd.Function):
     its output, so a caller may add to the output in place."""
 
     @staticmethod
-    def forward(ctx, kind, Xs, variance):
-        ctx.kind = kind
-        ctx.save_for_backward(Xs, variance)
-        if Xs.device.type == "cpu":
-            return gram_lower_plain(kind, Xs, variance)
-        return gram_lower_cuda(kind, Xs, variance)
+    def forward(kind, Xs, variance):
+        return _gram_lower_forward(kind, Xs, variance)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.kind = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
 
     @staticmethod
     def backward(ctx, g):
         Xs, variance = ctx.saved_tensors
-        return (None, *_gram_vjp(ctx.kind, g, Xs, None, variance))
+        needs = ctx.needs_input_grad
+        return (None, *_gram_vjp(ctx.kind, g, Xs, None, variance, needs=(needs[1], False, needs[2])))
+
+    @staticmethod
+    def vmap(info, in_dims, kind, Xs, variance):
+        return vmap_loop(lambda x, v: _GramLower.apply(kind, x.contiguous(), v), info, in_dims[1:],
+                         Xs, variance)
 
 
 def stationary_gram(kind, Xs, X2s, variance):
@@ -232,12 +347,12 @@ def gram_chol_operand_cuda(kind, Xs, variance, noise, pad_to):
         raise ValueError(f"bad shapes: Xs {tuple(Xs.shape)}, pad_to {pad_to} (at least N, a multiple of 4)")
     _check_xs("gram_chol_operand_cuda", Xs)
     N, D = Xs.shape
-    var, nz = _variance_on(variance, Xs), _variance_on(noise, Xs)
-    out = torch.empty((pad_to, pad_to), dtype=torch.float32, device=Xs.device)
+    var, nz = _scalar_on(variance, Xs), _scalar_on(noise, Xs)
+    out = Xs.new_empty((pad_to, pad_to))
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(Xs.device).cuda_stream
     code = lib.gfs_gram_chol_operand(
-        Xs.data_ptr(), N, D, var.data_ptr(), nz.data_ptr(), KINDS[kind], pad_to, out.data_ptr(), stream)
+        Xs.data_ptr(), N, D, var.data_ptr(), nz.data_ptr(), KINDS[kind], pad_to, out.data_ptr(),
+        _build.stream_of(Xs))
     _build.check(lib, code, "gram_chol_operand")
     gram_chol_operand_cuda.launches += 1
     return out
@@ -258,26 +373,32 @@ def _operand(kind, Xs, variance, noise, pad_to):
 class _GramCholOperand(torch.autograd.Function):
     """Forward: the operand (kernel or plain). Backward: ``_opnd_bwd`` of the
     JAX package, the VJP of the plain full-Gram + noise * I composite on the
-    ``[:N, :N]`` block of the cotangent, by recomputation."""
+    ``[:N, :N]`` block of the cotangent, in closed form (``_gram_vjp``; the
+    noise takes the block's trace)."""
 
     @staticmethod
-    def forward(ctx, kind, Xs, variance, noise, pad_to):
-        ctx.kind = kind
-        ctx.save_for_backward(Xs, variance, noise)
+    def forward(kind, Xs, variance, noise, pad_to):
         return _operand(kind, Xs, variance, noise, pad_to)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.kind = inputs[0]
+        ctx.save_for_backward(*inputs[1:4])
 
     @staticmethod
     def backward(ctx, g):
         Xs, variance, noise = ctx.saved_tensors
         N = Xs.shape[0]
-        with torch.enable_grad():
-            a = Xs.detach().requires_grad_()
-            v = variance.detach().requires_grad_()
-            n = noise.detach().requires_grad_()
-            eye = torch.eye(N, dtype=a.dtype, device=a.device)
-            K = gram_reference(ctx.kind, a, a, v) + n * eye
-            ga, gv, gn = torch.autograd.grad(K, (a, v, n), g[:N, :N])
+        g = g[:N, :N]
+        needs = ctx.needs_input_grad
+        ga, gv = _gram_vjp(ctx.kind, g, Xs, None, variance, needs=(needs[1], False, needs[2]))
+        gn = torch.sum(torch.diagonal(g)).reshape(noise.shape) if needs[3] else None
         return None, ga, gv, gn, None
+
+    @staticmethod
+    def vmap(info, in_dims, kind, Xs, variance, noise, pad_to):
+        return vmap_loop(lambda x, v, n: _GramCholOperand.apply(kind, x.contiguous(), v, n, pad_to), info,
+                         in_dims[1:4], Xs, variance, noise)
 
 
 def gram_chol_operand(kind, Xs, variance, noise, pad_to):

@@ -13,7 +13,9 @@ version beside it:
   batch.
 
 The two wrappers share their checks and launch (``_launch``), and one
-autograd Function (``_Trsm``) serves a triangle or a batch.
+autograd Function (``_Trsm``) serves a triangle or a batch; under
+``torch.func.vmap`` a batch of single-triangle solves becomes one call of
+the batched kernel.
 
 The kernels read the triangle through a row stride and a transpose flag
 (and the batched one through a batch stride, which may be 0), so
@@ -39,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from ._func import vmap_loop
 
 BLOCK = 64        # the kernels' block rows
 THIN_MAX_P = 64   # the widest right-hand side of the thin schedule
@@ -125,7 +128,7 @@ def _launch(entry, T, B, lower):
                          f"{T.stride()}")
     batch_stride, ld, trans = layout
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(T.device).cuda_stream
+    stream = _build.stream_of(T)
     if rank == 2:  # in place on a copy of B
         X = B.clone()
         sync = torch.empty(trsm_scratch(M, K), dtype=torch.int32, device=T.device)
@@ -184,25 +187,41 @@ def _solve(T, B, lower):
 class _Trsm(torch.autograd.Function):
     """Forward: the TRSM, one triangle or a batch (kernel or plain).
     Backward: ``_trsm_bwd`` / ``_batched_trsm_bwd`` of the JAX package:
-    gB = T^-T g by the same TRSM on the transposed view, read in place, and
+    gB = T^-T g by this Function on the transposed view, read in place, and
     dT = -tri(gB X^T) by a (batched) matrix product (the JAX package
     computes that product outside any kernel too). A ``T`` broadcast with
     ``expand`` gets the sum over the batch from autograd's ``expand``
-    backward."""
+    backward. ``vmap``: a batch of single-triangle solves is one batched
+    solve (an unbatched ``T`` broadcast over it with stride 0); a batch of
+    batched solves is one call per entry."""
 
     @staticmethod
-    def forward(ctx, T, B, lower):
-        X = _solve(T, B, lower)
-        ctx.lower = lower
-        ctx.save_for_backward(T, X)
-        return X
+    def forward(T, B, lower):
+        return _solve(T, B, lower)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.lower = inputs[2]
+        ctx.save_for_backward(inputs[0], output)
 
     @staticmethod
     def backward(ctx, g):
         T, X = ctx.saved_tensors
-        gB = _solve(T.mT, g.contiguous(), not ctx.lower)
+        gB = _Trsm.apply(T.mT, g.contiguous(), not ctx.lower)
         dT = -(gB @ X.mT)
         return (dT.tril() if ctx.lower else dT.triu()), gB, None
+
+    @staticmethod
+    def vmap(info, in_dims, T, B, lower):
+        dT, dB, _ = in_dims
+        if T.dim() - (dT is not None) == 3:
+            return vmap_loop(lambda t, b: _Trsm.apply(t, b.contiguous(), lower), info, (dT, dB), T, B)
+        n = info.batch_size
+        T = T.movedim(dT, 0) if dT is not None else T.expand(n, -1, -1)
+        B = B.movedim(dB, 0) if dB is not None else B.expand(n, -1, -1)
+        if _layout(T) is None:
+            T = T.contiguous()
+        return _Trsm.apply(T, B.contiguous(), lower), 0
 
 
 def _apply(T, B, lower):

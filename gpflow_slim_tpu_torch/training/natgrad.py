@@ -103,6 +103,61 @@ def _loss_at(model, loss_fn, m, L):
                                                      "model.q_sqrt.unconstrained": u_sqrt}, ())
 
 
+def _attempts(m0, L0, d1, d2, gamma):
+    """The natgrad update of q = (m0, L0) by dL/deta = (d1, d2): the steps
+    gamma 2^-k, k = 0 .. ``MAX_HALVINGS``, tried side by side in one batched
+    pass, and the first whose q is finite taken. Returns ``(m, L, found,
+    halvings)``: ``found`` False (and (m, L) not finite) where every
+    attempt failed, ``halvings`` the k taken (``MAX_HALVINGS`` then)."""
+    nat1, nat2 = _xi_to_natural(m0, L0)
+    (M, P), K = nat1.shape, MAX_HALVINGS + 1
+    g = gamma * 0.5 ** torch.arange(K, dtype=nat1.dtype, device=nat1.device)  # (K,)
+    # the K attempts side by side: nat1 (M, K P), nat2 (K P, M, M)
+    n1 = (nat1 - g[:, None, None] * d1).permute(1, 0, 2).reshape(M, K * P)
+    n2 = (nat2 - g[:, None, None, None] * d2).reshape(K * P, M, M)
+    m_all, L_all = _natural_to_xi(n1, n2)
+    m_all = m_all.reshape(M, K, P).permute(1, 0, 2)  # (K, M, P)
+    L_all = L_all.reshape(K, P, M, M)
+    ok = torch.isfinite(m_all).flatten(1).all(1) & torch.isfinite(L_all).flatten(1).all(1)  # (K,)
+    found = ok.any()
+    first = torch.argmax(ok.to(torch.int32))  # the first finite attempt (0 if none is)
+    pick = first.reshape(1)  # an index on the device: m_all[first] would read it on the host
+    return (m_all.index_select(0, pick)[0], L_all.index_select(0, pick)[0], found,
+            torch.where(found, first, MAX_HALVINGS))
+
+
+# (shapes, dtype, device, gamma) -> (graph, its input buffers, its outputs)
+_GRAPHS = {}
+
+
+def _update(m0, L0, d1, d2, gamma):
+    """``_attempts``; on a CUDA device, replayed from a CUDA graph captured on
+    the first call for its shapes, dtype and gamma (that call waits for the
+    device once): the ~170 launches of the batched pass, cuSOLVER's batched
+    factorizations among them, become one. The outputs are the graph's own
+    buffers, valid until its next replay."""
+    inputs = (m0, L0, d1, d2)
+    if m0.device.type != "cuda":
+        return _attempts(*inputs, gamma)
+    key = (tuple(t.shape for t in inputs), m0.dtype, m0.device, gamma)
+    if key not in _GRAPHS:
+        buffers = [t.clone() for t in inputs]
+        side = torch.cuda.Stream(m0.device)
+        side.wait_stream(torch.cuda.current_stream(m0.device))
+        with torch.cuda.stream(side):  # warm-up outside the capture: library handles and workspaces
+            _attempts(*buffers, gamma)
+        torch.cuda.current_stream(m0.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = _attempts(*buffers, gamma)
+        _GRAPHS[key] = graph, buffers, outputs
+    graph, buffers, outputs = _GRAPHS[key]
+    for b, t in zip(buffers, inputs):
+        b.copy_(t)
+    graph.replay()
+    return outputs
+
+
 def natgrad_step(model, loss_fn: Callable, gamma: float):
     """One natural-gradient update of (q_mu, q_sqrt), in place; the other
     parameters are untouched. ``loss_fn(model)`` is a scalar (typically
@@ -111,10 +166,15 @@ def natgrad_step(model, loss_fn: Callable, gamma: float):
     For a conjugate (Gaussian) likelihood dL/deta = theta - theta*, so one
     step with gamma = 1 lands on the optimal q. With other likelihoods a
     large gamma can make the new precision indefinite: gamma is then halved,
-    up to ``MAX_HALVINGS`` times (one host check of finiteness per attempt),
-    and if every attempt fails q is kept. ``natgrad_step.backtracked``,
-    ``.halvings`` and ``.kept`` count the steps that halved, the halvings
-    and the steps that kept q.
+    up to ``MAX_HALVINGS`` times, and if every attempt fails q is kept. The
+    attempts gamma 2^-k, k = 0 .. ``MAX_HALVINGS``, run as one batched pass
+    on the device and the first whose q is finite is taken (the JAX
+    package's ``lax.while_loop`` and ``jnp.where``), so the step never
+    waits on the device (``_update``; on a CUDA device replayed from a CUDA
+    graph). ``natgrad_step.backtracked``, ``.halvings`` and
+    ``.kept`` count the steps that halved, the halvings and the steps that
+    kept q; they add up on the device (0-dim tensors once a step has run),
+    for the caller to read when it wants them.
     """
     m0 = model.q_mu.value.detach()
     L0 = model.q_sqrt_array().detach()
@@ -124,21 +184,14 @@ def natgrad_step(model, loss_fn: Callable, gamma: float):
         d1, d2 = torch.autograd.grad(loss, (eta1, eta2))
 
     with torch.no_grad():
-        nat1, nat2 = _xi_to_natural(m0, L0)
-        g = gamma
-        for halvings in range(MAX_HALVINGS + 1):
-            if halvings:
-                g *= 0.5
-            m_new, L_new = _natural_to_xi(nat1 - g * d1, nat2 - g * d2)
-            if bool(torch.isfinite(m_new).all() & torch.isfinite(L_new).all()):
-                u_mu, u_sqrt = _q_unconstrained(model, m_new, L_new)
-                model.q_mu.unconstrained.copy_(u_mu)
-                model.q_sqrt.unconstrained.copy_(u_sqrt)
-                break
-        else:
-            natgrad_step.kept += 1
-    natgrad_step.halvings += halvings
-    natgrad_step.backtracked += int(halvings > 0)
+        m_new, L_new, found, halvings = _update(m0, L0, d1, d2, gamma)
+        u_mu, u_sqrt = _q_unconstrained(model, m_new, L_new)
+        # where every attempt failed, q keeps its own unconstrained values
+        model.q_mu.unconstrained.copy_(torch.where(found, u_mu, model.q_mu.unconstrained))
+        model.q_sqrt.unconstrained.copy_(torch.where(found, u_sqrt, model.q_sqrt.unconstrained))
+    natgrad_step.halvings = natgrad_step.halvings + halvings
+    natgrad_step.backtracked = natgrad_step.backtracked + (halvings > 0).long()
+    natgrad_step.kept = natgrad_step.kept + (~found).long()
     return model
 
 

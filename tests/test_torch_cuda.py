@@ -47,6 +47,56 @@ def test_operand_kernel_matches_plain(dev, kind, N, D, pad_to):
     assert float((got.double() - want)[lower].abs().max()) <= 1e-5 * 1.7
 
 
+# the cross Gram's band writer: partial 8-row bands (N = 1, 7, 10001), rows
+# that are not 16-byte aligned (M = 1, 3, 1023, 2049: the scalar-store
+# variant), last sweeps of one column (M = 1025, 2049), D up to 8; X2s shares
+# its first rows with Xs (d = 0, where Matern12 is steepest)
+@pytest.mark.parametrize("D", [1, 3, 8])
+@pytest.mark.parametrize("N,M", [(n, m) for n in (1, 7, 10001) for m in (1, 3, 1023, 1024, 1025, 2049)])
+def test_cross_gram_edges_match_reference(dev, N, M, D):
+    rng = np.random.RandomState(N + M + D)
+    xs = torch.tensor(rng.uniform(0, 1, (N, D)) / 0.3, dtype=torch.float32, device=dev)
+    x2 = torch.tensor(rng.uniform(0, 1, (M, D)) / 0.3, dtype=torch.float32, device=dev)
+    x2[:min(N, M)] = xs[:min(N, M)]
+    for kind in gram.KINDS:
+        got = gram.gram_cuda(kind, xs, x2, torch.tensor(1.7, device=dev))
+        want = gram.gram_reference(kind, xs.double(), x2.double(), 1.7)
+        assert float((got.double() - want).abs().max()) <= 1e-5 * 1.7, kind
+
+
+def test_gram_and_vjp_hold_with_tf32_on(dev):
+    # TF32 turned on for the process: the plain Gram's expansion and the
+    # kernel route's Gram VJP still run in full precision (the same bits as
+    # with TF32 off), and the settings come back as they were
+    xs = _xs(3000, 2, dev)
+    x2 = _xs(700, 2, dev, seed=1)
+    G = torch.tensor(np.random.RandomState(2).randn(3000, 700), dtype=torch.float32, device=dev)
+
+    def run():
+        K = gram.gram_reference("matern32", xs, x2, 1.3)
+        a, b = xs.clone().requires_grad_(), x2.clone().requires_grad_()
+        v = torch.tensor(1.3, device=dev, requires_grad=True)
+        return K, torch.autograd.grad(torch.sum(gram.stationary_gram("matern32", a, b, v) * G), (a, b, v))
+
+    K0, g0 = run()
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        K1, g1 = run()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()) == saved
+    assert torch.equal(K0, K1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
+    want = gram.gram_reference("matern32", xs.double(), x2.double(), 1.3)
+    assert float((K1.double() - want).abs().max()) <= 1e-4 * 1.3
+    a, b, v = (t.double().requires_grad_() for t in (xs, x2, torch.tensor(1.3, device=dev)))
+    g64 = torch.autograd.grad(torch.sum(gram.gram_reference("matern32", a, b, v) * G.double()), (a, b, v))
+    for got, w in zip(g1, g64):
+        assert float((got.double() - w).abs().max()) <= 1e-3 * float(w.abs().max())
+
+
 # 256, 320 and 1000: one full 256-wide panel, then a last panel of 64 and
 # of 232 columns
 @pytest.mark.parametrize("N,P", [(64, 1), (130, 8), (500, 3), (130, 9), (333, 20), (256, 1), (320, 8),
@@ -372,3 +422,29 @@ def test_svgp_elbo_kernel_route_matches_f64_plain(dev, whiten):
         scale = float(want.abs().max()) or 1.0
         e = [float((g[n] - want).abs().max()) / scale for _, g in (k32, p32)]
         assert e[0] <= 2 * e[1] + 1e-5, (n, e)
+
+
+# natgrad_step's batched pass replayed from its CUDA graph equals the same
+# pass run eagerly, call after call (the graph's input buffers are refreshed
+# on each call); d2 ~ -10 I makes the first step sizes fail
+@pytest.mark.parametrize("scale,halves", [(0.01, False), (10.0, True)])
+def test_natgrad_pass_replays_its_graph_as_eager(dev, scale, halves):
+    from gpflow_slim_tpu_torch.training import natgrad
+
+    rng = np.random.RandomState(3)
+    M, P = 16, 2
+
+    def f32(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    for _ in range(3):
+        m0, d1 = f32(rng.randn(M, P)), f32(rng.randn(M, P))
+        L0 = f32(np.tril(rng.randn(P, M, M) * 0.1) + np.eye(M))
+        B = rng.randn(P, M, M) * 0.01
+        d2 = f32(-scale * (np.eye(M) + B + B.transpose(0, 2, 1)))
+        want = natgrad._attempts(m0, L0, d1, d2, 1.0)
+        got = natgrad._update(m0, L0, d1, d2, 1.0)
+        assert bool(got[2]) and (int(got[3]) > 0) == halves
+        assert bool(want[2]) and int(want[3]) == int(got[3])
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)

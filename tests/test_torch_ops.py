@@ -646,7 +646,8 @@ def test_port_never_imports_jax():
     files = sorted((REPO / "gpflow_slim_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "tools" / "profile_torch_gpr.py",
         REPO / "tools" / "profile_torch_svgp.py", REPO / "tools" / "profile_torch_kernels.py",
-        REPO / "tools" / "svgp_rate.py"]
+        REPO / "tools" / "svgp_rate.py", REPO / "tools" / "profile_gram_host.py",
+        REPO / "tools" / "svgp_parts.py"]
     assert len(files) > 10
     for f in files:
         for mod in _imported_modules(f):

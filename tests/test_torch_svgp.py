@@ -1,7 +1,8 @@
 """Parity of the port's SVGP natural-gradient training path
 (gpflow_slim_tpu_torch) with the JAX package, on the CPU in float64:
 ``gauss_kl``, the SVGP ELBO and its gradients, the predictions, one
-``natgrad_step``, the conjugate one-step oracle, a full-batch
+``natgrad_step`` (also one that halves gamma and one where every attempt
+fails and q is kept), the conjugate one-step oracle, a full-batch
 ``fit_svgp_natgrad`` trajectory and the interop of a JAX SVGP.
 
 Both models are built from the same numpy arrays; the port loads the JAX
@@ -171,6 +172,40 @@ def test_natgrad_step_matches_jax(whiten, q_diag, route):
         tm, lambda mm: -(mm.build_likelihood_batch(Xb, Yb) + mm.log_prior()), gamma=0.5)
     assert tm1 is tm
     _assert_params_close(tm, jm1, 1e-8, "value")
+
+
+def _counters():
+    ng = gft.training.natgrad_step
+    return np.array([int(ng.backtracked), int(ng.halvings), int(ng.kept)])
+
+
+@pytest.mark.parametrize("q_diag", [False, True])
+def test_natgrad_step_halves_gamma_as_jax(q_diag, route):
+    # a non-conjugate step whose gamma makes the first attempts' precision
+    # indefinite: the port takes the first finite attempt of its batched
+    # pass, JAX's lax.while_loop halves until one is finite; the same q
+    jm, tm, _, _ = _svgp_pair("bernoulli", True, q_diag)
+    before = _counters()
+    jm1 = jax_natgrad.natgrad_step(jm, lambda mm: -(mm.build_likelihood() + mm.log_prior()), gamma=20.0)
+    gft.training.natgrad_step(tm, lambda mm: -(mm.build_likelihood() + mm.log_prior()), gamma=20.0)
+    backtracked, halvings, kept = _counters() - before
+    assert backtracked == 1 and 0 < halvings < gft.training.natgrad.MAX_HALVINGS and kept == 0
+    _assert_params_close(tm, jm1, 1e-8, "value")
+
+
+def test_natgrad_step_keeps_q_when_every_attempt_fails(route):
+    # gamma so large that even gamma / 2^8 gives an indefinite precision:
+    # q is kept exactly, in both packages, and `kept` counts the step
+    jm, tm, _, _ = _svgp_pair("bernoulli", True, False)
+    q0 = {n: p.unconstrained.detach().clone() for n, p in gft.params.parameters(tm)}
+    before = _counters()
+    jm1 = jax_natgrad.natgrad_step(jm, lambda mm: -(mm.build_likelihood() + mm.log_prior()), gamma=1e3)
+    gft.training.natgrad_step(tm, lambda mm: -(mm.build_likelihood() + mm.log_prior()), gamma=1e3)
+    assert list(_counters() - before) == [1, gft.training.natgrad.MAX_HALVINGS, 1]
+    for n, p in gft.params.parameters(tm):
+        assert torch.equal(p.unconstrained, q0[n]), n
+    _assert_params_close(tm, jm1, 0.0, "value")
+    _assert_params_close(tm, jm, 0.0, "value")
 
 
 @pytest.mark.parametrize("whiten", [True, False])

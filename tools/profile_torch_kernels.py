@@ -2,11 +2,12 @@
 """Device time of the port's kernels, each run alone on one NVIDIA GPU, for
 one checkout of the repository; the tool to compare two commits on one card.
 
-    python3 tools/profile_torch_kernels.py [ROOT]
+    python3 tools/profile_torch_kernels.py [ROOT] [--gram]
 
 ROOT is the checkout whose gpflow_slim_tpu_torch (and kernels, built into
 its own build/) is measured; by default the one this file is in. The timing
-methods are this file's chip_smoke.py's. It prints:
+methods are this file's chip_smoke.py's. ``--gram`` measures the cross
+Gram alone. It prints:
 
 - for Np = 64 .. 10048 (RBF operands of lengthscale 0.1 and unit noise)
   the CUDA-event time of ``cholesky_cuda`` and the mean device time and
@@ -18,7 +19,10 @@ methods are this file's chip_smoke.py's. It prints:
   64-row block row;
 - the batched TRSM at (P, M, K) = (1, 256, 256), (16, 256, 256) and
   (1, 1024, 1024) against ``torch.linalg.solve_triangular``, and the Gram
-  operand (RBF, N = 10000, D = 1, padded to 10048).
+  operand (RBF, N = 10000, D = 1, padded to 10048);
+- the cross Gram (RBF, D = 1) at the serving shape 10000 x 2048, at the
+  SVGP shapes 256 x 256 and 256 x 1024, and at 10000 x 2047 (a ragged M),
+  with its write bound.
 
 The TRSMs and the operand are timed by the three methods of chip_smoke.py's
 kernels line (``cuda_ms``, medians of 5): one call through the wrapper
@@ -82,8 +86,17 @@ def three(fn):
             f"profiler (us, launches) {dev}"), dev
 
 
+def cross_gram(tag, gram, g, one, dev):
+    for n, m in ((10000, 2048), (256, 256), (256, 1024), (10000, 2047)):
+        xs = torch.rand(n, 1, generator=g, device=dev) / 0.1
+        x2 = torch.rand(m, 1, generator=g, device=dev) / 0.1
+        print(f"{tag} cross gram rbf {n} x {m} (write bound {n * m * 4 / cs.HBM_BYTES * 1e3:.4f} ms): "
+              f"{three(lambda: gram.gram_cuda('rbf', xs, x2, one))[0]}", flush=True)
+
+
 def main():
-    root = os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else REPO
+    args = [a for a in sys.argv[1:] if a != "--gram"]
+    root = os.path.abspath(args[0]) if args else REPO
     if not torch.cuda.is_available():
         print("profile_torch_kernels: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -96,6 +109,9 @@ def main():
     one = torch.tensor(1.0, device=dev)
     print(cs.card_line())
     print(f"{tag}: kernels of {os.path.dirname(gram.__file__)}", flush=True)
+    if "--gram" in sys.argv:
+        cross_gram(tag, gram, g, one, dev)
+        return 0
     for n in (64, 256, 1024, 4096, 10048):
         xs = torch.rand(n, 1, generator=g, device=dev) / 0.1
         Kp = gram.gram_chol_operand_cuda("rbf", xs, one, one, n)
@@ -121,6 +137,7 @@ def main():
     print(f"{tag} gram operand rbf N=10000 pad_to=10048 (write bound "
           f"{cs.tri_bytes(10048) / cs.HBM_BYTES * 1e3:.4f} ms): "
           f"{three(lambda: gram.gram_chol_operand_cuda('rbf', xs, one, one, 10048))[0]}", flush=True)
+    cross_gram(tag, gram, g, one, dev)
     return 0
 
 
