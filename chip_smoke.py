@@ -34,7 +34,11 @@ unwhitened (the path of the batched TRSM) and whitened.
    config's chol(Kuu); its backward's gB and dL); the cross Gram at the edges
    of its row bands and sweeps (six kinds, N = 1, 7, 10001, M = 1, 3, 1023,
    2049, D = 1, 3, 8: partial bands, rows that are not 16-byte aligned,
-   a last sweep of one column);
+   a last sweep of one column); config #2's shapes: both Cholesky modes on
+   its Kuu at M = 64 and 100 (Np = 64 and 128, under one 256-wide panel),
+   the TRSM on the M = 100 factor (two block rows, the last ragged) at
+   P = 10000, 2047 and 1, lower and upper through the transposed view of
+   the padded factor, the cross Gram at 100 x 10000 and 100 x 2047;
 4. the training path: GPR.objective() (both of its kernels must launch),
    against an f64 oracle at the effective hyperparameters (gate 1e-5
    relative, as bench.py); the gradient against the f64 plain path (1e-3
@@ -63,6 +67,20 @@ unwhitened (the path of the batched TRSM) and whitened.
    torch.cuda.set_sync_debug_mode("warn"), counting the host syncs by the
    innermost line of the package they came from (none may come from
    training/natgrad.py);
+4e. config #2: SGPR's objective and every unconstrained gradient and its
+   compute_upper_bound() against the f64 plain path, the upper bound above
+   the ELBO, 5 Adam steps of training.fit, posterior() with a predict_f
+   request of 2048 points and a full-covariance one of 1024 against the
+   f64 path; GPRFITC's objective, gradients and predict_f likewise (each
+   gated relative to the use_kernels=False float32 route); the GPR on the
+   composite kernel at N=10000 (K_lower + noise I padded into the fused
+   kernel) against an independent f64 oracle at 1e-5 (or twice the stock
+   f32 route's error where that misses 1e-5) and its gradient against the
+   f64 plain path; SVGP.posterior() against the model's predict_f; each
+   path's launches; then a launch check by torch.profiler: one SGPR
+   objective+gradient and one composite-GPR objective must run the cross
+   Gram, both Cholesky modes and both TRSM schedules, and no library
+   factorization or triangular solve;
 5. times (CUDA events, median; one call between two events) of each kernel
    against its plain version and the one PyTorch call computing the same
    function where there is one, and of the kernel and the library call by
@@ -75,7 +93,9 @@ unwhitened (the path of the batched TRSM) and whitened.
    and of each path's entry points, kernel route
    against the use_kernels=False route, with peak memory; the SVGP
    training rate by the host's wall clock, over five interleaved 20-step
-   fits per route.
+   fits per route; config #2's kernels at its shapes and its SGPR
+   objective, objective+gradient, GPRFITC objective, posterior() and
+   request on both routes.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero and prints no result. The
@@ -130,6 +150,31 @@ SVGP_JITTER = 1e-4  # the f32 jitter; the f64 references use it too, to compute 
 # lengthscale 0.2, jitter 1e-4) sets the scale of both routes' errors
 SVGP_VALUE_ABS = 1e-6
 SVGP_GRAD_ABS = 1e-5
+# BASELINE config #2: benchmarks/bench_svgp_nuts.py's bench_sgpr model
+# (SGPR and GPRFITC, N=10000 on [0, 1], M=100 inducing points on a grid,
+# Matern32(lengthscale 0.2) + Periodic(period 0.16, lengthscale 0.5))
+SPARSE_N, SPARSE_M = 10_000, 100
+SPARSE_STEPS = 5    # Adam steps of training.fit
+SPARSE_JITTER = 1e-4  # the f32 jitter; the f64 references use it too, to compute the same function
+# sparse gates, of the SVGP path's form: the kernel route's error against
+# the f64 plain path within twice the use_kernels=False f32 route's, plus
+# the repo's fixed gates (bench.py's 1e-5 on an objective, 1e-3 on a
+# gradient; relative, max-norm for gradients). The two routes' backwards
+# are different formulas (Murray's Cholesky VJP in f64 with the TRSM kernel's
+# solves refined, autograd's in f32 through cuSOLVER): their errors on the
+# kernel hyperparameters' gradients are of one order on config #2 and
+# either may be a few times the other (phase 4e prints both), so twice the
+# stock error alone would be a coin flip
+SPARSE_VALUE_ABS = OBJECTIVE_TOL
+SPARSE_GRAD_ABS = GRAD_TOL
+# kernels of the package, by the names the profiler gives their launches;
+# any other device kernel whose name holds one of LIBRARY_SOLVES is a
+# library factorization or triangular solve
+OUR_KERNELS = ("gram_cross_kernel", "gram_lower_kernel", "gram_chol_operand_kernel", "pivot_init_kernel",
+               "chol_diag_kernel", "chol_panel_kernel", "chol_inner_update_kernel", "chol_trailing_kernel",
+               "logdet_sum_kernel", "trsm_thin_kernel", "trsm_group_kernel", "trsm_update_kernel",
+               "batched_trsm_kernel")
+LIBRARY_SOLVES = ("trsm", "trsv", "potrf", "potrs", "potri", "getrf", "syrk", "cholesky", "cusolver", "magma")
 # the cross Gram's edges: partial 8-row bands, rows that are not 16-byte
 # aligned, last 1024-column sweeps of one column, D up to 8 (ARD)
 GRAM_EDGE_N, GRAM_EDGE_M, GRAM_EDGE_D = (1, 7, 10_001), (1, 3, 1023, 2049), (1, 3, 8)
@@ -950,6 +995,472 @@ def svgp_times(gft, torch, gram, trsm, batch, rng, dev):
     return rows[(SVGP_M, SVGP_M)], rows[(SVGP_M, SVGP_B)], rows[(1, SVGP_M, SVGP_M)]
 
 
+def sparse_data():
+    """bench_sgpr's data: RandomState(0), X uniform on [0, 1], Y = sin(12 X)
+    + 0.3 sin(40 X) + 0.1 noise, and M inducing points on a grid."""
+    rng = np.random.RandomState(0)
+    X = rng.uniform(0, 1, (SPARSE_N, 1)).astype(np.float32)
+    Y = (np.sin(12 * X) + 0.3 * np.sin(40 * X) + 0.1 * rng.randn(SPARSE_N, 1)).astype(np.float32)
+    Z = np.linspace(0, 1, SPARSE_M, dtype=np.float32)[:, None]
+    return X, Y, Z
+
+
+def sparse_kern(gft):
+    return gft.kernels.Matern32(1, lengthscales=0.2) + gft.kernels.Periodic(1, period=0.16, lengthscales=0.5)
+
+
+def sparse_model(gft, torch, cls, dtype, like=None):
+    """Config #2's model (``"SGPR"``, ``"GPRFITC"`` or ``"GPR"``) on the card;
+    ``like``: a model whose unconstrained values it takes (the same point
+    in another dtype)."""
+    X, Y, Z = sparse_data()
+    kw = {} if cls == "GPR" else {"Z": Z}
+    model = getattr(gft.models, cls)(X, Y, kern=sparse_kern(gft), device="cuda", dtype=dtype, **kw)
+    if like is not None:
+        gft.interop.load_unconstrained(model, {
+            n: p.unconstrained.detach().cpu().numpy() for n, p in gft.params.parameters(like)})
+    return model
+
+
+def sparse_kuu(gft, torch, n, dev):
+    """Config #2's Kuu (f32) on n grid points with the f32 jitter, and its
+    padded system as ops.linalg pads it: ``(K, Kp)``."""
+    Z = torch.linspace(0, 1, n, device=dev)[:, None]
+    with torch.no_grad():
+        K = sparse_kern(gft).to(device=dev, dtype=torch.float32).K(Z) + SPARSE_JITTER * torch.eye(n, device=dev)
+    return K, gft.ops.linalg.pad_system(K, torch.zeros(n, 1, device=dev))[0]
+
+
+def reset_counts(gram, cholesky, trsm):
+    for fn in (gram.gram_chol_operand_cuda, gram.gram_cuda, gram.gram_lower_cuda, cholesky.cholesky_cuda,
+               cholesky.cholesky_solve_cuda, trsm.trsm_cuda, trsm.batched_trsm_cuda):
+        fn.launches = 0
+    gram.gram_cuda.by_shape = {}
+    trsm.trsm_cuda.by_schedule = {"thin": 0, "wide": 0}
+
+
+def read_counts(gram, cholesky, trsm):
+    return {"operand": gram.gram_chol_operand_cuda.launches, "gram": gram.gram_cuda.launches,
+            "gram_lower": gram.gram_lower_cuda.launches, "cholesky": cholesky.cholesky_cuda.launches,
+            "chol_solve": cholesky.cholesky_solve_cuda.launches, "trsm_thin": trsm.trsm_cuda.by_schedule["thin"],
+            "trsm_wide": trsm.trsm_cuda.by_schedule["wide"], "batched_trsm": trsm.batched_trsm_cuda.launches,
+            "gram_by_shape": dict(gram.gram_cuda.by_shape)}
+
+
+def check_sparse_kernels(gft, torch, gram, cholesky, trsm, dev):
+    """Phase 3 at config #2's shapes: both Cholesky modes on its Kuu at M =
+    64 and 100 (Np = 64 and 128, less than one 256-wide panel), the wide
+    TRSM on the M = 100 factor (a ragged triangle of two block rows) at P =
+    10000, 2047 and 1, lower and upper through the transposed view of the
+    padded factor, and the cross Gram at 100 x 10000 and 100 x 2047 (six
+    kinds). The factor, the half-logdets and the fused alpha are gated at
+    twice cuSOLVER's f32 error (the use_kernels=False route) plus their
+    fixed gate: Kuu's f32 conditioning sets both (cuSOLVER's f32 alpha is
+    ~2e-3 off f64 at M = 100, more than ALPHA_TOL). Returns the max abs
+    errors and the M = 100 factor's padded buffer and view."""
+    errs = {"cholesky": 0.0, "chol_solve": 0.0, "trsm": 0.0, "gram": 0.0}
+    for n in (64, SPARSE_M):
+        K, Kp = sparse_kuu(gft, torch, n, dev)
+        Np = Kp.shape[0]
+        L_ref = cholesky.cholesky_plain(torch.tril(Kp).double())
+        Lg = torch.tril(cholesky.cholesky_cuda(Kp.clone()))
+        Dp = torch.zeros(Np, 1, device=dev)
+        Dp[:n] = torch.tensor(np.random.RandomState(n).randn(n, 1), dtype=torch.float32, device=dev)
+        _, a_ref, hs_ref = cholesky.cholesky_solve_plain(torch.tril(Kp).double(), Dp.double())
+        L_lib, a_lib, hs_lib = cholesky.cholesky_solve_plain(torch.tril(Kp), Dp)  # cuSOLVER in f32
+        _, a_got, hs_got = cholesky.cholesky_solve_cuda(Kp.clone(), Dp)
+        e = float((Lg.double() - L_ref).abs().max())
+        scale = float(L_ref.abs().max())
+        hs_ref, h_lib = float(hs_ref), float(torch.log(torch.diagonal(L_lib).double()).sum())
+        where = f"config #2's Kuu, M={n} (Np={Np})"
+        gate(f"cholesky (factor only) of {where}: factor rel err vs f64", e / scale,
+             float((L_lib.double() - L_ref).abs().max()) / scale, FACTOR_TOL)
+        gate(f"cholesky (factor only) of {where}: half_logdet rel err",
+             abs(float(torch.log(torch.diagonal(Lg).double()).sum()) - hs_ref) / abs(hs_ref),
+             abs(h_lib - hs_ref) / abs(hs_ref), FACTOR_HLD_TOL)
+        gate(f"chol_solve of {where}: half_logdet rel err", abs(float(hs_got) - hs_ref) / abs(hs_ref),
+             abs(float(hs_lib) - hs_ref) / abs(hs_ref), HLD_TOL)
+        a_abs = float((a_got.double() - a_ref).abs().max())
+        gate(f"chol_solve of {where}: alpha rel err (max-norm)", a_abs / float(a_ref.abs().max()),
+             float((a_lib.double() - a_ref).abs().max()) / float(a_ref.abs().max()), ALPHA_TOL)
+        if not bool((a_got[n:] == 0).all()):
+            raise AssertionError(f"chol_solve of {where}: pad rows of alpha are not exactly 0")
+        errs["cholesky"] = max(errs["cholesky"], e)
+        errs["chol_solve"] = max(errs["chol_solve"], a_abs)
+    Lp = cholesky.cholesky_cuda(Kp.clone())
+    L = Lp[:SPARSE_M, :SPARSE_M].tril_()  # as ops.cholesky.cholesky leaves it: row stride 128
+    Ld = L.double()
+    rng = np.random.RandomState(9)
+    for P in (SPARSE_N, NQ - 1, 1):
+        B = torch.tensor(rng.randn(SPARSE_M, P), dtype=torch.float32, device=dev)
+        for name, T, Td, lo in (("lower", L, Ld, True), ("upper, L.T view", L.T, Ld.T, False)):
+            got = trsm.trsm_cuda(T, B, lo)
+            want = torch.linalg.solve_triangular(Td, B.double(), upper=not lo)
+            err = float((got.double() - want).abs().max())
+            rel = err / float(want.abs().max())
+            print(f"trsm {name} N={SPARSE_M} (row stride {L.stride(0)}) P={P} ({trsm.trsm_schedule(P)}): rel err "
+                  f"{rel:.3e} (tol {TRSM_TOL:g})")
+            if not rel <= TRSM_TOL:
+                raise AssertionError(f"TRSM kernel ({name}, N={SPARSE_M}, P={P}) disagrees with its plain version")
+            errs["trsm"] = max(errs["trsm"], err)
+    X, _, Z = sparse_data()
+    zs = (torch.tensor(Z, device=dev) / 0.2).contiguous()
+    for xs in ((torch.tensor(X, device=dev) / 0.2).contiguous(), (torch.tensor(X[:NQ - 1], device=dev) / 0.2)):
+        worst = {}
+        for kind in gram.KINDS:
+            got = gram.gram_cuda(kind, zs, xs, torch.tensor(1.7, device=dev))
+            worst[kind] = float((got.double() - gram.gram_reference(kind, zs.double(), xs.double(), 1.7)).abs().max())
+        print(f"gram (cross) at config #2's rows ({SPARSE_M} x {xs.shape[0]}): max abs err "
+              + ", ".join(f"{k} {e:.3e}" for k, e in worst.items()) + f" (tol {OPERAND_TOL:g} x variance 1.7)")
+        if not max(worst.values()) <= OPERAND_TOL * 1.7:
+            raise AssertionError(f"cross-Gram kernel disagrees at {SPARSE_M} x {xs.shape[0]}: {worst}")
+        errs["gram"] = max(errs["gram"], *worst.values())
+    return errs, Lp, L
+
+
+def oracle_composite_objective(torch, X, Y, m32):
+    """-log p(Y) of GPR with Matern32 + Periodic + noise in float64 on the
+    card at m32's effective hyperparameters, written out independently of
+    the port (bench.py's oracle formula, config #2's kernel)."""
+    dev = torch.device("cuda")
+    k0, k1 = m32.kern.kernels
+    ls0, var0 = k0.lengthscales.value.item(), k0.variance.value.item()
+    ls1, var1, per = k1.lengthscales.value.item(), k1.variance.value.item(), k1.period.value.item()
+    noise = m32.likelihood.variance.value.item()
+    x = torch.tensor(X[:, 0], dtype=torch.float64, device=dev)
+    d = (x[:, None] - x[None, :]).abs()
+    K = var0 * (1 + math.sqrt(3) * d / ls0) * torch.exp(-math.sqrt(3) * d / ls0)
+    K += var1 * torch.exp(-0.5 * torch.sin(math.pi * d / per) ** 2 / ls1 ** 2)
+    del d
+    K += noise * torch.eye(len(x), dtype=torch.float64, device=dev)
+    L = torch.linalg.cholesky(K)
+    del K
+    al = torch.linalg.solve_triangular(L, torch.tensor(Y, dtype=torch.float64, device=dev), upper=False)
+    return -float(-0.5 * len(x) * math.log(2 * math.pi) - torch.log(torch.diagonal(L)).sum() - 0.5 * (al ** 2).sum())
+
+
+def value_and_grads(gft, model, use_kernels, fn=lambda m: m.objective()):
+    """``fn(model)`` and every unconstrained gradient (f64 copies), on the
+    route ``use_kernels`` picks, with the f32 jitter on every route."""
+    with gft.config.temp_settings(use_kernels=use_kernels, jitter=SPARSE_JITTER):
+        model.zero_grad(set_to_none=True)
+        loss = fn(model)
+        loss.backward()
+    return loss.item(), {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(model)}
+
+
+def gate_against_f64(what, k32, p32, ref64):
+    """Gate the kernel route's value and every gradient against the f64
+    plain path, relative to the use_kernels=False f32 route's error."""
+    (vk, gk), (vp, gp), (v64, g64) = k32, p32, ref64
+    print(f"{what}: kernel route {vk:.6f}, use_kernels=False {vp:.6f}, f64 plain path {v64:.6f}")
+    gate(f"{what} rel err vs the f64 plain path", abs(vk - v64) / abs(v64), abs(vp - v64) / abs(v64),
+         SPARSE_VALUE_ABS)
+    for n, want in g64.items():
+        scale = float(want.abs().max())
+        gate(f"  grad {n} {tuple(want.shape)} rel err (max-norm)", float((gk[n] - want).abs().max()) / scale,
+             float((gp[n] - want).abs().max()) / scale, SPARSE_GRAD_ABS)
+
+
+def sparse_predictions(gft, torch, model, flag):
+    """The SGPR serving requests: posterior(), predict_f at NQ points and a
+    full-covariance predict_f at NQ_FULL (for GPRFITC, which has no
+    posterior object: the model's predict_f at NQ)."""
+    rq = np.random.RandomState(8)
+    Xq, Xf = rq.uniform(0, 1, (NQ, 1)).astype(np.float32), rq.uniform(0, 1, (NQ_FULL, 1)).astype(np.float32)
+    with gft.config.temp_settings(use_kernels=flag, jitter=SPARSE_JITTER), torch.no_grad():
+        if not hasattr(model, "posterior"):
+            return {"predict_f": model.predict_f(Xq)}
+        post = model.posterior()
+        return {"predict_f": post.predict_f(Xq), "full_cov": post.predict_f(Xf, full_cov=True)}
+
+
+def gate_predictions(what, got, plain, ref):
+    """Each answer finite, and within twice the use_kernels=False f32
+    route's error against the f64 plain path + SERVE_ABS."""
+    for key, outs in got.items():
+        for name, k_t, p_t, r_t in zip(("mean", "var"), outs, plain[key], ref[key]):
+            if not bool(k_t.isfinite().all()):
+                raise AssertionError(f"{what} {key} {name} is not finite")
+            gate(f"{what} {key} {name} {tuple(k_t.shape)} max abs err vs the f64 plain path",
+                 float((k_t.double() - r_t).abs().max()), float((p_t.double() - r_t).abs().max()), SERVE_ABS)
+
+
+def sparse_checks(gft, torch, gram, cholesky, trsm, dev):
+    """Phase 4e: config #2 at full width through the public entry points.
+    SGPR: objective and every gradient against the f64 plain path,
+    compute_upper_bound() >= the ELBO, SPARSE_STEPS Adam steps of
+    training.fit, posterior() and its requests against the f64 path;
+    GPRFITC: objective, gradients, predict_f; GPR on the composite kernel at
+    N=10000: the objective against an independent f64 oracle, the gradient
+    against the f64 plain path; SVGP.posterior() of the SVGP config
+    (unwhitened, after 5 natgrad steps) against the model's predict_f.
+    Returns each path's launches (counts set to 0 just before it, read just
+    after)."""
+    launches = {}
+    # SGPR
+    m32 = sparse_model(gft, torch, "SGPR", torch.float32)
+    m64 = sparse_model(gft, torch, "SGPR", torch.float64, like=m32)
+    reset_counts(gram, cholesky, trsm)
+    k32 = value_and_grads(gft, m32, True)
+    with torch.no_grad():
+        elbo, upper = m32.build_likelihood().item(), m32.compute_upper_bound().item()
+    _, losses = gft.training.fit(sparse_model(gft, torch, "SGPR", torch.float32), num_steps=SPARSE_STEPS,
+                                 learning_rate=0.01)
+    preds = sparse_predictions(gft, torch, m32, True)
+    torch.cuda.synchronize()
+    launches["sgpr"] = read_counts(gram, cholesky, trsm)
+    gate_against_f64("SGPR objective", k32, value_and_grads(gft, m32, False), value_and_grads(gft, m64, False))
+    ub = [value_and_grads(gft, m, f, lambda mm: mm.compute_upper_bound()) for m, f in ((m32, True), (m32, False),
+                                                                                         (m64, False))]
+    gate_against_f64("SGPR compute_upper_bound", *ub)
+    print(f"SGPR: ELBO {elbo:.6f} <= upper bound {upper:.6f}: {elbo <= upper}")
+    losses = losses.cpu().numpy()
+    print(f"SGPR fit: {SPARSE_STEPS} Adam steps, losses {np.array2string(losses, precision=4)}; each lower than "
+          f"the last: {bool((np.diff(losses) < 0).all())}")
+    if not (elbo <= upper and np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("SGPR: the upper bound is below the ELBO, or Adam did not lower the loss")
+    gate_predictions("SGPR", preds, sparse_predictions(gft, torch, m32, False),
+                     sparse_predictions(gft, torch, m64, False))
+    print(f"SGPR path (objective+gradient, upper bound, {SPARSE_STEPS} Adam steps, posterior(), predict_f at {NQ}, "
+          f"full_cov at {NQ_FULL}): launches {launches['sgpr']}")
+    need = ("gram", "cholesky", "trsm_thin", "trsm_wide")
+    if not all(launches["sgpr"][k] > 0 for k in need) or launches["sgpr"]["chol_solve"]:
+        raise AssertionError(f"the SGPR path did not run the cross Gram, factor and both TRSM schedules "
+                             f"(or ran the fused Cholesky): {launches['sgpr']}")
+    del m32, m64
+
+    # GPRFITC
+    f32 = sparse_model(gft, torch, "GPRFITC", torch.float32)
+    f64 = sparse_model(gft, torch, "GPRFITC", torch.float64, like=f32)
+    reset_counts(gram, cholesky, trsm)
+    k32 = value_and_grads(gft, f32, True)
+    preds = sparse_predictions(gft, torch, f32, True)
+    torch.cuda.synchronize()
+    launches["fitc"] = read_counts(gram, cholesky, trsm)
+    gate_against_f64("GPRFITC objective", k32, value_and_grads(gft, f32, False), value_and_grads(gft, f64, False))
+    gate_predictions("GPRFITC", preds, sparse_predictions(gft, torch, f32, False),
+                     sparse_predictions(gft, torch, f64, False))
+    print(f"GPRFITC path (objective+gradient, predict_f at {NQ}): launches {launches['fitc']}")
+    if not all(launches["fitc"][k] > 0 for k in need):
+        raise AssertionError(f"the GPRFITC path did not run its kernels: {launches['fitc']}")
+    del f32, f64
+
+    # GPR on the composite kernel at N=10000: K_lower + noise I, padded,
+    # through the fused kernel
+    X, Y, _ = sparse_data()
+    g32 = sparse_model(gft, torch, "GPR", torch.float32)
+    reset_counts(gram, cholesky, trsm)
+    with torch.no_grad():
+        val = g32.objective().item()
+    torch.cuda.synchronize()
+    launches["gpr"] = read_counts(gram, cholesky, trsm)
+    with torch.no_grad(), gft.config.temp_settings(use_kernels=False):
+        val_plain = g32.objective().item()
+    oracle = oracle_composite_objective(torch, X, Y, g32)
+    e_k, e_p = abs(val - oracle) / abs(oracle), abs(val_plain - oracle) / abs(oracle)
+    limit = OBJECTIVE_TOL if e_p <= OBJECTIVE_TOL else 2 * e_p
+    print(f"composite GPR objective (N={SPARSE_N}): kernel route {val:.6f}, use_kernels=False {val_plain:.6f}, "
+          f"f64 oracle {oracle:.6f}; rel err {e_k:.3e} and {e_p:.3e} (gate {limit:.3e}: "
+          + ("bench.py's 1e-5" if limit == OBJECTIVE_TOL else "twice the stock f32 route's, which misses 1e-5")
+          + f"); launches {launches['gpr']}")
+    if not e_k <= limit:
+        raise AssertionError(f"composite GPR objective off the f64 oracle by {e_k:.3e}")
+    if not (launches["gpr"]["chol_solve"] == 1 and launches["gpr"]["gram"] > 0 and launches["gpr"]["operand"] == 0):
+        raise AssertionError(f"the composite GPR did not take the padded fused route: {launches['gpr']}")
+    g32.zero_grad(set_to_none=True)
+    g32.objective().backward()
+    g64 = sparse_model(gft, torch, "GPR", torch.float64, like=g32)
+    g64.objective().backward()
+    grads64 = dict(gft.params.parameters(g64))
+    for n, p in gft.params.parameters(g32):
+        want = float(grads64[n].unconstrained.grad)
+        rel = abs(float(p.unconstrained.grad) - want) / abs(want)
+        print(f"  composite GPR grad {n}: kernel route {float(p.unconstrained.grad):.6f}, f64 plain path "
+              f"{want:.6f}, rel err {rel:.3e} (tol {GRAD_TOL:g})")
+        if not rel <= GRAD_TOL:
+            raise AssertionError(f"composite GPR gradient {n} off the f64 plain path by {rel:.3e}")
+    del g32, g64, grads64
+
+    # SVGP.posterior() against the model's own predict_f, at a q away from
+    # its initialisation
+    model = svgp_model(gft, torch, False, torch.float32)
+    gft.training.fit_svgp_natgrad(model, 5, torch.Generator(device=dev).manual_seed(2), gamma=SVGP_GAMMA,
+                                  learning_rate=SVGP_LR, batch_size=SVGP_B)
+    Xq = np.random.RandomState(10).uniform(0, 1, (NQ, 1)).astype(np.float32)
+    reset_counts(gram, cholesky, trsm)
+    with torch.no_grad():
+        post = model.posterior()
+        got = post.predict_f(Xq)
+        launches["svgp_posterior"] = read_counts(gram, cholesky, trsm)
+        want = model.predict_f(Xq)
+    rel = max(float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got, want))
+    print(f"SVGP posterior() (unwhitened, after 5 natgrad steps): predict_f at {NQ} against the model's "
+          f"predict_f, rel err (max-norm) {rel:.3e} (tol 1e-5); launches {launches['svgp_posterior']}")
+    if not (rel <= 1e-5 and launches["svgp_posterior"]["trsm_wide"] > 0):
+        raise AssertionError("SVGPPosterior.predict_f disagrees with SVGP.predict_f or missed the TRSM")
+    return launches
+
+
+def device_kernels(torch, fn):
+    """Counter of the device kernels that one call of fn launches, by name,
+    from torch.profiler (after one call outside the profile)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                               and "Memcpy" not in e.name and "Memset" not in e.name
+                               and "Command Buffer Full" not in e.name)
+
+
+def ours(name):
+    return next((k for k in OUR_KERNELS if k in name), None)
+
+
+def library_solves(names):
+    return {n: c for n, c in names.items() if ours(n) is None and any(w in n.lower() for w in LIBRARY_SOLVES)}
+
+
+def sparse_launch_check(gft, torch, dev):
+    """Phase 4e's launch check by torch.profiler: one SGPR objective+gradient
+    and one composite-GPR objective on the kernel route must launch the
+    factor-only Cholesky, the cross Gram and both TRSM schedules (SGPR) and
+    the fused Cholesky (GPR), and no library factorization or triangular
+    solve. A probe shows that the check sees cuBLAS's solve. Returns the
+    counts per kernel of each."""
+    L = torch.eye(SPARSE_M, device=dev) * 2
+    B = torch.ones(SPARSE_M, 1, device=dev)
+    probe = library_solves(device_kernels(torch, lambda: torch.linalg.solve_triangular(L, B, upper=False)))
+    if not probe:
+        raise AssertionError("the launch check does not see torch.linalg.solve_triangular's kernel")
+    m = sparse_model(gft, torch, "SGPR", torch.float32)
+
+    def sgpr_step():
+        m.zero_grad(set_to_none=True)
+        m.objective().backward()
+
+    g = sparse_model(gft, torch, "GPR", torch.float32)
+
+    def gpr_objective():
+        with torch.no_grad():
+            g.objective()
+
+    counts = {}
+    for label, fn, need in (("SGPR objective+gradient", sgpr_step,
+                             ("gram_cross_kernel", "chol_diag_kernel", "trsm_thin_kernel", "trsm_group_kernel")),
+                            ("composite GPR objective", gpr_objective,
+                             ("gram_cross_kernel", "chol_diag_kernel", "logdet_sum_kernel"))):
+        names = device_kernels(torch, fn)
+        mine = collections.Counter()
+        for n, c in names.items():
+            if ours(n):
+                mine[ours(n)] += c
+        libs = library_solves(names)
+        counts[label] = dict(mine)
+        print(f"launch check, {label} (torch.profiler, kernel route): {dict(mine)}; library factorizations and "
+              f"triangular solves: {libs or 'none'} (the probe saw {list(probe)[0][:60]!r})")
+        missing = [k for k in need if not mine.get(k)]
+        if missing or libs:
+            raise AssertionError(f"{label}: kernels missing {missing}, library solves {libs}")
+        if label.startswith("SGPR") and mine.get("logdet_sum_kernel"):
+            raise AssertionError("the SGPR objective ran the fused Cholesky, not the factor-only one")
+    return counts
+
+
+def sparse_times(gft, torch, gram, cholesky, trsm, Lp, L, rng, dev, card):
+    """Phase 5 for config #2: its four kernel rows (the cross Gram at
+    100 x 10000, the factor at Np=128, the wide TRSM at N=100 P=10000 and
+    the thin one at P=1, each against its plain version and its library
+    call), then the SGPR objective, objective+gradient, GPRFITC objective,
+    posterior() and one request of NQ points on both routes."""
+    rows = {}
+    X, Y, Z = sparse_data()
+    zs = (torch.tensor(Z, device=dev) / 0.2).contiguous()
+    xs = (torch.tensor(X, device=dev) / 0.2).contiguous()
+    var = torch.tensor(1.0, device=dev)
+    n, m = SPARSE_M, SPARSE_N
+    kernel = lambda: gram.gram_cuda("matern32", zs, xs, var)  # noqa: E731
+    k_ms, p_ms = paired_ms(torch, kernel, lambda: gram.gram_reference("matern32", zs, xs, var))
+    b_ms, b_by = bound(5 * n * m, n * m * 4 + (n + m) * 4)
+    rows["gram_sgpr_kuf"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                             **other_ms(torch, kernel)}
+    _, Kp = sparse_kuu(gft, torch, n, dev)
+    Np = Kp.shape[0]
+    k_ms, p_ms = paired_ms(torch, cholesky.cholesky_cuda, cholesky.cholesky_plain, setup=lambda: (Kp.clone(),))
+    lib_ms = statistics.median(cuda_ms(torch, torch.linalg.cholesky_ex, setup=lambda: (Kp.clone(),)))
+    b_ms, b_by = bound(Np ** 3 / 3, 2 * tri_bytes(Np))
+    rows["cholesky_sgpr"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             **other_ms(torch, cholesky.cholesky_cuda, torch.linalg.cholesky_ex,
+                                        setup=lambda: (Kp.clone(),))}
+    for name, P in (("trsm_sgpr_wide", m), ("trsm_sgpr_thin", 1)):
+        B = torch.tensor(rng.randn(n, P), dtype=torch.float32, device=dev)
+        kernel = lambda: trsm.trsm_cuda(L, B, True)  # noqa: E731
+        library = lambda: torch.linalg.solve_triangular(L, B, upper=False)  # noqa: E731
+        k_ms, p_ms = paired_ms(torch, kernel, lambda: trsm.solve_triangular_plain(L, B, True))
+        lib_ms = statistics.median(cuda_ms(torch, library))
+        b_ms, b_by = bound(n * n * P, tri_bytes(n) + 2 * n * P * 4)
+        rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      **other_ms(torch, kernel, library)}
+    def ms(t):
+        return "-" if t is None else f"{t:.4f}"
+
+    for name, r in rows.items():
+        print(f"  {name}: kernel {ms(r['ms'])} ms (runs of {RUN} {ms(r['run20_ms'])}, device {ms(r['device_ms'])}), "
+              f"plain f32 {ms(r['plain_ms'])} ms, library {ms(r['library_ms'])} ms (runs of {RUN} "
+              f"{ms(r['library_run20_ms'])}, device {ms(r['library_device_ms'])}), bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})")
+
+    def routed(fn, flag):
+        def run():
+            with gft.config.temp_settings(use_kernels=flag):
+                fn()
+        return run
+
+    sgpr = sparse_model(gft, torch, "SGPR", torch.float32)
+    fitc = sparse_model(gft, torch, "GPRFITC", torch.float32)
+
+    def objective(model):
+        def run():
+            with torch.no_grad():
+                model.objective()
+        return run
+
+    def objective_grad():
+        sgpr.zero_grad(set_to_none=True)
+        sgpr.objective().backward()
+
+    def posterior():
+        with torch.no_grad():
+            sgpr.posterior()
+
+    posts = {}
+    for flag in (True, False):
+        with torch.no_grad(), gft.config.temp_settings(use_kernels=flag):
+            posts[flag] = sgpr.posterior()
+    Xq = torch.tensor(np.random.RandomState(8).uniform(0, 1, (NQ, 1)), dtype=torch.float32, device=dev)
+
+    def request(flag):
+        def run():
+            with torch.no_grad(), gft.config.temp_settings(use_kernels=flag):
+                posts[flag].predict_f(Xq)
+        return run
+
+    print(f"times of config #2 (N={SPARSE_N}, M={SPARSE_M}; median of {2 * REPS} by CUDA events) on {card}:")
+    for what, fn in (("SGPR objective", objective(sgpr)), ("SGPR objective+grad", objective_grad),
+                     ("GPRFITC objective", objective(fitc)), ("SGPR posterior()", posterior)):
+        k_ms, p_ms = paired_ms(torch, routed(fn, True), routed(fn, False))
+        print(f"  {what}: kernels {k_ms:.3f} ms ({1e3 / k_ms:.1f} evals/s), use_kernels=False {p_ms:.3f} ms "
+              f"({1e3 / p_ms:.1f} evals/s)")
+    k_ms, p_ms = paired_ms(torch, request(True), request(False))
+    print(f"  SGPR predict_f request, N*={NQ}: kernels {k_ms:.3f} ms, use_kernels=False {p_ms:.3f} ms")
+    return rows
+
+
 def main():
     import torch
 
@@ -1056,6 +1567,9 @@ def main():
     svgp_errs, Kuu = check_svgp_kernels(torch, gram, cholesky, trsm, dev)
     serve_errs = {k: max(e, svgp_errs.get(k, 0.0)) for k, e in serve_errs.items()}
     batched_err = check_batched_trsm(torch, trsm, torch.linalg.cholesky(Kuu), rng, dev)
+    # config #2: both Cholesky modes at Np = 64 and 128, the TRSM on the
+    # M = 100 factor, the cross Gram at 100 rows
+    sparse_errs, sparse_Lp, sparse_L = check_sparse_kernels(gft, torch, gram, cholesky, trsm, dev)
 
     # 4. the training path at full width, through the public entry points
     model = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE),
@@ -1157,6 +1671,11 @@ def main():
     func_grad_check(gft, torch, gram, cholesky, model)
     tf32_checks(gft, torch, gram, serve, Xs, Xqs, model, grads64, dev)
     natgrad_syncs(gft, torch, svgp_batch, dev)
+
+    # 4e. config #2 (SGPR, GPRFITC, the composite GPR) at full width, and
+    # the launch check of its kernel route by torch.profiler
+    sparse_launches = sparse_checks(gft, torch, gram, cholesky, trsm, dev)
+    sparse_launch_check(gft, torch, dev)
 
     # 5. times on the card, kernel route against plain
     def on_card(ms):
@@ -1278,6 +1797,8 @@ def main():
 
     # the SVGP path
     kuu_row, kuf_row, bt_row = svgp_times(gft, torch, gram, trsm, svgp_batch, rng, dev)
+    # config #2
+    sparse_rows = sparse_times(gft, torch, gram, cholesky, trsm, sparse_Lp, sparse_L, rng, dev, card)
 
     # each kernel's bound at the shape it was timed at (D = 1 inputs; a map
     # entry counted as 5 flop: the difference, its square, the scale, exp)
@@ -1300,7 +1821,7 @@ def main():
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                 **other[name]}
 
-    def svgp_row(name, source, replaces, launches, err, timed):
+    def timed_row(name, source, replaces, launches, err, timed):
         bounds[name] = (timed["bound_ms"], timed["bound_by"])
         other[name] = {k: timed[k] for k in ("run20_ms", "device_ms", "library_run20_ms", "library_device_ms")}
         return row(name, source, replaces, launches, err, timed["ms"], timed["plain_ms"], timed["library_ms"])
@@ -1321,12 +1842,21 @@ def main():
             trsm_plain_ms, trsm_lib_ms),
         row("trsm_thin", "trsm.cu", "pallas_trsm.py:116", serve_launches["trsm_thin"], serve_errs["trsm"],
             trsm1_ms, trsm1_plain_ms, trsm1_lib_ms),
-        svgp_row("gram_svgp_kuu", "gram.cu", "pallas_gram.py:95", by_shape.get((SVGP_M, SVGP_M), 0),
+        timed_row("gram_svgp_kuu", "gram.cu", "pallas_gram.py:95", by_shape.get((SVGP_M, SVGP_M), 0),
                  svgp_errs["gram"], kuu_row),
-        svgp_row("gram_svgp_kuf", "gram.cu", "pallas_gram.py:95", by_shape.get((SVGP_M, SVGP_B), 0),
+        timed_row("gram_svgp_kuf", "gram.cu", "pallas_gram.py:95", by_shape.get((SVGP_M, SVGP_B), 0),
                  svgp_errs["gram"], kuf_row),
-        svgp_row("batched_trsm", "batched_trsm.cu", "pallas_trsm.py:208", svgp_launches["batched_trsm"],
+        timed_row("batched_trsm", "batched_trsm.cu", "pallas_trsm.py:208", svgp_launches["batched_trsm"],
                  batched_err, bt_row),
+        timed_row("gram_sgpr_kuf", "gram.cu", "pallas_gram.py:95",
+                 sparse_launches["sgpr"]["gram_by_shape"].get((SPARSE_M, SPARSE_N), 0), sparse_errs["gram"],
+                 sparse_rows["gram_sgpr_kuf"]),
+        timed_row("cholesky_sgpr", "chol_solve.cu", "pallas_cholesky.py:716", sparse_launches["sgpr"]["cholesky"],
+                 sparse_errs["cholesky"], sparse_rows["cholesky_sgpr"]),
+        timed_row("trsm_sgpr_wide", "trsm.cu", "pallas_trsm.py:116", sparse_launches["sgpr"]["trsm_wide"],
+                 sparse_errs["trsm"], sparse_rows["trsm_sgpr_wide"]),
+        timed_row("trsm_sgpr_thin", "trsm.cu", "pallas_trsm.py:116", sparse_launches["sgpr"]["trsm_thin"],
+                 sparse_errs["trsm"], sparse_rows["trsm_sgpr_thin"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

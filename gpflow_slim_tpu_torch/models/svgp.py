@@ -8,7 +8,8 @@ takes an explicit minibatch; ``training.fit_svgp_natgrad`` draws them.
 On the kernel route (CUDA float32) ``Kuu`` and ``Kuf`` are the cross-Gram
 kernel, the conditional factors ``Kuu`` with the factor-only Cholesky and
 solves with the wide TRSM, and the unwhitened KL solves its (P, M, M)
-``chol(Kuu)^-1 q_sqrt`` with the batched TRSM.
+``chol(Kuu)^-1 q_sqrt`` with the batched TRSM. ``posterior()`` factors
+``Kuu`` once for serving (``SVGPPosterior``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from .. import config
 from .. import features as features_mod
 from ..conditionals import base_conditional
 from ..kullback_leiblers import gauss_kl
+from ..ops import linalg
 from ..params import Param
 from ..transforms import LowerTriangular, positive
 from .model import GPModel, as_tensor_like
@@ -86,3 +88,12 @@ class SVGP(GPModel):
         if q.dim() == 2:  # diagonal (M, P)
             return torch.diag_embed(q.T)
         return torch.tril(q)
+
+    def posterior(self):
+        """Factor Kuu once (and materialize q) for O(M N*) serving
+        predictions."""
+        from .posterior import SVGPPosterior
+
+        Luu = linalg.cholesky(features_mod.Kuu(self.feature, self.kern, jitter=self._jitter()))
+        return SVGPPosterior(self.kern, self.likelihood, self.mean_function, self.feature, Luu,
+                             self.q_mu.value, self.q_sqrt_array(), self.whiten, self.num_latent)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from . import trsm as _trsm
 from ._func import transforms_active, vmap_loop
 
 BLOCK = 64  # the kernel's block size; Kp's side must be a multiple of it
@@ -88,22 +89,56 @@ def _factor_padded(K):
     return Kp[:N, :N].tril_()
 
 
+# refinement steps of the Cholesky VJP's float32 solves: each multiplies
+# the solve's error by ~cond(U) x 6e-8, so one reaches the float32 rounding
+# of the VJP's output at cond(K) ~1e6 (tests/test_torch_ops.py)
+REFINE_STEPS = 1
+
+
+def _solve_upper_refined(U, B):
+    """``U^-1 B`` to float64 accuracy for a float32 triangle ``U`` and a
+    float64 ``B``: the TRSM's Function in float32, then ``REFINE_STEPS``
+    steps of iterative refinement on float64 residuals ``B - U X``."""
+    U64 = U.double()
+    X = _trsm.solve_upper(U, B.float()).double()
+    for _ in range(REFINE_STEPS):
+        X = X + _trsm.solve_upper(U, (B - U64 @ X).float()).double()
+    return X
+
+
 def _chol_vjp(L, g):
     # Murray (2016), as `_chol_vjp_bwd` of the JAX package: the full
-    # symmetric K-bar (a lower-only one doubles the off-diagonal gradient)
+    # symmetric K-bar (a lower-only one doubles the off-diagonal gradient).
+    # The two solves go through the TRSM's Function, read on L's transposed
+    # view: the wide TRSM kernel on a CUDA tensor, its plain version on a
+    # CPU one, never a library solve on the card.
+    #
+    # For a float32 factor it runs in float64: products in float64, the
+    # solves refined to float64 accuracy (`_solve_upper_refined`). In
+    # float32 it put SGPR's inducing-point gradient (BASELINE config #2)
+    # further off the f64 path than autograd's float32 Cholesky backward
+    # does, in float64 ten times closer (tools/sgpr_zgrad.py on an H100).
+    dtype = L.dtype
+    refine = dtype == torch.float32
+    solve = _solve_upper_refined if refine else _trsm.solve_upper
     L = torch.tril(L)
+    Lt = L.mT
+    if refine:
+        L, g = L.double(), g.double()
     Lbar = torch.tril(g)
     P = L.mT @ Lbar
     P = torch.tril(P) - 0.5 * torch.diag_embed(torch.diagonal(P))
-    X = torch.linalg.solve_triangular(L.mT, P + P.mT, upper=True)
-    S = torch.linalg.solve_triangular(L.mT, X.mT, upper=True)
-    return 0.25 * (S + S.mT)
+    X = solve(Lt, P + P.mT)
+    S = solve(Lt, X.mT.contiguous())
+    return (0.25 * (S + S.mT)).to(dtype)
 
 
 class _Cholesky(torch.autograd.Function):
     """Forward: the padded factor-only Cholesky (kernel or plain). Backward:
-    ``_chol_vjp_bwd`` of the JAX package, in torch.linalg (the JAX package
-    also computes it with plain XLA ops, outside any kernel). ``vmap``: the
+    ``_chol_vjp_bwd`` of the JAX package: two triangular solves on the
+    factor's transposed view through ``ops.trsm`` (the TRSM kernel on a
+    CUDA tensor) and matrix products, in float64 for a float32 factor (the
+    JAX package computes the whole VJP with plain XLA ops). ``vmap``: the
     Function on each matrix of the batch."""
 
     @staticmethod

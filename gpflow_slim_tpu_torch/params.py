@@ -92,12 +92,21 @@ class Module(nn.Module):
         return log_prior(self)
 
 
+def _path_key(name: str):
+    # attribute names sort as strings, list indices (an ``nn.ModuleList``'s
+    # ``kernels.10``) by position, as the JAX package's pytree keys do
+    return [(0, int(part), "") if part.isdigit() else (1, 0, part) for part in name.split(".")]
+
+
 def parameters(module: nn.Module) -> list[tuple[str, Param]]:
     """All Params under ``module`` with dotted path names, in the order of
     ``gpflow_slim_tpu.params.parameters`` (attribute names sorted level by
-    level)."""
+    level, list children by position). A child of a list is named by its
+    index as a path part (``kern.kernels.0.variance``) where the JAX package
+    writes ``kern.kernels[0].variance`` (``interop.port_name`` maps one to
+    the other)."""
     found = [(n, m) for n, m in module.named_modules() if isinstance(m, Param)]
-    return sorted(found, key=lambda item: item[0].split("."))
+    return sorted(found, key=lambda item: _path_key(item[0]))
 
 
 def log_prior(module: nn.Module):

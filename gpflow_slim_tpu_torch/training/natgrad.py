@@ -202,24 +202,30 @@ natgrad_step.kept = 0
 
 def fit_svgp_natgrad(model, num_steps: int, generator: torch.Generator | None = None,
                      gamma: float = 0.1, learning_rate: float = 0.01,
-                     batch_size: int | None = None):
+                     batch_size: int | None = None, optimizer=None):
     """Alternating natgrad(q) + Adam(hyperparameters) SVGP training, in place.
 
     Each step draws a minibatch of ``batch_size`` points without replacement
     (``torch.randperm`` with ``generator``, a ``torch.Generator`` on the
     model's device in place of the JAX key; None uses torch's default), takes
-    a natural-gradient step on (q_mu, q_sqrt), then an Adam step on every
-    other trainable parameter (optax's ``masked`` Adam of the JAX package).
-    ``batch_size=None`` uses all N points. Returns ``(model, losses)``,
-    ``losses`` (num_steps,) the batch loss after each natgrad step.
+    a natural-gradient step on (q_mu, q_sqrt), then an optimizer step on
+    every other trainable parameter (optax's ``masked`` optimizer of the JAX
+    package). ``optimizer``, in place of the JAX package's optax
+    transformation, builds the hyperparameters' optimizer from their list of
+    tensors (``lambda ps: torch.optim.SGD(ps, lr=0.01)``); None is Adam at
+    ``learning_rate``. ``batch_size=None`` uses all N points. Returns
+    ``(model, losses)``, ``losses`` (num_steps,) the batch loss after each
+    natgrad step.
     """
     N = model.num_data
     B = batch_size or N
     q_leaves = {id(model.q_mu.unconstrained), id(model.q_sqrt.unconstrained)}
     hypers = [p.unconstrained for _, p in parameters(model)
               if p.trainable and id(p.unconstrained) not in q_leaves]
-    opt = (torch.optim.Adam(hypers, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
-           if hypers else None)
+    if optimizer is None:
+        def optimizer(ps):
+            return torch.optim.Adam(ps, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
+    opt = optimizer(hypers) if hypers else None
     losses = []
     for _ in range(num_steps):
         idx = torch.randperm(N, generator=generator, device=model.X.device)[:B]

@@ -14,6 +14,7 @@ import torch
 
 import gpflow_slim_tpu_torch as gft
 from gpflow_slim_tpu_torch.ops import cholesky, gram, trsm
+from gpflow_slim_tpu_torch.ops import linalg as ops_linalg
 
 pytestmark = pytest.mark.cuda
 
@@ -448,3 +449,180 @@ def test_natgrad_pass_replays_its_graph_as_eager(dev, scale, halves):
         assert bool(want[2]) and int(want[3]) == int(got[3])
         for g, w in zip(got[:2], want[:2]):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+# -- BASELINE config #2's sparse path (SGPR, GPRFITC, the composite GPR) ----
+
+def _config2_kern():
+    return gft.kernels.Matern32(1, lengthscales=0.2) + gft.kernels.Periodic(1, period=0.16, lengthscales=0.5)
+
+
+def _config2_kuu(n, dev):
+    # config #2's Kuu on n grid points with the f32 jitter, padded to a
+    # multiple of 64 with a unit diagonal, as ops.cholesky pads it
+    Z = torch.linspace(0, 1, n, device=dev)[:, None]
+    with torch.no_grad():
+        K = _config2_kern().to(device=dev, dtype=torch.float32).K(Z) + 1e-4 * torch.eye(n, device=dev)
+    Kp, _ = ops_linalg.pad_system(K, torch.zeros(n, 1, device=dev))
+    return K, Kp
+
+
+# the factor of M = 64 and 100 inducing points: Np = 64 and 128, less than
+# one 256-wide panel. Both modes against f64, each error within twice
+# cuSOLVER's f32 error plus the fixed gate (factor 1e-4, half-logdet 1e-5,
+# alpha 1e-3, relative): Kuu's f32 conditioning sets both (cuSOLVER's f32
+# alpha is ~2e-3 off f64 at M = 100, chip_smoke.py phase 3); alpha's pad
+# rows exactly 0
+@pytest.mark.parametrize("n", [64, 100])
+def test_cholesky_modes_at_inducing_sides(dev, n):
+    _, Kp = _config2_kuu(n, dev)
+    Np = Kp.shape[0]
+    Dp = torch.zeros(Np, 1, device=dev)
+    Dp[:n] = torch.tensor(np.random.RandomState(n).randn(n, 1), dtype=torch.float32, device=dev)
+    L_ref, a_ref, h_ref = cholesky.cholesky_solve_plain(torch.tril(Kp).double(), Dp.double())
+    L_lib, a_lib, h_lib = cholesky.cholesky_solve_plain(torch.tril(Kp), Dp)
+    Lg = torch.tril(cholesky.cholesky_cuda(Kp.clone()))
+    _, a_got, h_got = cholesky.cholesky_solve_cuda(Kp.clone(), Dp)
+
+    def rel(a, b):
+        return float((a.double() - b).abs().max()) / float(b.abs().max())
+
+    def half_logdet(L):
+        return torch.log(torch.diagonal(L).double()).sum()
+
+    assert rel(Lg, L_ref) <= 2 * rel(L_lib, L_ref) + 1e-4
+    h_lib = half_logdet(L_lib)
+    for got in (half_logdet(Lg), h_got):
+        assert rel(got, h_ref) <= 2 * rel(h_lib, h_ref) + 1e-5
+    assert rel(a_got, a_ref) <= 2 * rel(a_lib, a_ref) + 1e-3
+    assert bool((a_got[n:] == 0).all())
+
+
+# the wide TRSM with a ragged triangle of two block rows (N = 100) under the
+# widths of config #2's path: the thin schedule at P = 1, the wide one at
+# N* = 2047 and N = 10000; lower, and upper through the transposed view of
+# the padded factor
+@pytest.mark.parametrize("P", [1, 2047, 10000])
+def test_trsm_at_inducing_shapes(dev, P):
+    _, Kp = _config2_kuu(100, dev)
+    L = cholesky.cholesky_cuda(Kp)[:100, :100].tril_()  # row stride 128
+    B = torch.tensor(np.random.RandomState(P).randn(100, P), dtype=torch.float32, device=dev)
+    Ld = L.double()
+    for T, Td, lower in ((L, Ld, True), (L.T, Ld.T, False)):
+        got = trsm.trsm_cuda(T, B, lower)
+        want = torch.linalg.solve_triangular(Td, B.double(), upper=not lower)
+        assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+# the cross Gram at 100 rows: 13 eight-row bands, the last half empty (or
+# 1-row bands where the grid is small), the scalar-store variant at 2047
+@pytest.mark.parametrize("M", [100, 2047, 10000])
+def test_cross_gram_at_inducing_rows(dev, M):
+    zs = torch.linspace(0, 1, 100, device=dev)[:, None] / 0.2
+    xs = _xs(M, 1, dev)
+    for kind in gram.KINDS:
+        got = gram.gram_cuda(kind, zs, xs, torch.tensor(1.7, device=dev))
+        want = gram.gram_reference(kind, zs.double(), xs.double(), 1.7)
+        assert float((got.double() - want).abs().max()) <= 1e-5 * 1.7, kind
+
+
+def _no_library_linalg(monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError("torch.linalg was called on the kernel route")
+
+    for name in ("cholesky", "cholesky_ex", "solve_triangular"):
+        monkeypatch.setattr(torch.linalg, name, boom)
+
+
+def _config2_data(N, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(0, 1, (N, 1)).astype(np.float32)
+    Y = (np.sin(12 * X) + 0.3 * np.sin(40 * X) + 0.1 * rng.randn(N, 1)).astype(np.float32)
+    return X, Y
+
+
+def test_composite_gpr_runs_the_padded_fused_kernel(dev, monkeypatch):
+    # a kernel without a fused map: K_lower(X) + noise I padded into the
+    # fused factor/solve/logdet, never the operand, never torch.linalg
+    X, Y = _config2_data(700)
+    m32 = gft.models.GPR(X, Y, kern=_config2_kern(), device=dev, dtype=torch.float32)
+    before = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches, gram.gram_cuda.launches)
+    with monkeypatch.context() as mp, torch.no_grad():
+        _no_library_linalg(mp)
+        value = m32.objective().item()
+    after = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches, gram.gram_cuda.launches)
+    assert after == (before[0], before[1] + 1, before[2] + 1), (before, after)
+    m64 = gft.models.GPR(X, Y, kern=_config2_kern(), device=dev, dtype=torch.float64)
+    loss64 = m64.objective()
+    loss64.backward()
+    m32.objective().backward()
+    v64 = loss64.item()
+    assert abs(value - v64) <= 1e-5 * abs(v64)  # bench.py's gate
+    g64 = dict(gft.params.parameters(m64))
+    for n, p in gft.params.parameters(m32):
+        want = float(g64[n].unconstrained.grad)
+        assert abs(float(p.unconstrained.grad) - want) <= 1e-3 * abs(want), n
+
+
+@pytest.mark.parametrize("model", ["SGPR", "GPRFITC"])
+def test_sparse_kernel_route_matches_f64_plain(dev, model, monkeypatch):
+    # config #2 at N = 3000, M = 100: the value and every gradient of the
+    # kernel route within 2x the stock f32 route's error against f64, plus
+    # bench.py's 1e-5 (value, relative) and the GPR gradient gate 1e-3
+    # (gradients, max-norm relative): chip_smoke.py's sparse gates. The
+    # objective and its gradient launch the Gram, factor and both TRSM
+    # schedules and call no torch.linalg
+    X, Y = _config2_data(3000)
+    Z = np.linspace(0, 1, 100, dtype=np.float32)[:, None]
+
+    def run(dtype, use_kernels, forbid=False):
+        m = getattr(gft.models, model)(X, Y, kern=_config2_kern(), Z=Z, device=dev, dtype=dtype)
+        with gft.config.temp_settings(use_kernels=use_kernels, jitter=1e-4), monkeypatch.context() as mp:
+            if forbid:
+                _no_library_linalg(mp)
+            loss = m.objective()
+            loss.backward()
+        return loss.item(), {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(m)}
+
+    kernels = (gram.gram_cuda, cholesky.cholesky_cuda)
+    before = [k.launches for k in kernels] + [dict(trsm.trsm_cuda.by_schedule)]
+    k32 = run(torch.float32, True, forbid=True)
+    assert all(k.launches > b for k, b in zip(kernels, before)), before
+    assert all(trsm.trsm_cuda.by_schedule[s] > before[2][s] for s in ("thin", "wide"))
+    p32 = run(torch.float32, False)
+    v64, g64 = run(torch.float64, False)
+    err = [abs(v - v64) / abs(v64) for v, _ in (k32, p32)]
+    assert err[0] <= 2 * err[1] + 1e-5, err
+    for n, want in g64.items():
+        scale = float(want.abs().max())
+        e = [float((g[n] - want).abs().max()) / scale for _, g in (k32, p32)]
+        assert e[0] <= 2 * e[1] + 1e-3, (n, e)
+
+
+def test_sgpr_posterior_kernel_route_matches_f64_plain(dev):
+    X, Y = _config2_data(3000)
+    Z = np.linspace(0, 1, 100, dtype=np.float32)[:, None]
+    Xq = np.random.RandomState(4).uniform(0, 1, (333, 1)).astype(np.float32)
+    out = {}
+    for key, dtype, flag in (("kernels", torch.float32, True), ("plain", torch.float32, False),
+                             ("f64", torch.float64, False)):
+        m = gft.models.SGPR(X, Y, kern=_config2_kern(), Z=Z, device=dev, dtype=dtype)
+        with gft.config.temp_settings(use_kernels=flag, jitter=1e-4), torch.no_grad():
+            post = m.posterior()
+            assert post.L.device.type == "cuda"
+            out[key] = post.predict_f(Xq) + post.predict_f(Xq[:50], full_cov=True)
+    for k, p, w in zip(out["kernels"], out["plain"], out["f64"]):
+        e = [float((t.double() - w).abs().max()) for t in (k, p)]
+        assert e[0] <= 2 * e[1] + 1e-6, e
+
+
+def test_robust_cholesky_on_the_factor_kernel(dev):
+    rng = np.random.RandomState(0)
+    A = rng.randn(100, 5)
+    K = torch.tensor(A @ A.T, dtype=torch.float32, device=dev)  # rank 5
+    before = cholesky.cholesky_cuda.launches
+    L, jit = ops_linalg.robust_cholesky(K)
+    assert cholesky.cholesky_cuda.launches > before
+    assert bool(torch.isfinite(L).all())
+    scale = float(torch.mean(torch.diagonal(K)))
+    assert float((L @ L.T - K).abs().max()) <= 10 * float(jit) + 1e-3 * scale

@@ -329,6 +329,22 @@ def test_cholesky_backward_matches_jax(N):
                                rtol=1e-8, atol=1e-12)
 
 
+def test_cholesky_backward_runs_in_f64_for_f32():
+    # an f32 factor gets an f64 VJP (its solves on the f32 TRSM, refined on
+    # f64 residuals), returned in f32: JAX's f64 VJP of the same f32 factor,
+    # then one rounding, on a Kuu-like matrix of condition ~1e6
+    Z = np.linspace(0, 1, 90)[:, None]
+    K = np.exp(-0.5 * (Z - Z.T) ** 2 / 0.2 ** 2) + 1e-4 * np.eye(90)
+    G = np.random.RandomState(5).randn(90, 90)
+    k = torch.tensor(K, dtype=torch.float32, requires_grad=True)
+    L = cholesky.cholesky(k)
+    torch.sum(L * torch.tensor(G, dtype=torch.float32)).backward()
+    assert k.grad.dtype == torch.float32
+    L64 = jnp.asarray(L.detach().double().numpy())
+    (Kbar,) = pallas_cholesky._chol_vjp_bwd(L64, jnp.asarray(G.astype(np.float32).astype(np.float64)))
+    np.testing.assert_allclose(k.grad.numpy(), np.asarray(Kbar), rtol=1e-6, atol=1e-6 * np.abs(Kbar).max())
+
+
 @pytest.mark.parametrize("lower", [True, False])
 def test_trsm_backward_matches_jax(lower, monkeypatch):
     N, P = 70, 5

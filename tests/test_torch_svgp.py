@@ -248,6 +248,20 @@ def test_fit_svgp_natgrad_trajectory_matches_jax(whiten):
     _assert_params_close(tm, jm2, 1e-8, "value")
 
 
+def test_fit_svgp_natgrad_with_an_optimizer_matches_jax():
+    # the hyperparameters' optimizer given: optax.sgd in the JAX package,
+    # torch.optim.SGD in the port (the same update, p -= lr g)
+    import optax
+
+    jm, tm, _, _ = _svgp_pair("bernoulli", False, False, N=30, M=6)
+    jm2, jlosses = jax_natgrad.fit_svgp_natgrad(jm, 4, jax.random.PRNGKey(0), gamma=0.1,
+                                                optimizer=optax.sgd(0.05))
+    _, losses = gft.training.fit_svgp_natgrad(tm, 4, torch.Generator().manual_seed(0), gamma=0.1,
+                                              optimizer=lambda ps: torch.optim.SGD(ps, lr=0.05))
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses), rtol=1e-8)
+    _assert_params_close(tm, jm2, 1e-8, "value")
+
+
 def test_interop_of_a_jax_svgp():
     jm, tm, _, _ = _svgp_pair("gaussian", False, False, M=7)
     names = [n for n, _ in gft.params.parameters(tm)]
