@@ -10,8 +10,10 @@ lengthscale 0.1, float32), the SVGP natural-gradient training path at
 benchmarks/bench_svgp_nuts.py's size (N=100000, M=256 inducing points,
 minibatches of 1024, Bernoulli, RBF with lengthscale 0.2, float32),
 unwhitened (the path of the batched TRSM) and whitened, sparse regression
-at BASELINE config #2, and NUTS over the GPR hyperparameters at BASELINE
-config #4 (N=1000, 8 chains) with GPMC and SGPMC.
+at BASELINE config #2, NUTS over the GPR hyperparameters at BASELINE
+config #4 (N=1000, 8 chains) with GPMC and SGPMC, and the full-data
+variational path (VGP and VGPOpperArchambeau at N=2048, fit_lbfgs on
+entry()'s GPR).
 
 1. environment: torch, CUDA, nvcc and the card's name and power limit;
 2. build: the hand-written kernels with nvcc for sm_90a from csrc/ (one
@@ -103,6 +105,32 @@ config #4 (N=1000, 8 chains) with GPMC and SGPMC.
    transitions of 8 chains, finite, and a profiler check of the batched
    evaluation and of predict_f (kernels 3, 4, 6, 7 and 8 of PERF.md's
    table, no library factorization or solve);
+4g. the full-data variational path (float32, TF32 off): the lower-tile
+   Gram of a 64 x 32 grid over [0, 1]^2 (N=2048, D=2), the factor-only
+   Cholesky of K + 1e-4 I (Np=2048; cond(K + 1e-4 I) and whether the stock
+   f32 factor is finite printed) and the wide TRSM on it at P=2048, lower
+   and upper through the transposed view, against their plain versions in
+   float64 (the factor and TRSM within twice cuSOLVER's / cuBLAS's f32
+   error + 1e-4 / 1e-3), and at phase 3's gates the cross Gram of the
+   grid's and of OA's points against themselves (2048 x 2048) and against
+   the new points (2048 x 1024), and the operand and fused Cholesky of
+   entry()'s GPR (N=2048); a log-Gaussian Cox process (VGP, Poisson, f drawn
+   from RBF(2, 0.1) on the grid) and a 3-class MultiClass
+   VGPOpperArchambeau (2048 uniform points, labels the argmax of 3 GP
+   draws): one ELBO and gradient (the VGP's must launch the lower-tile
+   Gram, the factor once and the wide TRSM; Opper-Archambeau's the cross
+   Gram and the factor once per latent), 5 Adam steps, then the ELBO and
+   every gradient, predict_f and predict_y at 1024 new points and the
+   VGP's predict_density, against the f64 plain path, within twice the
+   use_kernels=False f32 route's error + 1e-5 / 1e-3 / 1e-6; 5 steps of
+   fit_lbfgs on entry()'s GPR (N=2048): finite, non-increasing losses, the
+   final objective within 1e-5 of the f64 plain path; OA's half-logdet of
+   each A_p (the factor-only kernel; its KL reads it) at the trained
+   lambda and at 10x it, within twice cuSOLVER's f32 error + 1e-5; a
+   launch check by
+   torch.profiler (the VGP ELBO and gradient: no library factorization or
+   triangular solve; Opper-Archambeau's: no library factorization, its two
+   solves being torch.linalg's as the JAX package's are jax.scipy's);
 5. times (CUDA events, median; one call between two events) of each kernel
    against its plain version and the one PyTorch call computing the same
    function where there is one, and of the kernel and the library call by
@@ -119,7 +147,12 @@ config #4 (N=1000, 8 chains) with GPMC and SGPMC.
    objective, objective+gradient, GPRFITC objective, posterior() and
    request on both routes; config #4's operand (N=1000 padded to 1024) and
    fused Cholesky (Np=1024), and one batched log posterior + gradient of its
-   8 chains on both routes.
+   8 chains on both routes; the lower-tile Gram at N=2048 (D=2), the factor
+   at Np=2048, the wide TRSM at N=P=2048, the cross Gram at 2048 x 2048
+   and 2048 x 1024 (D=2), entry()'s operand and fused Cholesky (N=2048) of
+   phase 4g, and its VGP and
+   Opper-Archambeau ELBO + gradient on both routes with the device's idle
+   share and the peak memory.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero and prints no result. The
@@ -127,6 +160,7 @@ last line is {"ok": true, "device": {...}}.
 """
 
 import collections
+import functools
 import json
 import math
 import os
@@ -222,6 +256,19 @@ GPMC_NS = (1000, 750, 500, 250)
 MCMC_JITTER = 1e-4  # the f32 jitter; the f64 references use it too
 HMC_STEPS = 5       # HMC transitions of GPMC and SGPMC
 HMC_EPS = {"GPMC": 1e-2, "SGPMC": 1e-4}  # SGPMC's N=10000 data terms steepen its latents' target
+# phase 4g, the full-data variational slice: a log-Gaussian Cox process
+# (VGP, Poisson) on a 64 x 32 grid over [0, 1]^2 and a 3-class MultiClass
+# VGPOpperArchambeau on 2048 uniform points, both RBF(2, lengthscale 0.1),
+# float32; N = 2048 is where the JAX package starts sending VGP's factor to
+# its Pallas kernel (gpflow_slim_tpu/ops/linalg.py's _PALLAS_CHOL_MIN_N)
+VGP_GRID = (64, 32)
+VGP_N = VGP_GRID[0] * VGP_GRID[1]
+VGP_LS = 0.1
+VGP_NQ = 1024       # new points of the prediction requests
+VGP_STEPS = 5       # Adam steps of training.fit, and L-BFGS steps of fit_lbfgs
+VGP_LR = 1e-3       # Adam's learning rate: its first steps move each of q_sqrt's 2.1M entries by about this
+VGP_JITTER = 1e-4   # config.default_jitter(float32); the f64 references use it too, to compute the same function
+OA_N, OA_CLASSES = 2048, 3
 # the card's peaks for the bound of each kernel (vendor figures, H100 SXM)
 F32_FLOPS = 67e12   # float32 without tensor cores
 HBM_BYTES = 3.35e12  # bytes per second
@@ -352,9 +399,15 @@ def oracle_predict(torch, X, Y, Xq, ls, var, noise, full_cov=False):
     return mean, var - (A**2).sum(0)[:, None]
 
 
-def gate(what, e_k, e_p, absolute):
+def gate(what, e_k, e_p, absolute, stock_factors=True):
     """The kernel route's error e_k within twice the use_kernels=False
-    float32 route's e_p plus ``absolute``; prints both."""
+    float32 route's e_p plus ``absolute``; prints both. ``stock_factors``
+    False: the caller found that the stock route's float32 factor is not
+    finite, and e_k is gated at ``absolute`` alone."""
+    if not stock_factors:
+        print(f"{what}: kernel route {e_k:.3e}, use_kernels=False f32 route {e_p} (it does not factor: gate "
+              f"{absolute:g} against the f64 path alone)")
+        e_p = 0.0
     limit = 2 * e_p + absolute
     print(f"{what}: kernel route {e_k:.3e}, use_kernels=False f32 route {e_p:.3e} "
           f"(gate 2 x that + {absolute:g} = {limit:.3e})")
@@ -1161,27 +1214,28 @@ def oracle_composite_objective(torch, X, Y, m32):
     return -float(-0.5 * len(x) * math.log(2 * math.pi) - torch.log(torch.diagonal(L)).sum() - 0.5 * (al ** 2).sum())
 
 
-def value_and_grads(gft, model, use_kernels, fn=lambda m: m.objective()):
+def value_and_grads(gft, model, use_kernels, fn=lambda m: m.objective(), jitter=SPARSE_JITTER):
     """``fn(model)`` and every unconstrained gradient (f64 copies), on the
     route ``use_kernels`` picks, with the f32 jitter on every route."""
-    with gft.config.temp_settings(use_kernels=use_kernels, jitter=SPARSE_JITTER):
+    with gft.config.temp_settings(use_kernels=use_kernels, jitter=jitter):
         model.zero_grad(set_to_none=True)
         loss = fn(model)
         loss.backward()
     return loss.item(), {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(model)}
 
 
-def gate_against_f64(what, k32, p32, ref64):
+def gate_against_f64(what, k32, p32, ref64, stock_factors=True):
     """Gate the kernel route's value and every gradient against the f64
-    plain path, relative to the use_kernels=False f32 route's error."""
+    plain path, relative to the use_kernels=False f32 route's error (see
+    ``gate`` for ``stock_factors``)."""
     (vk, gk), (vp, gp), (v64, g64) = k32, p32, ref64
     print(f"{what}: kernel route {vk:.6f}, use_kernels=False {vp:.6f}, f64 plain path {v64:.6f}")
     gate(f"{what} rel err vs the f64 plain path", abs(vk - v64) / abs(v64), abs(vp - v64) / abs(v64),
-         SPARSE_VALUE_ABS)
+         SPARSE_VALUE_ABS, stock_factors)
     for n, want in g64.items():
         scale = float(want.abs().max())
         gate(f"  grad {n} {tuple(want.shape)} rel err (max-norm)", float((gk[n] - want).abs().max()) / scale,
-             float((gp[n] - want).abs().max()) / scale, SPARSE_GRAD_ABS)
+             float((gp[n] - want).abs().max()) / scale, SPARSE_GRAD_ABS, stock_factors)
 
 
 def sparse_predictions(gft, torch, model, flag):
@@ -1197,15 +1251,18 @@ def sparse_predictions(gft, torch, model, flag):
         return {"predict_f": post.predict_f(Xq), "full_cov": post.predict_f(Xf, full_cov=True)}
 
 
-def gate_predictions(what, got, plain, ref):
+def gate_predictions(what, got, plain, ref, stock_factors=True):
     """Each answer finite, and within twice the use_kernels=False f32
-    route's error against the f64 plain path + SERVE_ABS."""
+    route's error against the f64 plain path + SERVE_ABS (see ``gate`` for
+    ``stock_factors``)."""
     for key, outs in got.items():
-        for name, k_t, p_t, r_t in zip(("mean", "var"), outs, plain[key], ref[key]):
+        names = ("mean", "var") if len(outs) == 2 else ("value",)
+        for name, k_t, p_t, r_t in zip(names, outs, plain[key], ref[key]):
             if not bool(k_t.isfinite().all()):
                 raise AssertionError(f"{what} {key} {name} is not finite")
             gate(f"{what} {key} {name} {tuple(k_t.shape)} max abs err vs the f64 plain path",
-                 float((k_t.double() - r_t).abs().max()), float((p_t.double() - r_t).abs().max()), SERVE_ABS)
+                 float((k_t.double() - r_t).abs().max()), float((p_t.double() - r_t).abs().max()), SERVE_ABS,
+                 stock_factors)
 
 
 def sparse_checks(gft, torch, gram, cholesky, trsm, dev):
@@ -1344,6 +1401,41 @@ def device_kernels(torch, fn):
                                     and "Memcpy" not in e.name and "Memset" not in e.name
                                     and "Command Buffer Full" not in e.name)
     return most
+
+
+def busy_ms(events):
+    """Length of the union of the events' intervals, in ms."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+def device_busy_ms(torch, fn):
+    """The device's busy time of one call of fn (after one call outside the
+    profile): the union of the intervals of the device activity that
+    torch.profiler records over PROFILES calls, over PROFILES."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILES):
+            fn()
+        torch.cuda.synchronize()
+    # "Command Buffer Full" marks host launches that waited on a full queue
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name]
+    if not dev:
+        raise RuntimeError("the profiler recorded no device activity")
+    return busy_ms(dev) / PROFILES
 
 
 def ours(name):
@@ -1927,6 +2019,413 @@ def nuts_times(torch, gram, cholesky, dev):
     return rows
 
 
+@functools.lru_cache(maxsize=None)
+def vgp_data():
+    """Phase 4g's log-Gaussian Cox process: a 64 x 32 grid over [0, 1]^2
+    (N = 2048 cells), f drawn from RBF(2, lengthscales=0.1, variance=1) in
+    float64 with RandomState(0), Y ~ Poisson(exp(f)); and VGP_NQ new points
+    uniform on [0, 1]^2. float32 arrays (the float64 models take the same
+    values)."""
+    rng = np.random.RandomState(0)
+    gx, gy = np.meshgrid(np.linspace(0, 1, VGP_GRID[0]), np.linspace(0, 1, VGP_GRID[1]), indexing="ij")
+    X = np.stack([gx.ravel(), gy.ravel()], 1)
+    f = rbf_draws(X, VGP_LS, 1, rng)
+    Y = rng.poisson(np.exp(f)).astype(np.float64)
+    Xq = rng.uniform(0, 1, (VGP_NQ, 2))
+    return X.astype(np.float32), Y.astype(np.float32), Xq.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def oa_data():
+    """Phase 4g's classification data: N = 2048 points uniform on [0, 1]^2
+    (RandomState(1)), labelled by the argmax of OA_CLASSES float64 draws
+    from RBF(2, 0.1); and VGP_NQ new points."""
+    rng = np.random.RandomState(1)
+    X = rng.uniform(0, 1, (OA_N, 2))
+    Y = np.argmax(rbf_draws(X, VGP_LS, OA_CLASSES, rng), 1)[:, None].astype(np.float64)
+    Xq = rng.uniform(0, 1, (VGP_NQ, 2))
+    return X.astype(np.float32), Y.astype(np.float32), Xq.astype(np.float32)
+
+
+def rbf_draws(X, ls, k, rng):
+    """k draws of f ~ GP(0, RBF(ls, variance 1)) at X, in float64 on the host
+    (jitter 1e-6 for the draw alone)."""
+    d2 = np.sum(np.square(X[:, None, :] - X[None, :, :]), -1)
+    K = np.exp(-0.5 * d2 / ls ** 2) + 1e-6 * np.eye(len(X))
+    return np.linalg.cholesky(K) @ rng.randn(len(X), k)
+
+
+def vgp_model(gft, torch, which, dtype, dev, like=None):
+    """Phase 4g's ``"VGP"`` (Poisson, the grid) or ``"OA"`` (a 3-class
+    MultiClass VGPOpperArchambeau) on ``dev``; ``like``: a model whose
+    unconstrained values it takes."""
+    kern = gft.kernels.RBF(2, lengthscales=VGP_LS)
+    if which == "VGP":
+        X, Y, _ = vgp_data()
+        model = gft.models.VGP(X, Y, kern=kern, likelihood=gft.likelihoods.Poisson(), device=dev, dtype=dtype)
+    else:
+        X, Y, _ = oa_data()
+        model = gft.models.VGPOpperArchambeau(X, Y, kern=kern, likelihood=gft.likelihoods.MultiClass(OA_CLASSES),
+                                              num_latent=OA_CLASSES, device=dev, dtype=dtype)
+    if like is not None:
+        gft.interop.load_unconstrained(model, {
+            n: p.unconstrained.detach().cpu().numpy() for n, p in gft.params.parameters(like)})
+    return model
+
+
+def check_vgp_kernels(gft, torch, gram, cholesky, trsm, dev):
+    """Phase 4g's kernels at the slice's shapes, against their plain
+    versions in float64: the lower-tile Gram of the grid (N=2048, D=2); the
+    cross Gram of the grid and of OA's points against themselves (2048 x
+    2048) and against the new points (2048 x VGP_NQ); the factor-only
+    Cholesky of K + 1e-4 I (Np=2048); the wide TRSM on that factor at
+    P=2048 (the Cholesky VJP's solves), lower and upper through the
+    transposed view; and the operand and the fused Cholesky on entry()'s
+    GPR (N=2048, its initial hyperparameters) at phase 3's tolerances. The
+    factor and the TRSM are gated at twice cuSOLVER's / cuBLAS's f32 error
+    plus their fixed gates (K's f32 conditioning sets both). Prints cond(K
+    + 1e-4 I) in float64, whether the stock f32 factor is finite, and the
+    factor's half-logdet beside cuSOLVER's and the f64 one. Returns the max
+    abs errors, the factor and whether the stock factor is finite."""
+    X, _, _ = vgp_data()
+    xs = (torch.tensor(X, device=dev) / VGP_LS).contiguous()
+    one = torch.tensor(1.0, device=dev)
+    K = gram.gram_lower_cuda("rbf", xs, one)
+    e_gram = float((K.double() - gram.gram_lower_plain("rbf", xs.double(), 1.0)).abs().max())
+    print(f"gram (lower tiles) of the VGP grid (N={VGP_N}, D=2): max abs err {e_gram:.3e} (tol {OPERAND_TOL:g} x "
+          f"variance 1)")
+    if not e_gram <= OPERAND_TOL:
+        raise AssertionError("the lower-tile Gram disagrees at the VGP's shape")
+    e_cross = 0.0
+    for what, (Xa, _, Xq) in (("VGP grid", vgp_data()), ("OA points", oa_data())):
+        xa = (torch.tensor(Xa, device=dev) / VGP_LS).contiguous()
+        for x2 in (xa, (torch.tensor(Xq, device=dev) / VGP_LS).contiguous()):
+            err = float((gram.gram_cuda("rbf", xa, x2, one).double()
+                         - gram.gram_reference("rbf", xa.double(), x2.double(), 1.0)).abs().max())
+            print(f"gram (cross) of the {what} ({len(xa)} x {len(x2)}, D=2): max abs err {err:.3e} "
+                  f"(tol {OPERAND_TOL:g} x variance 1)")
+            if not err <= OPERAND_TOL:
+                raise AssertionError(f"the cross Gram disagrees at the {what}' {len(xa)} x {len(x2)}")
+            e_cross = max(e_cross, err)
+    K.diagonal().add_(VGP_JITTER)
+    K64 = torch.tril(K).double()  # the kernels' input, in float64: the plain version's
+    ev = torch.linalg.eigvalsh(K64, UPLO="L")
+    L_ref = cholesky.cholesky_plain(K64)
+    del K64
+    L_lib = cholesky.cholesky_plain(torch.tril(K))  # cuSOLVER in f32
+    stock_finite = bool(torch.isfinite(L_lib).all())
+    print(f"K + {VGP_JITTER:g} I of the VGP grid: cond {float(ev[-1] / ev[0]):.4e} in float64 (eigenvalues "
+          f"{float(ev[0]):.4e} .. {float(ev[-1]):.4e}); the stock f32 factor (cuSOLVER) is finite: {stock_finite}")
+    L = torch.tril(cholesky.cholesky_cuda(K.clone()))
+    e_fac = float((L.double() - L_ref).abs().max())
+    scale = float(L_ref.abs().max())
+    gate(f"cholesky (factor only) at Np={VGP_N}: factor rel err vs f64", e_fac / scale,
+         float((L_lib.double() - L_ref).abs().max()) / scale, FACTOR_TOL, stock_finite)
+    # the VGP takes this factor's entries and not its logdet (its KL is
+    # whitened), so its half-logdet is printed here, not gated: ~10x
+    # cuSOLVER's error at this conditioning (ROADMAP queue 3, fault l).
+    # OA takes the logdet of each A_p's factor: oa_logdet_check gates it.
+    hs_ref = float(torch.log(torch.diagonal(L_ref)).sum())
+    print(f"cholesky (factor only) at Np={VGP_N}: half_logdet {float(torch.log(torch.diagonal(L).double()).sum()):.6f}, "
+          f"cuSOLVER f32 {float(torch.log(torch.diagonal(L_lib).double()).sum()):.6f}, f64 {hs_ref:.6f}")
+    Ld = L.double()
+    B = torch.tensor(np.random.RandomState(12).randn(VGP_N, VGP_N), dtype=torch.float32, device=dev)
+    e_trsm = 0.0
+    for name, T, Td, lo in (("lower", L, Ld, True), ("upper, L.T view", L.T, Ld.T, False)):
+        want = torch.linalg.solve_triangular(Td, B.double(), upper=not lo)
+        err = float((trsm.trsm_cuda(T, B, lo).double() - want).abs().max())
+        lib = float((torch.linalg.solve_triangular(T, B, upper=not lo).double() - want).abs().max())
+        gate(f"trsm {name} N={VGP_N} P={VGP_N} ({trsm.trsm_schedule(VGP_N)}) on the VGP factor: rel err (max-norm)",
+             err / float(want.abs().max()), lib / float(want.abs().max()), TRSM_TOL, stock_finite)
+        e_trsm = max(e_trsm, err)
+    del L_ref, L_lib, Ld, B
+    # entry()'s GPR: the operand and the fused Cholesky at its N=2048
+    xs, var, noise, Dp, Np = entry_operands(gft, torch, cholesky, dev)
+    Kp = gram.gram_chol_operand_cuda("rbf", xs, var, noise, Np)
+    lower = torch.ones(Np, Np, dtype=torch.bool, device=dev).tril_()
+    e_opnd = float((Kp.double() - gram.gram_chol_operand_plain("rbf", xs.double(), float(var), float(noise), Np))
+                   [lower].abs().max())
+    _, a_ref, h_ref = cholesky.cholesky_solve_plain(torch.tril(Kp).double(), Dp.double())
+    _, a_got, h_got = cholesky.cholesky_solve_cuda(Kp.clone(), Dp)
+    torch.cuda.synchronize()
+    h_rel = abs(float(h_got) - float(h_ref)) / abs(float(h_ref))
+    e_chol = float((a_got.double() - a_ref).abs().max())
+    a_rel = e_chol / float(a_ref.abs().max())
+    print(f"entry()'s GPR operand (N={len(xs)}, Np={Np}, noise {float(noise):g}): max abs err {e_opnd:.3e} (tol "
+          f"{OPERAND_TOL:g} x variance); chol_solve on it: half_logdet rel err {h_rel:.3e} (tol {HLD_TOL:g}), "
+          f"alpha rel err {a_rel:.3e} (tol {ALPHA_TOL:g})")
+    if not (e_opnd <= OPERAND_TOL and h_rel <= HLD_TOL and a_rel <= ALPHA_TOL):
+        raise AssertionError("the operand or the fused Cholesky disagrees at entry()'s shapes")
+    errs = {"gram_lower": e_gram, "gram": e_cross, "cholesky": e_fac, "trsm": e_trsm, "operand": e_opnd,
+            "chol_solve": e_chol}
+    return errs, L, stock_finite
+
+
+def entry_operands(gft, torch, cholesky, dev):
+    """entry()'s GPR at its initial hyperparameters, as its kernels take it:
+    the scaled inputs, the variance and noise on the card, the padded
+    targets and the padded size."""
+    model = gft.entry.flagship_model(device=dev)
+    n = model.X.shape[0]
+    Np = n + (-n) % cholesky.BLOCK
+    with torch.no_grad():
+        xs = (model.X / model.kern.lengthscales.value).contiguous()
+        Dp = torch.zeros(Np, 1, device=dev)
+        Dp[:n] = model.Y
+        return xs, model.kern.variance.value, model.likelihood.variance.value, Dp, Np
+
+
+def oa_logdet_check(gft, torch, cholesky, model):
+    """OA's half-logdets: A_p = I + lambda_p lambda_p^T o K(X) of the float32
+    model at its trained q_lambda, and at ten times it (lambda grows as
+    training goes on, and A's condition number with its square), factored
+    by the kernel and by cuSOLVER in float32, against float64. The kernel's
+    error is gated at twice cuSOLVER's + FACTOR_HLD_TOL: OA's KL takes log
+    det A_p from this factor's diagonal. Returns the largest max abs error
+    of the factors."""
+    with torch.no_grad(), gft.config.temp_settings(use_kernels=True):
+        K, lam, _ = model._A_chol()
+    eye = torch.eye(model.num_data, dtype=K.dtype, device=K.device)
+    err = 0.0
+    for grown in (1.0, 10.0):
+        for p in range(lam.shape[0]):
+            lp = grown * lam[p]
+            A = eye + lp[None, :] * lp[:, None] * K
+            L = torch.tril(cholesky.cholesky_cuda(A.clone()))
+            L_ref = cholesky.cholesky_plain(torch.tril(A).double())
+            L_lib = cholesky.cholesky_plain(torch.tril(A))
+            h = [float(torch.log(torch.diagonal(f).double()).sum()) for f in (L, L_lib, L_ref)]
+            gate(f"OA A_{p} at {grown:g} x the trained lambda (in [{float(lp.min()):.4f}, {float(lp.max()):.4f}]): "
+                 f"factor-only Cholesky half_logdet {h[0]:.6f}, cuSOLVER f32 {h[1]:.6f}, f64 {h[2]:.6f}; rel err",
+                 abs(h[0] - h[2]) / abs(h[2]), abs(h[1] - h[2]) / abs(h[2]), FACTOR_HLD_TOL)
+            err = max(err, float((L.double() - L_ref).abs().max()))
+    return err
+
+
+def vgp_predictions(gft, torch, model, flag):
+    """Phase 4g's requests: predict_f at VGP_NQ new points, predict_y there,
+    and for the VGP predict_density of the model's own data (a float64
+    model's answers on the plain path)."""
+    Xq = (vgp_data() if isinstance(model, gft.models.VGP) else oa_data())[2]
+    with gft.config.temp_settings(use_kernels=flag, jitter=VGP_JITTER), torch.no_grad():
+        out = {"predict_f": model.predict_f(Xq), "predict_y": model.predict_y(Xq)}
+        if isinstance(model, gft.models.VGP):
+            out["predict_density"] = (model.predict_density(model.X, model.Y),)
+    return out
+
+
+def vgp_checks(gft, torch, gram, cholesky, trsm, stock_finite, dev):
+    """Phase 4g: the full-data variational slice at full width (float32, the
+    kernel route). VGP (Poisson, the 64 x 32 grid): one ELBO and gradient
+    (its launches), VGP_STEPS Adam steps, then, at the point they reach, the
+    ELBO and every gradient (q_mu, q_sqrt, variance, lengthscales) and
+    predict_f, predict_y and predict_density against the f64 plain path;
+    VGPOpperArchambeau (3-class MultiClass): the same with q_alpha and
+    q_lambda, and predict_f and predict_y. Each is gated within twice the
+    use_kernels=False f32 route's error + 1e-5 (values) / 1e-3 (gradients) /
+    1e-6 (predictions, absolute), the VGP's at the fixed gates alone where
+    ``stock_finite`` is False (the stock f32 factor of the grid's K is not
+    finite). Then fit_lbfgs: VGP_STEPS L-BFGS steps on
+    entry()'s GPR (N=2048), finite, non-increasing losses, the final
+    objective within 1e-5 of the f64 plain path. Returns each path's
+    launches (counts set to 0 just before it, read just after) and the
+    trained float32 models."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: phase 4g checks the models' products in full float32")
+    launches, models = {}, {}
+    for which in ("VGP", "OA"):
+        m32 = vgp_model(gft, torch, which, torch.float32, dev)
+        reset_counts(gram, cholesky, trsm)
+        k32 = value_and_grads(gft, m32, True, jitter=VGP_JITTER)
+        one = read_counts(gram, cholesky, trsm)
+        _, losses = gft.training.fit(m32, num_steps=VGP_STEPS, learning_rate=VGP_LR)
+        preds = vgp_predictions(gft, torch, m32, True)
+        torch.cuda.synchronize()
+        launches[which] = read_counts(gram, cholesky, trsm)
+        print(f"{which} objective at its initial point (kernel route) {k32[0]:.6f}; its ELBO + gradient launches "
+              f"{one}")
+        losses = losses.cpu().numpy()
+        print(f"{which} fit: {VGP_STEPS} Adam steps, losses {np.array2string(losses, precision=4)}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{which}: {VGP_STEPS} Adam steps did not lower the loss")
+        # the gates at the trained point, where every gradient is away from
+        # zero (at the VGP's initial q the lengthscale's gradient is 0)
+        m64 = vgp_model(gft, torch, which, torch.float64, dev, like=m32)
+        stock = stock_finite or which == "OA"
+        gate_against_f64(f"{which} objective after {VGP_STEPS} Adam steps",
+                         *(value_and_grads(gft, m, flag, jitter=VGP_JITTER)
+                           for m, flag in ((m32, True), (m32, False), (m64, False))), stock_factors=stock)
+        gate_predictions(which, preds, vgp_predictions(gft, torch, m32, False),
+                         vgp_predictions(gft, torch, m64, False), stock_factors=stock)
+        print(f"{which} path (ELBO + gradient, {VGP_STEPS} Adam steps, predict_f and predict_y at {VGP_NQ}"
+              + (", predict_density" if which == "VGP" else "") + f"): launches {launches[which]}")
+        if which == "VGP":
+            ok = one["gram_lower"] == 1 and one["cholesky"] == 1 and one["trsm_wide"] > 0 and not one["gram"]
+        else:
+            ok = one["gram"] == 1 and one["cholesky"] == OA_CLASSES and one["trsm_wide"] > 0
+        if not ok or one["chol_solve"] or one["batched_trsm"]:
+            raise AssertionError(f"{which}: the ELBO and gradient did not run the expected kernels: {one}")
+        models[which] = m32
+        del m64
+
+    # fit_lbfgs on entry()'s GPR
+    fn, (gpr,) = gft.entry.entry(device=dev)
+    reset_counts(gram, cholesky, trsm)
+    loss0, grads0 = fn(gpr)
+    _, losses = gft.training.fit_lbfgs(gpr, num_steps=VGP_STEPS)
+    torch.cuda.synchronize()
+    launches["lbfgs"] = read_counts(gram, cholesky, trsm)
+    with torch.no_grad():
+        final = gpr.objective().item()
+    g64 = gft.entry.flagship_model(device=dev, dtype=np.float64)
+    gft.interop.load_unconstrained(g64, {n: p.unconstrained.detach().cpu().numpy()
+                                         for n, p in gft.params.parameters(gpr)})
+    with torch.no_grad():
+        want = g64.objective().item()
+    losses = losses.cpu().numpy()
+    rel = abs(final - want) / abs(want)
+    print(f"entry(): loss {loss0.item():.6f}, gradient {({n: round(g.item(), 4) for n, g in grads0.items()})}; "
+          f"fit_lbfgs {VGP_STEPS} steps, losses {np.array2string(losses, precision=6)}; final objective {final:.6f}, "
+          f"f64 plain path {want:.6f}, rel err {rel:.3e} (gate {OBJECTIVE_TOL:g}); launches {launches['lbfgs']}")
+    if not (np.isfinite(losses).all() and (np.diff(losses) <= 0).all() and losses[-1] < losses[0]):
+        raise AssertionError("fit_lbfgs: the losses are not finite and non-increasing")
+    if not rel <= OBJECTIVE_TOL:
+        raise AssertionError(f"fit_lbfgs: the final objective is {rel:.3e} off the f64 plain path")
+    if not (launches["lbfgs"]["operand"] > 0 and launches["lbfgs"]["chol_solve"] > 0):
+        raise AssertionError(f"entry() and fit_lbfgs did not run the operand and the fused Cholesky: "
+                             f"{launches['lbfgs']}")
+    return launches, models
+
+
+def vgp_launch_check(gft, torch, models):
+    """Phase 4g's launch check by torch.profiler: the VGP ELBO and gradient
+    launch the lower-tile Gram, the factor-only Cholesky and the wide TRSM
+    and no library factorization or triangular solve; the Opper-Archambeau
+    ELBO and gradient launch the cross Gram and the factor once per latent
+    and no library factorization (its two solves are torch.linalg's, as the
+    JAX package makes them with jax.scipy). Prints each one's host syncs
+    (count_syncs). Returns the counts per kernel."""
+    counts = {}
+    for which, need in (("VGP", ("gram_lower_kernel", "chol_diag_kernel", "trsm_group_kernel")),
+                        ("OA", ("gram_cross_kernel", "chol_diag_kernel", "trsm_group_kernel"))):
+        m = models[which]
+
+        def step():
+            m.zero_grad(set_to_none=True)
+            with gft.config.temp_settings(jitter=VGP_JITTER):
+                m.objective().backward()
+
+        names = device_kernels(torch, step)
+        mine = collections.Counter()
+        for n, c in names.items():
+            if ours(n):
+                mine[ours(n)] += c
+        libs = library_solves(names)
+        factorizations = {n: c for n, c in libs.items() if not any(w in n.lower() for w in ("trsm", "trsv"))}
+        counts[which] = dict(mine)
+        _, syncs = count_syncs(torch, m.X.device, step)
+        print(f"launch check, {which} ELBO + gradient (torch.profiler, kernel route): {dict(mine)}; library "
+              f"factorizations and triangular solves: {libs or 'none'}; host syncs {dict(syncs) or 'none'}")
+        missing = [k for k in need if not mine.get(k)]
+        factors = mine.get("pivot_init_kernel")  # one launch a factorization
+        if factors != (1 if which == "VGP" else OA_CLASSES):
+            missing.append(f"one factor per latent (pivot_init_kernel {factors})")
+        if missing or (libs if which == "VGP" else factorizations):
+            raise AssertionError(f"{which}: kernels missing {missing}, library solves {libs}")
+    return counts
+
+
+def vgp_times(gft, torch, gram, cholesky, trsm, L, models, dev, card):
+    """Phase 5 for the full-data variational slice: the lower-tile Gram at
+    N=2048 (D=2), the factor at Np=2048 (against cholesky_ex), the wide
+    TRSM at N=P=2048 (against solve_triangular), the cross Gram at 2048 x
+    2048 and 2048 x VGP_NQ (D=2), and entry()'s operand and fused Cholesky
+    (N=2048), each against its plain version; then the VGP and Opper-Archambeau ELBO + gradient on both
+    routes, with the device's idle share and the peak memory."""
+    rows = {}
+    X, _, _ = vgp_data()
+    xs = (torch.tensor(X, device=dev) / VGP_LS).contiguous()
+    var = torch.tensor(1.0, device=dev)
+    n = VGP_N
+    kernel = lambda: gram.gram_lower_cuda("rbf", xs, var)  # noqa: E731
+    k_ms, p_ms = paired_ms(torch, kernel, lambda: gram.gram_lower_plain("rbf", xs, var))
+    b_ms, b_by = bound((3 * 2 + 2) * n * (n + 1) // 2, n * n * 4 + n * 2 * 4)
+    rows["gram_lower_vgp"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                              **other_ms(torch, kernel)}
+    Kp = kernel()
+    Kp.diagonal().add_(VGP_JITTER)
+    k_ms, p_ms = paired_ms(torch, cholesky.cholesky_cuda, cholesky.cholesky_plain, setup=lambda: (Kp.clone(),))
+    lib_ms = statistics.median(cuda_ms(torch, torch.linalg.cholesky_ex, setup=lambda: (Kp.clone(),)))
+    b_ms, b_by = bound(n ** 3 / 3, 2 * tri_bytes(n))
+    rows["cholesky_vgp"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                            **other_ms(torch, cholesky.cholesky_cuda, torch.linalg.cholesky_ex,
+                                       setup=lambda: (Kp.clone(),))}
+    B = torch.tensor(np.random.RandomState(13).randn(n, n), dtype=torch.float32, device=dev)
+    kernel = lambda: trsm.trsm_cuda(L, B, True)  # noqa: E731
+    library = lambda: torch.linalg.solve_triangular(L, B, upper=False)  # noqa: E731
+    k_ms, p_ms = paired_ms(torch, kernel, lambda: trsm.solve_triangular_plain(L, B, True))
+    lib_ms = statistics.median(cuda_ms(torch, library))
+    b_ms, b_by = bound(n * n * n, tri_bytes(n) + 2 * n * n * 4)
+    rows["trsm_vgp"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        **other_ms(torch, kernel, library)}
+    # the cross Gram at the slice's two shapes, on OA's points (D=2)
+    Xo, _, Xq = oa_data()
+    xo = (torch.tensor(Xo, device=dev) / VGP_LS).contiguous()
+    for name, x2 in (("gram_vgp_kxx", xo), ("gram_vgp_kxq", (torch.tensor(Xq, device=dev) / VGP_LS).contiguous())):
+        m = len(x2)
+        kernel = lambda x2=x2: gram.gram_cuda("rbf", xo, x2, var)  # noqa: E731
+        k_ms, p_ms = paired_ms(torch, kernel, lambda x2=x2: gram.gram_reference("rbf", xo, x2, var))
+        b_ms, b_by = bound((3 * 2 + 2) * n * m, n * m * 4 + (n + m) * 2 * 4)
+        rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                      **other_ms(torch, kernel)}
+    # entry()'s GPR: the operand and the fused Cholesky at N=2048
+    xs_e, var_e, noise_e, Dp, Np = entry_operands(gft, torch, cholesky, dev)
+    opnd = lambda: gram.gram_chol_operand_cuda("rbf", xs_e, var_e, noise_e, Np)  # noqa: E731
+    k_ms, p_ms = paired_ms(torch, opnd, lambda: gram.gram_chol_operand_plain("rbf", xs_e, var_e, noise_e, Np))
+    b_ms, b_by = bound(5 * Np * (Np + 1) // 2, tri_bytes(Np) + len(xs_e) * 4)
+    rows["gram_chol_operand_entry"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms,
+                                       "bound_by": b_by, **other_ms(torch, opnd)}
+    Ke = opnd()
+    chol = lambda K: cholesky.cholesky_solve_cuda(K, Dp)  # noqa: E731
+    k_ms, p_ms = paired_ms(torch, chol, lambda K: cholesky.cholesky_solve_plain(K, Dp), setup=lambda: (Ke.clone(),))
+    b_ms, b_by = bound(Np ** 3 / 3 + 2 * Np ** 2, 2 * tri_bytes(Np) + 2 * Np * 4)
+    rows["chol_solve_logdet_entry"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms,
+                                       "bound_by": b_by, **other_ms(torch, chol, setup=lambda: (Ke.clone(),))}
+
+    def ms(t):
+        return "-" if t is None else f"{t:.4f}"
+
+    for name, r in rows.items():
+        print(f"  {name}: kernel {ms(r['ms'])} ms (runs of {RUN} {ms(r['run20_ms'])}, device {ms(r['device_ms'])}), "
+              f"plain f32 {ms(r['plain_ms'])} ms, library {ms(r['library_ms'])} ms (runs of {RUN} "
+              f"{ms(r['library_run20_ms'])}, device {ms(r['library_device_ms'])}), bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})")
+
+    print(f"times of the full-data variational slice (N={VGP_N}; median of {2 * REPS} by CUDA events) on {card}:")
+    for which, m in models.items():
+        def step(flag):
+            def run():
+                with gft.config.temp_settings(use_kernels=flag, jitter=VGP_JITTER):
+                    m.zero_grad(set_to_none=True)
+                    m.objective().backward()
+            return run
+
+        k_ms, p_ms = paired_ms(torch, step(True), step(False))
+        parts = []
+        for flag, wall in ((True, k_ms), (False, p_ms)):
+            busy = device_busy_ms(torch, step(flag))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(flag)()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            parts.append(f"{'kernels' if flag else 'use_kernels=False'} {wall:.3f} ms (device busy {busy:.3f} ms, "
+                         f"idle share {1 - busy / wall:.4f}; peak memory above the model {peak:.3f} GB)")
+        print(f"  {which} ELBO + gradient: " + ", ".join(parts))
+    return rows
+
+
 def main():
     import torch
 
@@ -2148,6 +2647,14 @@ def main():
     nuts_launches = mcmc_checks(gft, torch, gram, cholesky, dev)
     mc_checks(gft, torch, gram, cholesky, trsm, dev)
 
+    # 4g. the full-data variational slice (VGP, VGPOpperArchambeau,
+    # fit_lbfgs on entry()'s GPR) at full width: its kernels at its shapes,
+    # the models against the f64 plain path, the launch check
+    vgp_errs, vgp_L, stock_finite = check_vgp_kernels(gft, torch, gram, cholesky, trsm, dev)
+    vgp_launches, vgp_models = vgp_checks(gft, torch, gram, cholesky, trsm, stock_finite, dev)
+    vgp_errs["cholesky"] = max(vgp_errs["cholesky"], oa_logdet_check(gft, torch, cholesky, vgp_models["OA"]))
+    vgp_launch_check(gft, torch, vgp_models)
+
     # 5. times on the card, kernel route against plain
     def on_card(ms):
         return f"{ms:.3f} ms"
@@ -2274,6 +2781,8 @@ def main():
     sparse_rows = sparse_times(gft, torch, gram, cholesky, trsm, sparse_Lp, sparse_L, rng, dev, card)
     # config #4
     nuts_rows = nuts_times(torch, gram, cholesky, dev)
+    # the full-data variational slice
+    vgp_rows = vgp_times(gft, torch, gram, cholesky, trsm, vgp_L, vgp_models, dev, card)
 
     # each kernel's bound at the shape it was timed at (D = 1 inputs; a map
     # entry counted as 5 flop: the difference, its square, the scale, exp)
@@ -2336,6 +2845,23 @@ def main():
                  nuts_rows["gram_chol_operand_nuts"]["max_abs_err"], nuts_rows["gram_chol_operand_nuts"]),
         timed_row("chol_solve_logdet_nuts", "chol_solve.cu", "pallas_cholesky.py:857", nuts_launches["chol_solve"],
                  nuts_rows["chol_solve_logdet_nuts"]["max_abs_err"], nuts_rows["chol_solve_logdet_nuts"]),
+        timed_row("gram_lower_vgp", "gram.cu", "pallas_gram.py:173", vgp_launches["VGP"]["gram_lower"],
+                 vgp_errs["gram_lower"], vgp_rows["gram_lower_vgp"]),
+        timed_row("cholesky_vgp", "chol_solve.cu", "pallas_cholesky.py:716",
+                 vgp_launches["VGP"]["cholesky"] + vgp_launches["OA"]["cholesky"], vgp_errs["cholesky"],
+                 vgp_rows["cholesky_vgp"]),
+        timed_row("trsm_vgp", "trsm.cu", "pallas_trsm.py:116",
+                 vgp_launches["VGP"]["trsm_wide"] + vgp_launches["OA"]["trsm_wide"], vgp_errs["trsm"],
+                 vgp_rows["trsm_vgp"]),
+        *(timed_row(name, "gram.cu", "pallas_gram.py:95",
+                    sum(vgp_launches[w]["gram_by_shape"].get((n, cols or n), 0) for w, n in (("VGP", VGP_N),
+                                                                                         ("OA", OA_N))),
+                    vgp_errs["gram"], vgp_rows[name])
+          for name, cols in (("gram_vgp_kxx", None), ("gram_vgp_kxq", VGP_NQ))),
+        timed_row("gram_chol_operand_entry", "gram_operand.cu", "pallas_gram.py:328", vgp_launches["lbfgs"]["operand"],
+                 vgp_errs["operand"], vgp_rows["gram_chol_operand_entry"]),
+        timed_row("chol_solve_logdet_entry", "chol_solve.cu", "pallas_cholesky.py:857",
+                 vgp_launches["lbfgs"]["chol_solve"], vgp_errs["chol_solve"], vgp_rows["chol_solve_logdet_entry"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,7 @@ from . import (
     conditionals,
     config,
     densities,
+    entry,
     features,
     interop,
     kernels,

@@ -2,8 +2,7 @@
 
 Elementwise log-pdfs that broadcast; the prior hyperparameters may be plain
 floats, which are lifted to tensors of the argument's dtype and device.
-The remaining densities and ``multivariate_normal`` come with the models
-that use them.
+``multivariate_normal`` comes with the models that use it.
 """
 
 from __future__ import annotations
@@ -12,7 +11,8 @@ import math
 
 import torch
 
-__all__ = ["gaussian", "bernoulli", "lognormal", "gamma", "beta", "laplace"]
+__all__ = ["gaussian", "bernoulli", "lognormal", "poisson", "exponential", "gamma", "student_t", "beta",
+           "laplace"]
 
 
 def _like(v, x):
@@ -37,6 +37,16 @@ def lognormal(x, mu, var):
     return gaussian(lnx, mu, var) - lnx
 
 
+def poisson(lamb, y):
+    return y * torch.log(lamb) - lamb - torch.special.gammaln(y + 1.0)
+
+
+def exponential(lamb, y):
+    """The exponential of mean ``lamb`` (rate ``1 / lamb``), as the reference
+    parameterizes it."""
+    return -y / lamb - torch.log(lamb)
+
+
 def gamma(shape, scale, x):
     shape, scale = _like(shape, x), _like(scale, x)
     return (
@@ -45,6 +55,16 @@ def gamma(shape, scale, x):
         + (shape - 1.0) * torch.log(x)
         - x / scale
     )
+
+
+def student_t(x, mean, scale, df):
+    df = _like(df, x)
+    const = (
+        torch.lgamma((df + 1.0) * 0.5)
+        - torch.lgamma(df * 0.5)
+        - 0.5 * (torch.log(torch.square(scale)) + torch.log(df) + math.log(math.pi))
+    )
+    return const - 0.5 * (df + 1.0) * torch.log1p((1.0 / df) * torch.square((x - mean) / scale))
 
 
 def beta(alpha, bet, y):

@@ -411,11 +411,14 @@ class Coregion(Kernel):
         self.W = Param(W0, name=f"{name}/W")
         self.kappa = Param(k0, transform=positive(), name=f"{name}/kappa")
 
+    def _B(self):
+        W = self.W.value
+        return W @ W.T + torch.diag(self.kappa.value)
+
     def K(self, X, X2=None, presliced=False):
         if not presliced:
             X, X2 = self._slice(X, X2)
-        W = self.W.value
-        B = W @ W.T + torch.diag(self.kappa.value)
+        B = self._B()
         ix = X[:, 0].to(torch.int64)
         ix2 = ix if X2 is None else X2[:, 0].to(torch.int64)
         return B[ix][:, ix2]

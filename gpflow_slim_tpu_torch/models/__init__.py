@@ -5,6 +5,7 @@ from .posterior import GPRPosterior, SGPRPosterior, SVGPPosterior
 from .sgpmc import SGPMC
 from .sgpr import GPRFITC, SGPR
 from .svgp import SVGP
+from .vgp import VGP, VGPOpperArchambeau
 
 __all__ = ["Model", "GPModel", "GPR", "GPRPosterior", "SGPR", "GPRFITC", "SGPRPosterior", "SVGP",
-           "SVGPPosterior", "GPMC", "SGPMC"]
+           "SVGPPosterior", "VGP", "VGPOpperArchambeau", "GPMC", "SGPMC"]

@@ -534,6 +534,9 @@ def _no_library_linalg(monkeypatch):
         monkeypatch.setattr(torch.linalg, name, boom)
 
 
+_solve_triangular = torch.linalg.solve_triangular
+
+
 def _config2_data(N, seed=0):
     rng = np.random.RandomState(seed)
     X = rng.uniform(0, 1, (N, 1)).astype(np.float32)
@@ -732,3 +735,107 @@ def test_config4_short_nuts_run_is_finite(dev):
     # one launch per active chain per leaf, and one per chain at the start
     # of the warmup and of the sampling
     assert gram.gram_chol_operand_cuda.launches - before >= int(info["num_leaves"].sum()) + 4
+
+
+def _vgp_pair(which, dev, N=500, steps=3):
+    """The full-data variational slice's models (chip_smoke.py phase 4g's,
+    at N = 500): a Poisson VGP on a 25 x 20 grid, or a 3-class Opper-
+    Archambeau VGP, float32 on the kernel route after ``steps`` Adam steps
+    (every gradient away from 0), and the same point in float32 and
+    float64 models."""
+    rng = np.random.RandomState(0)
+    if which == "VGP":
+        gx, gy = np.meshgrid(np.linspace(0, 1, 25), np.linspace(0, 1, 20), indexing="ij")
+        X = np.stack([gx.ravel(), gy.ravel()], 1)
+        Y = rng.poisson(np.exp(np.sin(6 * X[:, :1]) * np.cos(4 * X[:, 1:])))
+        lik = gft.likelihoods.Poisson
+        kw = {}
+    else:
+        X = rng.uniform(0, 1, (N, 2))
+        Y = np.argmax(np.stack([np.sin(6 * X[:, 0]), np.cos(5 * X[:, 1]), X[:, 0] - X[:, 1]], 1), 1)[:, None]
+        lik = lambda: gft.likelihoods.MultiClass(3)  # noqa: E731
+        kw = {"num_latent": 3}
+    cls = gft.models.VGP if which == "VGP" else gft.models.VGPOpperArchambeau
+
+    def make(dtype):
+        return cls(X.astype(np.float32), Y.astype(np.float32), kern=gft.kernels.RBF(2, lengthscales=0.1),
+                   likelihood=lik(), device=dev, dtype=dtype, **kw)
+
+    m32 = make(torch.float32)
+    gft.training.fit(m32, num_steps=steps, learning_rate=0.01)
+    values = {n: p.unconstrained.detach().cpu().numpy() for n, p in gft.params.parameters(m32)}
+    twins = [make(dtype) for dtype in (torch.float32, torch.float64)]
+    for m in twins:
+        gft.interop.load_unconstrained(m, values)
+    return m32, *twins
+
+
+@pytest.mark.parametrize("which", ["VGP", "OA"])
+def test_vgp_kernel_route_matches_f64_plain(dev, which, monkeypatch):
+    # chip_smoke.py phase 4g's gates: the ELBO and every gradient of the
+    # kernel route within 2x the stock f32 route's error against f64, plus
+    # 1e-5 (value, relative) and 1e-3 (gradients, max-norm relative). The
+    # VGP's ELBO and gradient launch the lower-tile Gram, the factor and the
+    # wide TRSM and call no torch.linalg; Opper-Archambeau's the cross Gram
+    # and the factor once per latent, and no torch.linalg factorization
+    # (its solves are torch.linalg's, as the JAX package's are jax.scipy's)
+    m32, p32, m64 = _vgp_pair(which, dev)
+
+    def run(m, flag, forbid=False):
+        m.zero_grad(set_to_none=True)
+        with gft.config.temp_settings(use_kernels=flag, jitter=1e-4), monkeypatch.context() as mp:
+            if forbid:
+                _no_library_linalg(mp)
+                if which == "OA":
+                    mp.setattr(torch.linalg, "solve_triangular", _solve_triangular)
+            loss = m.objective()
+            loss.backward()
+        return loss.item(), {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(m)}
+
+    kernels = (gram.gram_lower_cuda if which == "VGP" else gram.gram_cuda, cholesky.cholesky_cuda)
+    before = [k.launches for k in kernels] + [trsm.trsm_cuda.by_schedule["wide"]]
+    k32 = run(m32, True, forbid=True)
+    after = [k.launches for k in kernels] + [trsm.trsm_cuda.by_schedule["wide"]]
+    assert after[0] - before[0] == 1 and after[1] - before[1] == (1 if which == "VGP" else 3), (before, after)
+    assert after[2] > before[2]
+    s32, v64 = run(p32, False), run(m64, False)
+    err = [abs(v - v64[0]) / abs(v64[0]) for v, _ in (k32, s32)]
+    assert err[0] <= 2 * err[1] + 1e-5, err
+    for n, want in v64[1].items():
+        scale = float(want.abs().max())
+        e = [float((g[n] - want).abs().max()) / scale for _, g in (k32, s32)]
+        assert e[0] <= 2 * e[1] + 1e-3, (n, e)
+
+
+@pytest.mark.parametrize("which", ["VGP", "OA"])
+def test_vgp_predictions_kernel_route_match_f64_plain(dev, which):
+    m32, p32, m64 = _vgp_pair(which, dev)
+    Xq = np.random.RandomState(3).uniform(0, 1, (300, 2)).astype(np.float32)
+    out = {}
+    for key, m, flag in (("kernels", m32, True), ("plain", p32, False), ("f64", m64, False)):
+        with gft.config.temp_settings(use_kernels=flag, jitter=1e-4), torch.no_grad():
+            out[key] = m.predict_f(Xq) + m.predict_y(Xq) + m.predict_f_full_cov(Xq[:40])
+    for k, p, w in zip(out["kernels"], out["plain"], out["f64"]):
+        assert bool(torch.isfinite(k).all())
+        e = [float((t.double() - w).abs().max()) for t in (k, p)]
+        assert e[0] <= 2 * e[1] + 1e-6, e
+
+
+def test_fit_lbfgs_on_the_entry_gpr(dev):
+    # entry()'s flagship GPR (N = 2048, float32) on the operand and the
+    # fused Cholesky: 3 L-BFGS steps, finite non-increasing losses, the
+    # final objective within bench.py's 1e-5 of the f64 plain path
+    fn, (m,) = gft.entry.entry()
+    assert m.X.is_cuda
+    before = cholesky.cholesky_solve_cuda.launches
+    loss, grads = fn(m)
+    assert cholesky.cholesky_solve_cuda.launches > before and np.isfinite(loss.item())
+    _, losses = gft.training.fit_lbfgs(m, num_steps=3)
+    losses = losses.cpu().numpy()
+    assert np.isfinite(losses).all() and (np.diff(losses) <= 0).all() and losses[-1] < losses[0]
+    m64 = gft.entry.flagship_model(device=dev, dtype=np.float64)
+    gft.interop.load_unconstrained(m64, {n: p.unconstrained.detach().cpu().numpy()
+                                         for n, p in gft.params.parameters(m)})
+    with torch.no_grad():
+        got, want = m.objective().item(), m64.objective().item()
+    assert abs(got - want) <= 1e-5 * abs(want), (got, want)

@@ -33,25 +33,10 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import gpflow_slim_tpu_torch as gft  # noqa: E402
-from chip_smoke import LENGTHSCALE, NQ, NQ_FULL, bench_data, card_line  # noqa: E402
+from chip_smoke import LENGTHSCALE, NQ, NQ_FULL, bench_data, busy_ms, card_line  # noqa: E402
 
 ITERS = 3   # profiled evaluations
 WALLS = 5   # event-timed evaluations
-
-
-def busy_ms(events):
-    """Length of the union of the events' intervals, in ms."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3
 
 
 def trailing_flop(Np, panel=256):
