@@ -202,6 +202,8 @@ SVGP_N, SVGP_M, SVGP_B, SVGP_LS = 100_000, 256, 1024, 0.2
 SVGP_STEPS, SVGP_GAMMA, SVGP_LR = 20, 0.1, 0.01
 SVGP_FITS = 5       # timed 20-step fits per route
 SVGP_JITTER = 1e-4  # the f32 jitter; the f64 references use it too, to compute the same function
+LOGDET_JITTERS = (1e-4, 1e-3, 1e-2)  # fault l's gate: the grid's K + jitter I at Np=2048
+LOGDET_TOL = 1e-6   # on top of twice cuSOLVER's f32 error, relative to the f64 half-logdet
 # SVGP gates: the kernel route's error against the f64 reference may be at
 # most twice the use_kernels=False float32 route's, plus these (relative;
 # max-norm for gradients): Kuu's f32 condition number (~1e6 at 256 points,
@@ -225,6 +227,7 @@ SPARSE_JITTER = 1e-4  # the f32 jitter; the f64 references use it too, to comput
 # stock error alone would be a coin flip
 SPARSE_VALUE_ABS = OBJECTIVE_TOL
 SPARSE_GRAD_ABS = GRAD_TOL
+ZERO_GRAD_REL = 1e-8  # a gradient zero in exact arithmetic, against the largest on the f64 path
 # kernels of the package, by the names the profiler gives their launches;
 # any other device kernel whose name holds one of LIBRARY_SOLVES is a
 # library factorization or triangular solve
@@ -233,6 +236,7 @@ OUR_KERNELS = ("gram_cross_kernel", "gram_lower_kernel", "gram_chol_operand_kern
                "logdet_sum_kernel", "trsm_thin_kernel", "trsm_group_kernel", "trsm_update_kernel",
                "batched_trsm_kernel")
 PROFILES = 3  # profiled calls of a launch check
+LEAD_IN_CYCLES = 1_000_000  # ~0.5 ms spin at the start of each launch-check profile
 LIBRARY_SOLVES = ("trsm", "trsv", "potrf", "potrs", "potri", "getrf", "syrk", "cholesky", "cusolver", "magma")
 # the cross Gram's edges: partial 8-row bands, rows that are not 16-byte
 # aligned, last 1024-column sweeps of one column, D up to 8 (ARD)
@@ -268,6 +272,17 @@ VGP_NQ = 1024       # new points of the prediction requests
 VGP_STEPS = 5       # Adam steps of training.fit, and L-BFGS steps of fit_lbfgs
 VGP_LR = 1e-3       # Adam's learning rate: its first steps move each of q_sqrt's 2.1M entries by about this
 VGP_JITTER = 1e-4   # config.default_jitter(float32); the f64 references use it too, to compute the same function
+# phase 4h: BASELINE config #5 on one chip (GPRCG streaming with a deep kernel), GPRCG against
+# the exact GPR, GPLVM/BayesianGPLVM (example 08's data), NKN (example 06's network)
+CG_N = 50_000       # config #5's N: not cut
+CG_PRECOND = 64     # pivoted-Cholesky rank of the N=10000 GPRCG
+CG_REL = 0.02       # the SLQ estimate against the exact GPR (tests/test_iterative.py's Monte-Carlo tolerance)
+CG_CMP_ITERS = 10   # CG iterations at which the preconditioned and plain residuals are compared
+CG_PRED_ABS = 1e-5  # GPRCG's predictions: CG stops at a relative residual of 1e-6 on both routes
+LVM_N, LVM_P, LVM_Q, LVM_M = 2048, 12, 2, 64
+LVM_NQ = 1024
+LVM_STEPS = 5
+LVM_LR = 1e-2       # example 08's GPLVM rate; its BayesianGPLVM takes half
 OA_N, OA_CLASSES = 2048, 3
 # the card's peaks for the bound of each kernel (vendor figures, H100 SXM)
 F32_FLOPS = 67e12   # float32 without tensor cores
@@ -1215,24 +1230,39 @@ def oracle_composite_objective(torch, X, Y, m32):
 
 
 def value_and_grads(gft, model, use_kernels, fn=lambda m: m.objective(), jitter=SPARSE_JITTER):
-    """``fn(model)`` and every unconstrained gradient (f64 copies), on the
-    route ``use_kernels`` picks, with the f32 jitter on every route."""
+    """``fn(model)`` and the gradient of every trainable leaf
+    (``params.trainable_leaves``: each Param's unconstrained value, and a
+    DeepKernel's warp layer by layer) as f64 copies, on the route
+    ``use_kernels`` picks, with the f32 jitter on every route."""
     with gft.config.temp_settings(use_kernels=use_kernels, jitter=jitter):
         model.zero_grad(set_to_none=True)
         loss = fn(model)
         loss.backward()
-    return loss.item(), {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(model)}
+    return loss.item(), {n: t.grad.double() for n, t in gft.params.trainable_leaves(model)}
 
 
-def gate_against_f64(what, k32, p32, ref64, stock_factors=True):
+def gate_against_f64(what, k32, p32, ref64, stock_factors=True, zero=()):
     """Gate the kernel route's value and every gradient against the f64
     plain path, relative to the use_kernels=False f32 route's error (see
-    ``gate`` for ``stock_factors``)."""
+    ``gate`` for ``stock_factors``). ``zero``: leaves whose gradient is zero
+    in exact arithmetic (a DeepKernel's last bias shifts every warped input
+    alike, which a stationary kernel does not see): each must be zero to
+    f64 rounding (ZERO_GRAD_REL of the largest gradient) on the f64 path,
+    and its f32 errors, rounding over zero, are printed, not gated."""
     (vk, gk), (vp, gp), (v64, g64) = k32, p32, ref64
     print(f"{what}: kernel route {vk:.6f}, use_kernels=False {vp:.6f}, f64 plain path {v64:.6f}")
     gate(f"{what} rel err vs the f64 plain path", abs(vk - v64) / abs(v64), abs(vp - v64) / abs(v64),
          SPARSE_VALUE_ABS, stock_factors)
+    top = max(float(w.abs().max()) for w in g64.values())
     for n, want in g64.items():
+        if n in zero:
+            size = float(want.abs().max())
+            print(f"  grad {n} {tuple(want.shape)}: zero in exact arithmetic, f64 plain path {size:.3e} (at most "
+                  f"{ZERO_GRAD_REL:g} x the largest gradient {top:.3e}); max abs, kernel route "
+                  f"{float(gk[n].abs().max()):.3e}, use_kernels=False {float(gp[n].abs().max()):.3e} (not gated)")
+            if not size <= ZERO_GRAD_REL * top:
+                raise AssertionError(f"{what}: the gradient of {n} is not zero on the f64 plain path: {size:.3e}")
+            continue
         scale = float(want.abs().max())
         gate(f"  grad {n} {tuple(want.shape)} rel err (max-norm)", float((gk[n] - want).abs().max()) / scale,
              float((gp[n] - want).abs().max()) / scale, SPARSE_GRAD_ABS, stock_factors)
@@ -1383,23 +1413,39 @@ def sparse_checks(gft, torch, gram, cholesky, trsm, dev):
 
 def device_kernels(torch, fn):
     """Counter of the device kernels that one call of fn launches, by name,
-    from torch.profiler (after one call outside the profile): the most of
-    each name over PROFILES profiled calls, since a profile now and then
-    loses events (a kernel then shows fewer launches than it made, or
-    none)."""
+    from torch.profiler (after one call outside the profile): one profile
+    of PROFILES + 1 calls, each behind a spin kernel (``LEAD_IN_CYCLES``)
+    that marks where it starts on the device timeline, and the most of each
+    name over the calls after the first. A profile loses launches at its
+    start now and then (the composite GPR's only cross Gram; OA's only
+    cross Gram; the GPLVM's first three kernels in three separate
+    profiles), so the first call is not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    most = collections.Counter()
-    for _ in range(PROFILES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILES + 1):
+            torch.cuda._sleep(LEAD_IN_CYCLES)
             fn()
             torch.cuda.synchronize()
-        most |= collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-                                    and "Memcpy" not in e.name and "Memset" not in e.name
-                                    and "Command Buffer Full" not in e.name)
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and "Memcpy" not in e.name and "Memset" not in e.name
+                     and "Command Buffer Full" not in e.name), key=lambda e: e.time_range.start)
+    calls, cur = [], None
+    for e in events:
+        if "spin_kernel" in e.name:
+            cur = collections.Counter()
+            calls.append(cur)
+        elif cur is not None:
+            cur[e.name] += 1
+    if len(calls) < PROFILES:
+        raise RuntimeError(f"the profiler saw {len(calls)} of the {PROFILES + 1} marker kernels; its kernels: "
+                           f"{sorted({e.name[:60] for e in events})[:12]}")
+    most = collections.Counter()
+    for c in calls[-PROFILES:]:
+        most |= c
     return most
 
 
@@ -2083,10 +2129,11 @@ def check_vgp_kernels(gft, torch, gram, cholesky, trsm, dev):
     transposed view; and the operand and the fused Cholesky on entry()'s
     GPR (N=2048, its initial hyperparameters) at phase 3's tolerances. The
     factor and the TRSM are gated at twice cuSOLVER's / cuBLAS's f32 error
-    plus their fixed gates (K's f32 conditioning sets both). Prints cond(K
-    + 1e-4 I) in float64, whether the stock f32 factor is finite, and the
-    factor's half-logdet beside cuSOLVER's and the f64 one. Returns the max
-    abs errors, the factor and whether the stock factor is finite."""
+    plus their fixed gates (K's f32 conditioning sets both); both Cholesky
+    modes' half-logdets at three jitters (``logdet_gates``). Prints cond(K
+    + 1e-4 I) in float64 and whether the stock f32 factor is finite.
+    Returns the max abs errors, the factor and whether the stock factor is
+    finite."""
     X, _, _ = vgp_data()
     xs = (torch.tensor(X, device=dev) / VGP_LS).contiguous()
     one = torch.tensor(1.0, device=dev)
@@ -2107,6 +2154,7 @@ def check_vgp_kernels(gft, torch, gram, cholesky, trsm, dev):
             if not err <= OPERAND_TOL:
                 raise AssertionError(f"the cross Gram disagrees at the {what}' {len(xa)} x {len(x2)}")
             e_cross = max(e_cross, err)
+    logdet_gates(torch, cholesky, K, dev)
     K.diagonal().add_(VGP_JITTER)
     K64 = torch.tril(K).double()  # the kernels' input, in float64: the plain version's
     ev = torch.linalg.eigvalsh(K64, UPLO="L")
@@ -2121,13 +2169,6 @@ def check_vgp_kernels(gft, torch, gram, cholesky, trsm, dev):
     scale = float(L_ref.abs().max())
     gate(f"cholesky (factor only) at Np={VGP_N}: factor rel err vs f64", e_fac / scale,
          float((L_lib.double() - L_ref).abs().max()) / scale, FACTOR_TOL, stock_finite)
-    # the VGP takes this factor's entries and not its logdet (its KL is
-    # whitened), so its half-logdet is printed here, not gated: ~10x
-    # cuSOLVER's error at this conditioning (ROADMAP queue 3, fault l).
-    # OA takes the logdet of each A_p's factor: oa_logdet_check gates it.
-    hs_ref = float(torch.log(torch.diagonal(L_ref)).sum())
-    print(f"cholesky (factor only) at Np={VGP_N}: half_logdet {float(torch.log(torch.diagonal(L).double()).sum()):.6f}, "
-          f"cuSOLVER f32 {float(torch.log(torch.diagonal(L_lib).double()).sum()):.6f}, f64 {hs_ref:.6f}")
     Ld = L.double()
     B = torch.tensor(np.random.RandomState(12).randn(VGP_N, VGP_N), dtype=torch.float32, device=dev)
     e_trsm = 0.0
@@ -2159,6 +2200,31 @@ def check_vgp_kernels(gft, torch, gram, cholesky, trsm, dev):
     errs = {"gram_lower": e_gram, "gram": e_cross, "cholesky": e_fac, "trsm": e_trsm, "operand": e_opnd,
             "chol_solve": e_chol}
     return errs, L, stock_finite
+
+
+def logdet_gates(torch, cholesky, K, dev):
+    """The half-logdet of both Cholesky modes on the grid's lower-tile
+    Gram K plus each of LOGDET_JITTERS times I (Np=2048; cond 1.1e6 at
+    1e-4), against the float64 factor of the same float32 input: each
+    within twice cuSOLVER's float32 error + LOGDET_TOL, relative (fault l's
+    gate: the GPLVM's objective and the BayesianGPLVM's bound read this
+    logdet at this size)."""
+    for jitter in LOGDET_JITTERS:
+        Kj = K.clone()
+        Kj.diagonal().add_(jitter)
+        ref = float(torch.log(torch.diagonal(cholesky.cholesky_plain(torch.tril(Kj).double()))).sum())
+        lib = float(torch.log(torch.diagonal(cholesky.cholesky_plain(torch.tril(Kj))).double()).sum())
+        fac = float(torch.log(torch.diagonal(cholesky.cholesky_cuda(Kj.clone())).double()).sum())
+        fused = float(cholesky.cholesky_solve_cuda(Kj, torch.zeros(len(Kj), 1, device=dev))[2])
+        e_lib = abs(lib - ref) / abs(ref)
+        tol = 2 * e_lib + LOGDET_TOL
+        errs = {"factor only": abs(fac - ref) / abs(ref), "fused": abs(fused - ref) / abs(ref)}
+        print(f"half_logdet of the VGP grid's K + {jitter:g} I (Np={len(Kj)}): f64 {ref:.6f}, "
+              + ", ".join(f"{k} rel err {e:.3e}" for k, e in errs.items())
+              + f", cuSOLVER f32 {e_lib:.3e} (gate 2 x cuSOLVER + {LOGDET_TOL:g} = {tol:.3e})")
+        if not max(errs.values()) <= tol:
+            raise AssertionError(f"the Cholesky kernels' half-logdet is off f64 at jitter {jitter:g}: {errs}")
+        del Kj
 
 
 def entry_operands(gft, torch, cholesky, dev):
@@ -2426,6 +2492,471 @@ def vgp_times(gft, torch, gram, cholesky, trsm, L, models, dev, card):
     return rows
 
 
+# -- phase 4h: the matrix-free and latent-variable slice ---------------------
+
+def deep_data():
+    """Example 05's data (examples/05_deep_kernel.py) at N=CG_N: X uniform
+    on [-1, 1]^2, Y = sin(3 (x1 + 0.5 x2)) + 0.05 noise, RandomState(0)."""
+    rng = np.random.RandomState(0)
+    X = rng.uniform(-1, 1, (CG_N, 2))
+    Y = np.sin(3 * (X[:, :1] + 0.5 * X[:, 1:2])) + 0.05 * rng.randn(CG_N, 1)
+    return X.astype(np.float32), Y.astype(np.float32)
+
+
+def deep_model(gft, torch, dtype, dev, like=None):
+    """BASELINE config #5 on one chip: GPRCG(materialize_k=False) on
+    DeepKernel(2, RBF(1, lengthscales=0.5), mlp_warp([2, 16, 1])), the JAX
+    package's defaults otherwise (16 probes, 100 CG iterations, 25 Lanczos
+    steps, the likelihood's default noise); the warp drawn from a seeded
+    generator. ``like``: a model whose state it takes."""
+    X, Y = deep_data()
+    warp = gft.kernels_deep.mlp_warp([2, 16, 1], torch.Generator().manual_seed(0))
+    kern = gft.kernels_deep.DeepKernel(2, gft.kernels.RBF(1, lengthscales=0.5), warp)
+    m = gft.models.GPRCG(X, Y, kern=kern, materialize_k=False, device=dev, dtype=dtype)
+    if like is not None:
+        m.load_state_dict(like.state_dict())
+    return m
+
+
+class FixedProbes:
+    """Puts given probe matrices in place of ``ops.iterative.cg_probes``
+    (the one function GPRCG draws its probes from), cast to the dtype asked
+    for: every route then sees the same probes."""
+
+    def __init__(self, gft, torch, n, num, dev):
+        it = gft.ops.iterative
+        seed = torch.tensor(20261017, device=dev)
+        self.it, self.Z = it, (it.rademacher(seed, 0, (n, num), torch.float64),
+                               it.rademacher(seed, 1, (n, num), torch.float64))
+
+    def __enter__(self):
+        self.orig = self.it.cg_probes
+        self.it.cg_probes = lambda params, n, num, dtype: tuple(z.to(dtype) for z in self.Z)
+        return self
+
+    def __exit__(self, *exc):
+        self.it.cg_probes = self.orig
+
+
+def profile_once(torch, fn, calls=2):
+    """One profile of ``calls`` calls of fn (after one outside it): the
+    device kernels by name (the most launches of a name in any one call),
+    the device's busy ms a call and the device ms a call of each name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    names, per_name, busy = collections.Counter(), collections.Counter(), 0.0
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name]
+        names |= collections.Counter(e.name for e in dev if "Memcpy" not in e.name and "Memset" not in e.name)
+        for e in dev:
+            per_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / calls
+        busy += busy_ms(dev) / calls
+    return names, busy, per_name
+
+
+def cg_checks(gft, torch, gram, cholesky, trsm, dev, card):
+    """Phase 4h, config #5 on one chip: GPRCG streaming with the deep kernel
+    at N=CG_N on fixed probes. One objective + gradient on the kernel route
+    (its cross-Gram launches: once a panel a matvec, CG_ITERS + SLQ_STEPS
+    matvecs, then the surrogate's panels and their recomputation in the
+    backward; its peak memory above the model, under a materialized K's
+    10 GB; its final CG residual norms), on the use_kernels=False route and
+    on the f64 plain path: the value within twice the stock route's error +
+    1e-5 and every gradient 1e-3 (max-norm, relative) of f64, the warp's
+    layer by layer (its last bias's, zero in exact arithmetic, checked zero
+    on the f64 path). Then the wall
+    time of objective + gradient on both routes, the device's idle share
+    and device time by kernel, a profile that holds no library
+    factorization or triangular solve (``torch.linalg.eigh`` of the Lanczos
+    matrices, which the JAX package calls as ``jnp.linalg.eigh``, launches
+    none of LIBRARY_SOLVES' names), and the host syncs of an
+    evaluation: one, ``torch.linalg.eigh``'s read of its info after the
+    Lanczos loop, none from a matvec or a CG iteration. Returns the path's
+    launches and times, and the float32 model."""
+    cg_gpr = gft.models.cg_gpr
+    panels = -(-CG_N // cg_gpr.STREAM_BLOCK)
+    m32 = deep_model(gft, torch, torch.float32, dev)
+    m64 = deep_model(gft, torch, torch.float64, dev, like=m32)
+    out = {}
+    with FixedProbes(gft, torch, CG_N, m32.num_probes, dev):
+        reset_counts(gram, cholesky, trsm)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k32 = value_and_grads(gft, m32, True, jitter=VGP_JITTER)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches = read_counts(gram, cholesky, trsm)
+        res_k = m32.last_cg_residuals.cpu().numpy()
+        p32 = value_and_grads(gft, m32, False, jitter=VGP_JITTER)
+        res_p = m32.last_cg_residuals.cpu().numpy()
+        r64 = value_and_grads(gft, m64, False, jitter=VGP_JITTER)
+        res_64 = m64.last_cg_residuals.cpu().numpy()
+        matvecs = m32.cg_iters + m32.slq_steps
+        want = panels * (matvecs + 2)
+        shape = (cg_gpr.STREAM_BLOCK, CG_N)
+        print(f"config #5 (GPRCG streaming, DeepKernel, N={CG_N}, {panels} panels of {cg_gpr.STREAM_BLOCK}): "
+              f"objective + gradient launches {launches}; cross Gram at {shape}: "
+              f"{launches['gram_by_shape'].get(shape, 0)} (want {panels} x ({matvecs} matvecs + the surrogate's "
+              f"forward and backward) = {want}); peak memory above the model {peak:.3f} GB (a materialized f32 K: "
+              f"{CG_N ** 2 * 4 / 1e9:.1f} GB)")
+        for route, res in (("kernel route", res_k), ("use_kernels=False", res_p), ("f64 plain path", res_64)):
+            print(f"  final CG residual norms, {route}: y {res[0]:.3e}, probes max {res[1:].max():.3e}")
+        if launches["gram_by_shape"] != {shape: want} or launches["gram"] != want:
+            raise AssertionError(f"config #5: the cross Gram did not launch once a panel a matvec: {launches}")
+        if any(launches[k] for k in ("operand", "gram_lower", "cholesky", "chol_solve", "trsm_thin", "trsm_wide",
+                                     "batched_trsm")):
+            raise AssertionError(f"config #5 launched a factorization or solve kernel: {launches}")
+        if not peak < CG_N ** 2 * 4 / 1e9:
+            raise AssertionError(f"config #5's peak memory {peak:.3f} GB is not below a materialized K's")
+        # the warp's last bias shifts every warped input alike: the RBF does not see it
+        gate_against_f64(f"config #5 GPRCG objective (N={CG_N}, fixed probes)", k32, p32, r64,
+                         zero=(f"kern.warp.layers.{len(m32.kern.warp.layers) - 1}.bias",))
+
+        def step(flag):
+            def run():
+                with gft.config.temp_settings(use_kernels=flag):
+                    m32.zero_grad(set_to_none=True)
+                    m32.objective().backward()
+            return run
+
+        k_ms, p_ms = (statistics.median(cuda_ms(torch, step(f), reps=2, warmup=1)) for f in (True, False))
+        names, busy, per_name = profile_once(torch, step(True))
+        _, syncs = count_syncs(torch, dev, step(True))
+    libs = library_solves(names)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"config #5 objective + gradient on {card}: kernel route {k_ms:.1f} ms (device busy {busy:.1f} ms, idle "
+          f"share {1 - busy / k_ms:.4f}), use_kernels=False {p_ms:.1f} ms; device ms by kernel: "
+          + ", ".join(f"{n[:48]} {t:.1f}" for n, t in top))
+    print(f"  launches a call (profiler): {sum(names.values())}; library factorizations and triangular solves "
+          f"{libs or 'none'}; host syncs {dict(syncs) or 'none'}")
+    if libs:
+        raise AssertionError(f"config #5 ran a library factorization or solve: {libs}")
+    # torch.linalg.eigh reads its info back (one sync an evaluation, after
+    # the Lanczos loop); any other sync fails
+    src = os.path.join("gpflow_slim_tpu_torch", "ops", "iterative.py")
+    with open(os.path.join(HERE, src)) as f:
+        eigh_line = next(f"{src}:{i}" for i, line in enumerate(f, 1) if "torch.linalg.eigh(" in line)
+    other = {k: c for k, c in syncs.items() if k != eigh_line}
+    if other or syncs.get(eigh_line, 0) > 1:
+        raise AssertionError(f"config #5 synced the host beyond eigh's one read: {dict(syncs)}")
+    out["config5"] = {"launches": launches, "obj_grad_ms": k_ms, "plain_ms": p_ms, "busy_ms": busy, "peak_gb": peak}
+    del m64
+    return out, m32
+
+
+def exact_vs_cg(gft, torch, dev):
+    """Phase 4h: GPRCG on bench.py's GPR (N=10000, RBF lengthscale 0.1,
+    noise 1), float32 on the kernel route. materialize_k with a rank-
+    CG_PRECOND pivoted-Cholesky preconditioner: its estimate within CG_REL
+    (the SLQ Monte-Carlo tolerance of tests/test_iterative.py) of the exact
+    GPR's f64 oracle; the preconditioned CG's residuals after CG_CMP_ITERS
+    iterations no larger than the plain CG's; predict_f at NQ points within
+    twice the use_kernels=False route's error + CG_PRED_ABS of the exact
+    GPR's f64 predictions. Streaming and materialized (no preconditioner)
+    on the same probes: the value within 1e-5 and every gradient 1e-3
+    (max-norm) of each other."""
+    X, Y = bench_data()
+    it = gft.ops.iterative
+
+    def model(**kw):
+        return gft.models.GPRCG(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE), device=dev,
+                                dtype=torch.float32, **kw)
+
+    pre = model(precond_rank=CG_PRECOND)
+    with torch.no_grad():
+        est = -pre.objective().item()
+    hyp = (pre.kern.lengthscales.value.item(), pre.kern.variance.value.item(), pre.likelihood.variance.value.item())
+    oracle = -oracle_objective(torch, X, Y, *hyp)
+    rel = abs(est - oracle) / abs(oracle)
+    print(f"GPRCG (N={N}, materialize_k, precond_rank {CG_PRECOND}) log marginal likelihood {est:.4f}, exact GPR "
+          f"f64 oracle {oracle:.4f}: rel err {rel:.3e} (gate {CG_REL:g})")
+    if not rel <= CG_REL:
+        raise AssertionError(f"GPRCG's estimate is {rel:.3e} off the exact GPR")
+    with torch.no_grad():
+        K = pre.kern.K(pre.X)
+        noise = torch.squeeze(pre.likelihood.variance.value)
+        B = torch.cat([pre.Y, it.rademacher(torch.tensor(5, device=dev), 0, (N, 16), torch.float32)], 1)
+        mv = lambda v: K @ v + noise * v  # noqa: E731
+        wood = it.woodbury_solve_fn(it.pivoted_cholesky(K, CG_PRECOND), noise)
+        _, r_pre = it.batched_cg(mv, B, max_iters=CG_CMP_ITERS, precond=wood)
+        _, r_plain = it.batched_cg(mv, B, max_iters=CG_CMP_ITERS)
+        del K
+    print(f"  CG residual norms after {CG_CMP_ITERS} iterations (y and 16 probes): preconditioned max "
+          f"{float(r_pre.max()):.3e}, plain max {float(r_plain.max()):.3e}")
+    if not bool((r_pre <= r_plain).all()):
+        raise AssertionError("the preconditioned CG's residuals are larger than the plain CG's")
+    rq = np.random.RandomState(8)
+    Xq = rq.uniform(0, 1, (NQ, 1)).astype(np.float32)
+    m_o, v_o = oracle_predict(torch, X, Y, Xq, *hyp)
+    preds = {}
+    for flag in (True, False):
+        with gft.config.temp_settings(use_kernels=flag), torch.no_grad():
+            preds[flag] = pre.predict_f(Xq)
+    for i, what in enumerate(("mean", "var")):
+        o = (m_o, v_o)[i].reshape(preds[True][i].shape)
+        gate(f"GPRCG predict_f {what} at {NQ} vs the exact GPR's f64 predictions (max abs)",
+             float((preds[True][i].double() - o).abs().max()), float((preds[False][i].double() - o).abs().max()),
+             CG_PRED_ABS)
+    with FixedProbes(gft, torch, N, 16, dev):
+        a = value_and_grads(gft, model(materialize_k=True), True, jitter=VGP_JITTER)
+        b = value_and_grads(gft, model(materialize_k=False), True, jitter=VGP_JITTER)
+    d_val = abs(a[0] - b[0]) / abs(a[0])
+    d_grad = max(float((a[1][n] - b[1][n]).abs().max()) / float(a[1][n].abs().max()) for n in a[1])
+    print(f"GPRCG streaming vs materialized (N={N}, the same probes): value rel diff {d_val:.3e} (gate "
+          f"{OBJECTIVE_TOL:g}), gradients max-norm rel diff {d_grad:.3e} (gate {GRAD_TOL:g})")
+    if not (d_val <= OBJECTIVE_TOL and d_grad <= GRAD_TOL):
+        raise AssertionError("GPRCG streaming and materialized disagree on the same probes")
+
+
+def slice_times(gft, torch, gram, trsm, cg_model, lvm_model_, dev):
+    """Phase 3 and phase 5 for phase 4h's slice, at the shapes its path
+    runs: the cross Gram at config #5's streaming panel (4096 x CG_N of the
+    warped inputs, D=1) and the wide TRSM at the BayesianGPLVM's L^-1 psi1^T
+    (N=LVM_M, P=LVM_N), each held to its plain version in f64 at phase 3's
+    gates (OPERAND_TOL x variance absolute; TRSM_TOL relative, max-norm),
+    then timed against its plain f32 version (and the TRSM against
+    solve_triangular). Each row carries its max abs error."""
+    rows = {}
+    block = gft.models.cg_gpr.STREAM_BLOCK
+    with torch.no_grad():
+        H = (cg_model.kern.warp(cg_model.X) / cg_model.kern.base_kernel.lengthscales.value).contiguous()
+        var = cg_model.kern.base_kernel.variance.value.detach().reshape(())
+    xb = H[:block].contiguous()
+    kernel = lambda: gram.gram_cuda("rbf", xb, H, var)  # noqa: E731
+    want = gram.gram_reference("rbf", xb.double(), H.double(), var.double())
+    err = float((kernel().double() - want).abs().max())
+    del want
+    print(f"gram (cross) rbf D=1 at config #5's panel ({block} x {CG_N}): max abs err {err:.3e} vs f64 (tol "
+          f"{OPERAND_TOL:g} x variance {float(var):.4f})")
+    if not err <= OPERAND_TOL * float(var):
+        raise AssertionError(f"cross-Gram kernel disagrees at config #5's panel: {err}")
+    k_ms, p_ms = paired_ms(torch, kernel, lambda: gram.gram_reference("rbf", xb, H, var))
+    b_ms, b_by = bound(5 * block * CG_N, block * CG_N * 4 + (block + CG_N) * 4)
+    rows["gram_cg_panel"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                             "max_abs_err": err, **other_ms(torch, kernel)}
+    m = lvm_model_
+    with gft.config.temp_settings(jitter=VGP_JITTER), torch.no_grad():
+        Z = m.feature.Z.value
+        L = gft.ops.linalg.cholesky(gft.features.Kuu(m.feature, m.kern, jitter=VGP_JITTER))
+        _, psi1, _ = gft.conditionals.psi_statistics(m.kern, Z, m.X_mean.value, m.X_var.value)
+    B = psi1.T.contiguous()
+    kernel = lambda: trsm.trsm_cuda(L, B, True)  # noqa: E731
+    want = trsm.solve_triangular_plain(L.double(), B.double(), True)
+    err = float((kernel().double() - want).abs().max())
+    rel = err / float(want.abs().max())
+    print(f"trsm lower at the BayesianGPLVM's L^-1 psi1^T (N={LVM_M}, P={LVM_N}): rel err {rel:.3e} vs f64 "
+          f"(tol {TRSM_TOL:g})")
+    if not rel <= TRSM_TOL:
+        raise AssertionError(f"TRSM kernel disagrees at the BayesianGPLVM's shape: {rel}")
+    library = lambda: torch.linalg.solve_triangular(L, B, upper=False)  # noqa: E731
+    k_ms, p_ms = paired_ms(torch, kernel, lambda: trsm.solve_triangular_plain(L, B, True))
+    b_ms, b_by = bound(LVM_M * LVM_M * LVM_N, LVM_M * (LVM_M + 1) // 2 * 4 + 2 * LVM_M * LVM_N * 4)
+    rows["trsm_bgplvm"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": statistics.median(cuda_ms(torch, library)),
+                           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                           **other_ms(torch, kernel, library)}
+    for name, r in rows.items():
+        print(f"  {name}: kernel {r['ms']:.4f} ms (runs of {RUN} {r['run20_ms']:.4f}, device {r['device_ms']:.4f}), "
+              f"plain f32 {r['plain_ms']:.4f} ms, library "
+              + ("-" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms") + f", bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})")
+    return rows
+
+
+def lvm_data():
+    """Example 08's data (examples/08_gplvm_latent_discovery.py) at
+    N=LVM_N: 2-D latents, P=12 outputs tanh(X W) + 0.05 noise,
+    RandomState(0); and LVM_NQ new latent points."""
+    rng = np.random.RandomState(0)
+    X_true = rng.randn(LVM_N, LVM_Q)
+    W = rng.randn(LVM_Q, LVM_P)
+    Y = np.tanh(X_true @ W) + 0.05 * rng.randn(LVM_N, LVM_P)
+    Xq = rng.randn(LVM_NQ, LVM_Q)
+    return Y.astype(np.float32), Xq.astype(np.float32)
+
+
+def lvm_model(gft, torch, which, dtype, dev, like=None):
+    """Phase 4h's GPLVM (PCA initialization, RBF ARD) or BayesianGPLVM (q(X)
+    from the PCA latents with variance 0.1, M=LVM_M inducing points, RBF
+    ARD); ``like``: a model whose state it takes."""
+    Y, _ = lvm_data()
+    X0 = gft.models.pca_reduce(Y, LVM_Q)
+    kern = gft.kernels.RBF(LVM_Q, ARD=True)
+    if which == "GPLVM":
+        m = gft.models.GPLVM(Y, LVM_Q, X_mean=X0, kern=kern, device=dev, dtype=dtype)
+    else:
+        m = gft.models.BayesianGPLVM(X0, np.full_like(X0, 0.1), Y, kern, M=LVM_M, device=dev, dtype=dtype)
+    if like is not None:
+        m.load_state_dict(like.state_dict())
+    return m
+
+
+def print_unrefined(gft, m32, ref64):
+    """The BayesianGPLVM's float32 errors against the f64 plain path with
+    its solves against Kuu's factor unrefined (``ops.linalg``'s
+    ``solve_lower_refined`` as ``solve_lower``), on both routes: printed
+    beside the gate, which holds the model as it runs (refined on either
+    route), not gated."""
+    la = gft.ops.linalg
+    refined = la.solve_lower_refined
+    la.solve_lower_refined = la.solve_lower
+    try:
+        runs = [value_and_grads(gft, m32, flag, jitter=VGP_JITTER) for flag in (True, False)]
+    finally:
+        la.solve_lower_refined = refined
+    v64, g64 = ref64
+    errs = [f"value {abs(runs[0][0] - v64) / abs(v64):.3e} / {abs(runs[1][0] - v64) / abs(v64):.3e}"]
+    for n, want in g64.items():
+        scale = float(want.abs().max())
+        errs.append(f"{n} " + " / ".join(f"{float((g[n] - want).abs().max()) / scale:.3e}" for _, g in runs))
+    print("  unrefined Kuu solves (kernel route / use_kernels=False; rel err vs the f64 plain path, gradients "
+          "max-norm; not gated): " + "; ".join(errs))
+
+
+def lvm_checks(gft, torch, gram, cholesky, trsm, dev):
+    """Phase 4h: GPLVM and BayesianGPLVM at N=LVM_N (float32, the kernel
+    route). Each: one objective + gradient (its launches), LVM_STEPS Adam
+    steps, then the objective and every gradient (X, or X_mean, X_var and
+    Z, and the hyperparameters) and predict_f at LVM_NQ points against the
+    f64 plain path within twice the use_kernels=False route's error + 1e-5
+    / 1e-3 / 1e-6 (the BayesianGPLVM's errors with its Kuu solves unrefined
+    printed beside, not gated); a profile of the objective + gradient: the lower-tile
+    Gram (GPLVM) or the cross Gram (BayesianGPLVM), the factor-only
+    Cholesky and the TRSM launch, and no library factorization (GPLVM:
+    ``densities.multivariate_normal``'s solve is torch.linalg's, as the JAX
+    package's is jax.scipy's). Then ``uncertain_conditional`` on the trained
+    BayesianGPLVM's optimal q(u) (whitened), RBF (closed form) and Matern32
+    (quadrature), against the f64 plain path. Returns the launches and the
+    trained models."""
+    launches, models = {}, {}
+    _, Xq = lvm_data()
+    for which, lr, need in (("GPLVM", LVM_LR, ("gram_lower_kernel", "chol_diag_kernel", "trsm_group_kernel")),
+                            ("BayesianGPLVM", LVM_LR / 2, ("gram_cross_kernel", "chol_diag_kernel"))):
+        m32 = lvm_model(gft, torch, which, torch.float32, dev)
+        reset_counts(gram, cholesky, trsm)
+        k0 = value_and_grads(gft, m32, True, jitter=VGP_JITTER)
+        one = read_counts(gram, cholesky, trsm)
+        ran = (one["gram_lower"] if which == "GPLVM" else one["gram"]) and one["cholesky"] >= (
+            1 if which == "GPLVM" else 2) and one["trsm_wide"] + one["trsm_thin"] > 0
+        if not ran or one["chol_solve"] or one["operand"]:
+            raise AssertionError(f"{which}: the objective and gradient did not run the expected kernels: {one}")
+        with gft.config.temp_settings(jitter=VGP_JITTER):
+            _, losses = gft.training.fit(m32, num_steps=LVM_STEPS, learning_rate=lr)
+            with torch.no_grad():
+                pred = m32.predict_f(Xq)
+        torch.cuda.synchronize()
+        launches[which] = read_counts(gram, cholesky, trsm)
+        losses = losses.cpu().numpy()
+        print(f"{which} (N={LVM_N}, P={LVM_P}, Q={LVM_Q}" + (f", M={LVM_M}" if which != "GPLVM" else "")
+              + f"): objective {k0[0]:.6f}, its objective + gradient launches {one}; {LVM_STEPS} Adam steps "
+              f"(lr {lr:g}), losses {np.array2string(losses, precision=4)}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{which}: {LVM_STEPS} Adam steps did not lower the loss")
+        m64 = lvm_model(gft, torch, which, torch.float64, dev, like=m32)
+        runs = [value_and_grads(gft, m, flag, jitter=VGP_JITTER) for m, flag in ((m32, True), (m32, False),
+                                                                                  (m64, False))]
+        gate_against_f64(f"{which} objective after {LVM_STEPS} Adam steps", *runs)
+        if which == "BayesianGPLVM":
+            print_unrefined(gft, m32, runs[2])
+        with gft.config.temp_settings(use_kernels=False, jitter=VGP_JITTER), torch.no_grad():
+            plain, ref = m32.predict_f(Xq), m64.predict_f(Xq)
+        gate_predictions(which, {"predict_f": pred}, {"predict_f": plain}, {"predict_f": ref})
+
+        def step():
+            with gft.config.temp_settings(jitter=VGP_JITTER):
+                m32.zero_grad(set_to_none=True)
+                m32.objective().backward()
+
+        names = device_kernels(torch, step)
+        mine = collections.Counter()
+        for n, c in names.items():
+            if ours(n):
+                mine[ours(n)] += c
+        libs = library_solves(names)
+        factorizations = {n: c for n, c in libs.items() if not any(w in n.lower() for w in ("trsm", "trsv"))}
+        print(f"launch check, {which} objective + gradient (torch.profiler, kernel route): {dict(mine)}; library "
+              f"factorizations and triangular solves: {libs or 'none'}")
+        missing = [k for k in need if not mine.get(k)]
+        if not (mine.get("trsm_group_kernel") or mine.get("trsm_thin_kernel")):
+            missing.append("a TRSM")
+        if missing or (factorizations if which == "GPLVM" else libs):
+            raise AssertionError(f"{which}: kernels missing {missing}, library solves {libs}")
+        models[which] = (m32, m64)
+    # uncertain_conditional on the trained BayesianGPLVM's optimal q(u):
+    # whitened, q(v) = N(LB^-T c, B^-1)
+    m32, m64 = models["BayesianGPLVM"]
+    with gft.config.temp_settings(use_kernels=False, jitter=VGP_JITTER), torch.no_grad():
+        _, _, _, LB, c, _, _ = m64._common_factors()
+        q_mu = torch.linalg.solve_triangular(LB.T, c, upper=True)
+        q_sqrt = torch.linalg.cholesky(torch.cholesky_inverse(LB)).expand(LVM_P, -1, -1)
+    Xvar = np.full_like(Xq, 0.05)
+    for kname in ("RBF", "Matern32"):
+        answers = {}
+        for label, m, flag in (("kernel", m32, True), ("stock", m32, False), ("f64", m64, False)):
+            dt = m.Y.dtype
+            kern = m.kern if kname == "RBF" else gft.kernels.Matern32(
+                LVM_Q, variance=m.kern.variance.value.item(), lengthscales=m.kern.lengthscales.value.detach().cpu().numpy(),
+                ARD=True).to(device=dev, dtype=dt)
+            with gft.config.temp_settings(use_kernels=flag, jitter=VGP_JITTER), torch.no_grad():
+                answers[label] = gft.conditionals.uncertain_conditional(
+                    torch.tensor(Xq, device=dev, dtype=dt), torch.tensor(Xvar, device=dev, dtype=dt), m.feature, kern,
+                    q_mu.to(dt), q_sqrt.to(dt), white=True)
+        gate_predictions(f"uncertain_conditional ({kname}, {'closed form' if kname == 'RBF' else 'quadrature'}) on "
+                         f"the trained BayesianGPLVM's q(u)", {"moments": answers["kernel"]},
+                         {"moments": answers["stock"]}, {"moments": answers["f64"]})
+    return launches, {k: v[0] for k, v in models.items()}
+
+
+def nkn_kernel(gft):
+    """Example 06's network (examples/06_nkn_pattern_discovery.py)."""
+    k = gft.kernels
+    prims = [k.RBF(1, lengthscales=0.5), k.Periodic(1, period=0.7), k.Linear(1), k.Matern32(1, lengthscales=1.0)]
+    nkn = gft.kernels_nkn
+    return nkn.NKN(1, prims, [nkn.NKNLinear(4, 4), nkn.NKNProduct(4, 2), nkn.NKNLinear(2, 1)])
+
+
+def nkn_checks(gft, torch, gram, cholesky, trsm, dev):
+    """Phase 4h: a GPR on example 06's NKN at bench.py's N=10000 (float32,
+    the kernel route): the objective and every gradient against the f64
+    plain path within twice the use_kernels=False route's error + 1e-5 /
+    1e-3, and a profile of the objective: the stationary primitives (RBF,
+    Matern32) run the cross Gram, the objective the padded fused Cholesky,
+    and no library factorization or solve. Returns the launches."""
+    X, Y = bench_data()
+    m32 = gft.models.GPR(X, Y, kern=nkn_kernel(gft), device=dev, dtype=torch.float32)
+    m64 = gft.models.GPR(X, Y, kern=nkn_kernel(gft), device=dev, dtype=torch.float64)
+    m64.load_state_dict(m32.state_dict())
+    reset_counts(gram, cholesky, trsm)
+    k32 = value_and_grads(gft, m32, True, jitter=VGP_JITTER)
+    launches = read_counts(gram, cholesky, trsm)
+    gate_against_f64(f"NKN GPR objective (N={N})", k32, value_and_grads(gft, m32, False, jitter=VGP_JITTER),
+                     value_and_grads(gft, m64, False, jitter=VGP_JITTER))
+    del m64
+
+    def objective():
+        with torch.no_grad():
+            m32.objective()
+
+    names = device_kernels(torch, objective)
+    mine = collections.Counter()
+    for n, c in names.items():
+        if ours(n):
+            mine[ours(n)] += c
+    libs = library_solves(names)
+    print(f"NKN GPR objective + gradient launches {launches}; launch check, its objective (torch.profiler, kernel "
+          f"route): {dict(mine)}; library factorizations and triangular solves: {libs or 'none'}")
+    missing = [k for k in ("gram_cross_kernel", "chol_diag_kernel", "logdet_sum_kernel") if not mine.get(k)]
+    if missing or libs or mine.get("gram_cross_kernel") != 2 or launches["chol_solve"] != 1 or launches["gram"] != 2:
+        raise AssertionError(f"NKN: kernels missing {missing} or miscounted {dict(mine)}, library solves {libs}")
+    return launches
+
+
 def main():
     import torch
 
@@ -2655,6 +3186,14 @@ def main():
     vgp_errs["cholesky"] = max(vgp_errs["cholesky"], oa_logdet_check(gft, torch, cholesky, vgp_models["OA"]))
     vgp_launch_check(gft, torch, vgp_models)
 
+    # 4h. the matrix-free and latent-variable slice: config #5 on one chip
+    # (GPRCG streaming, deep kernel, N=50000), GPRCG against the exact GPR,
+    # GPLVM and BayesianGPLVM with uncertain_conditional, the NKN GPR
+    cg_out, cg_model = cg_checks(gft, torch, gram, cholesky, trsm, dev, card)
+    exact_vs_cg(gft, torch, dev)
+    lvm_launches, lvm_models = lvm_checks(gft, torch, gram, cholesky, trsm, dev)
+    nkn_launches = nkn_checks(gft, torch, gram, cholesky, trsm, dev)
+
     # 5. times on the card, kernel route against plain
     def on_card(ms):
         return f"{ms:.3f} ms"
@@ -2783,6 +3322,8 @@ def main():
     nuts_rows = nuts_times(torch, gram, cholesky, dev)
     # the full-data variational slice
     vgp_rows = vgp_times(gft, torch, gram, cholesky, trsm, vgp_L, vgp_models, dev, card)
+    # the matrix-free and latent-variable slice
+    slice_rows = slice_times(gft, torch, gram, trsm, cg_model, lvm_models["BayesianGPLVM"], dev)
 
     # each kernel's bound at the shape it was timed at (D = 1 inputs; a map
     # entry counted as 5 flop: the difference, its square, the scale, exp)
@@ -2862,6 +3403,11 @@ def main():
                  vgp_errs["operand"], vgp_rows["gram_chol_operand_entry"]),
         timed_row("chol_solve_logdet_entry", "chol_solve.cu", "pallas_cholesky.py:857",
                  vgp_launches["lbfgs"]["chol_solve"], vgp_errs["chol_solve"], vgp_rows["chol_solve_logdet_entry"]),
+        timed_row("gram_cg_panel", "gram.cu", "pallas_gram.py:95",
+                 cg_out["config5"]["launches"]["gram_by_shape"].get((gft.models.cg_gpr.STREAM_BLOCK, CG_N), 0),
+                 slice_rows["gram_cg_panel"]["max_abs_err"], slice_rows["gram_cg_panel"]),
+        timed_row("trsm_bgplvm", "trsm.cu", "pallas_trsm.py:116", lvm_launches["BayesianGPLVM"]["trsm_wide"],
+                 slice_rows["trsm_bgplvm"]["max_abs_err"], slice_rows["trsm_bgplvm"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,8 @@ from . import (
     features,
     interop,
     kernels,
+    kernels_deep,
+    kernels_nkn,
     kullback_leiblers,
     likelihoods,
     mean_functions,

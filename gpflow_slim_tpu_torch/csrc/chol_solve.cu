@@ -63,12 +63,26 @@
 // f64 array (`dpiv`, updated by the diagonal tiles of every update: sums of
 // squares of f32 factor entries, in f64), and each 64 x 64 diagonal block is
 // factored in f64. At N = 10000 this takes the half-logdet error from about
-// 1.4e-5 to a few 1e-6 relative. The trailing sums start from the entry
-// they update and subtract one FMA at a time (common.cuh), so the wider
-// panel does not round at the magnitude of a 256-term dot product (which
-// put the half-logdet 1.9e-5 off f64 at N = 10000). A non-positive pivot
-// gives NaN (sqrt of a negative) and never traps, as the TPU and XLA paths
-// do.
+// 1.4e-5 to a few 1e-6 relative. The off-diagonal entries stay f32, and
+// their updates are sums of 64 products from zero, each added to the entry
+// once (the inner updates with tile_fma, the trailing ones 64 inner indices
+// at a time on mm_run, into the tile held in shared memory for the whole
+// panel). Starting from the entry and subtracting one FMA at a time biased
+// the logdet on an ill-conditioned K: the late products of a row fall below
+// half an ulp of the running entry and are lost, all with one sign for two
+// nearly dependent rows, while their f64 pivots lose nothing, so the small
+// eigenvalues of every Schur complement shrink. On a 64 x 32 grid's RBF
+// Gram + 1e-4 I (Np = 2048, cond 1.1e6) that put the half-logdet 3.99e-4
+// off the f64 factor of the same f32 input, 10x cuSOLVER's 4.2e-5; the
+// 64-term sums put it 3.5e-5 off (tools/chol_logdet_diag.py). A sum from
+// zero loses nothing of its small terms; a 256-term sum added once rounds
+// at the magnitude of the whole panel's product, 1e-4 off on the same grid,
+// and an f64 copy of the 64 x 64 diagonal blocks keeps 60% of the bias
+// (tools/chol_order_emulate.py). Holding the tile in shared memory keeps
+// its global traffic at one read and one write a panel: the four 64-term
+// flushes read and wrote it in global memory 4x as often, 33% slower at
+// N = 10048 (H100). A non-positive pivot gives NaN (sqrt of a negative)
+// and never traps, as the TPU and XLA paths do.
 //
 // Operand contract (ops/gram.py's operand for the fused mode, the padding of
 // ops/cholesky.py `cholesky` for the factor-only mode): K is the padded
@@ -375,29 +389,39 @@ __global__ void __launch_bounds__(gfs::kMmThreads, 2)
   }
   const int I = J0 + ti, J = J0 + tj;
   const int row0 = I * gfs::kMmTile, col0 = J * gfs::kMmTile;
-  const gfs::MmOperand A = {K + static_cast<size_t>(row0) * Np + p0, Np, 1, Np - row0, width};
-  const gfs::MmOperand B = {K + static_cast<size_t>(col0) * Np + p0, Np, 1, Np - col0, width};
   const bool diag = I == J;
   double piv = 0.0;  // thread o < 128 of a diagonal tile: sum_t L[row0 + o][p0 + t]^2
-  // A_IJ, less the product below: entries of a strictly-upper 64 x 64
-  // block are neither read nor written (only a diagonal tile has them)
+  // A_IJ, less the product: entries of a strictly-upper 64 x 64 block are
+  // neither read nor written (only a diagonal tile has them). The tile is
+  // copied into shared memory while the ring fills; the sum of each 64
+  // inner indices starts from zero and is added to it there once (the
+  // header says why), and the tile is written back at the end.
   float* const tile = K + static_cast<size_t>(row0) * Np + col0;
   const auto kept = [&](int r, int c) { return !diag || c / kBs <= r / kBs; };
-  gfs::MmAcc acc;
-  gfs::mm_tile_io<false>(acc, tile, Np, Np - row0, Np - col0, kept);
-  gfs::mm_run<true, true>(acc, A, B, width, sa, sb, [&](const gfs::MmStage& s, int t0) {
-    if (diag && threadIdx.x < gfs::kMmTile) {
-      const int n = min(gfs::kMmBk, width - t0);
-      for (int t = 0; t < n; ++t) {
-        const double v = s[t][threadIdx.x];
-        piv = fma(v, v, piv);
-      }
-    }
-  });
+  extern __shared__ float ct[];  // the running A_IJ, this thread's 64 entries (common.cuh)
+  gfs::mm_tile_to_smem(ct, tile, Np, Np - row0, Np - col0, kept);
+  gfs::cp_async_commit();  // mm_run's first wait covers this group
+  const gfs::MmOperand A = {K + static_cast<size_t>(row0) * Np + p0, Np, 1, Np - row0, width};
+  const gfs::MmOperand B = {K + static_cast<size_t>(col0) * Np + p0, Np, 1, Np - col0, width};
+  gfs::MmAcc acc = {};
+  gfs::mm_run<true, true>(
+      acc, A, B, width, sa, sb,
+      [&](const gfs::MmStage& s, int t0) {
+        if (diag && threadIdx.x < gfs::kMmTile) {
+          const int n = min(gfs::kMmBk, width - t0);
+          for (int t = 0; t < n; ++t) {
+            const double v = s[t][threadIdx.x];
+            piv = fma(v, v, piv);
+          }
+        }
+      },
+      [&](int s, int stages) {
+        if (((s + 1) * gfs::kMmBk) % kBs == 0 || s + 1 == stages) gfs::mm_acc_flush(acc, ct);
+      });
   if (diag && threadIdx.x < gfs::kMmTile && row0 + static_cast<int>(threadIdx.x) < Np) {
     dpiv[row0 + threadIdx.x] -= piv;
   }
-  gfs::mm_tile_io<true>(acc, tile, Np, Np - row0, Np - col0, kept);
+  gfs::mm_tile_from_smem(ct, tile, Np, Np - row0, Np - col0, kept);
 }
 
 __global__ void logdet_sum_kernel(const double* __restrict__ partials, int nb,
@@ -432,6 +456,17 @@ int look_ahead(LookAhead*& out) {
     }
     if (err == cudaSuccess) err = cudaEventCreateWithFlags(&made[dev].main_done, cudaEventDisableTiming);
     if (err == cudaSuccess) err = cudaEventCreateWithFlags(&made[dev].side_done, cudaEventDisableTiming);
+    // the trailing kernel's running tile lives in 64 KB of dynamic shared
+    // memory, beside its 33 KB ring: two blocks an SM need the most shared
+    // memory the SM can give
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(chol_trailing_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 gfs::kMmTileSmem);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(chol_trailing_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
@@ -479,16 +514,16 @@ int factor(float* K, int Np, float* alpha, int P, double* dpiv, double* partials
     // panel p applied to panel p + 1's columns, then panel p + 1 factored on
     // the side stream while panel p is applied to the columns beyond
     const dim3 next_grid(static_cast<unsigned>(tiles - J1), static_cast<unsigned>(next_cols));
-    chol_trailing_kernel<<<next_grid, gfs::kMmThreads, 0, s>>>(K, Np, p0, panel_cols, J1, next_cols,
-                                                                 dpiv);
+    chol_trailing_kernel<<<next_grid, gfs::kMmThreads, gfs::kMmTileSmem, s>>>(K, Np, p0, panel_cols, J1,
+                                                                                next_cols, dpiv);
     cudaEventRecord(la->main_done, s);
     cudaStreamWaitEvent(la->side, la->main_done, 0);
     factor_panel(K, Np, p + 1, alpha, P, dpiv, partials, la->side);
     cudaEventRecord(la->side_done, la->side);
     const long long rest = tiles - J1 - next_cols;  // tile columns beyond panel p + 1
     if (rest > 0) {
-      chol_trailing_kernel<<<static_cast<unsigned>(rest * (rest + 1) / 2), gfs::kMmThreads, 0, s>>>(
-          K, Np, p0, panel_cols, J1 + next_cols, 0, dpiv);
+      chol_trailing_kernel<<<static_cast<unsigned>(rest * (rest + 1) / 2), gfs::kMmThreads, gfs::kMmTileSmem,
+                             s>>>(K, Np, p0, panel_cols, J1 + next_cols, 0, dpiv);
     }
     cudaStreamWaitEvent(s, la->side_done, 0);
     const cudaError_t e = cudaGetLastError();

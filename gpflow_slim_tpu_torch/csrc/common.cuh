@@ -257,16 +257,18 @@ __device__ __forceinline__ int mm_col_index(int j, int tx) { return kMmColRun * 
 
 // acc[i][j] -= sum_t A(mm_row_index(i, ty), t) * B(mm_col_index(j, tx), t)
 // over t < inner, one FMA at a time in t.
-// The caller loads the output tile into acc first, so every rounding is at
-// the magnitude of the running remainder C - sum: a separate 256-term dot
-// product subtracted at the end rounds at the magnitude of the whole dot
-// and, in the Cholesky, put the half-logdet 4x further from f64. Every
-// thread of the block calls it. After each stage lands and before its
-// FMAs, hook(stage_a, t0) may read the A stage (sa[t][o], inner indices t0
-// ...). The caller writes acc out.
-template <bool kAInnerContig, bool kBInnerContig, typename Hook>
+// The caller either loads the output tile into acc first (every rounding is
+// then at the magnitude of the running remainder C - sum: the wide TRSM) or
+// zeroes it and adds partial sums to the tile from `done` (the Cholesky's
+// trailing update, 64 inner indices at a time; see chol_solve.cu's header
+// for why). Every thread of the block calls it.
+// After each stage lands and before its FMAs, hook(stage_a, t0) may read
+// the A stage (sa[t][o], inner indices t0 ...); after its FMAs,
+// done(s, stages) may use acc (stage s of `stages`). The caller writes acc
+// out.
+template <bool kAInnerContig, bool kBInnerContig, typename Hook, typename Done>
 __device__ __forceinline__ void mm_run(MmAcc& acc, const MmOperand& A, const MmOperand& B,
-                                       int inner, MmStage* sa, MmStage* sb, Hook hook) {
+                                       int inner, MmStage* sa, MmStage* sb, Hook hook, Done done) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int stages = (inner + kMmBk - 1) / kMmBk;
   mm_load_stage<kAInnerContig>(A, 0, sa[0]);
@@ -301,6 +303,7 @@ __device__ __forceinline__ void mm_run(MmAcc& acc, const MmOperand& A, const MmO
         for (int j = 0; j < kMmCols; ++j) acc[i][j] = fmaf(-av[i], bv[j], acc[i][j]);
       }
     }
+    done(s, stages);
     __syncthreads();  // every thread is done with this stage before it is refilled
   }
 }
@@ -324,6 +327,63 @@ __device__ __forceinline__ void mm_tile_io(MmAcc& acc, float* tile, int ld, int 
         if (in) row[c] = acc[i][j];
       } else {
         acc[i][j] = in ? row[c] : 0.0f;
+      }
+    }
+  }
+}
+
+// The thread's own outputs of an output tile held in shared memory, entry
+// (i, j) of its acc at ct[(i * kMmCols + j) * kMmThreads + threadIdx.x]: each
+// thread touches only its own entries (conflict-free, no barrier), 64 KB
+// for the block.
+constexpr int kMmTileSmem = kMmRows * kMmCols * kMmThreads * static_cast<int>(sizeof(float));
+
+// Copies the tile at `tile` (row stride ld) into ct with cp.async: entry
+// (r, c) where r < rows, c < cols and keep(r, c), 0 elsewhere. The caller
+// commits the group.
+template <typename Keep>
+__device__ __forceinline__ void mm_tile_to_smem(float* ct, const float* tile, int ld, int rows, int cols,
+                                                Keep keep) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < kMmRows; ++i) {
+    const int r = mm_row_index(i, ty);
+#pragma unroll
+    for (int j = 0; j < kMmCols; ++j) {
+      const int c = mm_col_index(j, tx);
+      const bool in = r < rows && c < cols && keep(r, c);
+      cp_async4(&ct[(i * kMmCols + j) * kMmThreads + threadIdx.x], in ? tile + static_cast<size_t>(r) * ld + c : tile,
+                in);
+    }
+  }
+}
+
+// ct += acc (one rounding each), then acc = 0.
+__device__ __forceinline__ void mm_acc_flush(MmAcc& acc, float* ct) {
+#pragma unroll
+  for (int i = 0; i < kMmRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < kMmCols; ++j) {
+      ct[(i * kMmCols + j) * kMmThreads + threadIdx.x] += acc[i][j];
+      acc[i][j] = 0.0f;
+    }
+  }
+}
+
+// Writes ct back to the tile: entry (r, c) where r < rows, c < cols and
+// keep(r, c).
+template <typename Keep>
+__device__ __forceinline__ void mm_tile_from_smem(const float* ct, float* tile, int ld, int rows, int cols,
+                                                  Keep keep) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < kMmRows; ++i) {
+    const int r = mm_row_index(i, ty);
+#pragma unroll
+    for (int j = 0; j < kMmCols; ++j) {
+      const int c = mm_col_index(j, tx);
+      if (r < rows && c < cols && keep(r, c)) {
+        tile[static_cast<size_t>(r) * ld + c] = ct[(i * kMmCols + j) * kMmThreads + threadIdx.x];
       }
     }
   }

@@ -185,7 +185,8 @@ __global__ void __launch_bounds__(gfs::kMmThreads, 2)
   float* const tile = X + static_cast<size_t>(row_base) * P + col_base;
   gfs::MmAcc acc;  // the X tile, less the product
   gfs::mm_tile_io<false>(acc, tile, P, A.outer, B.outer, [](int, int) { return true; });
-  gfs::mm_run<!kTrans, false>(acc, A, B, inner, sa, sb, [](const gfs::MmStage&, int) {});
+  gfs::mm_run<!kTrans, false>(acc, A, B, inner, sa, sb, [](const gfs::MmStage&, int) {},
+                               [](int, int) {});
   gfs::mm_tile_io<true>(acc, tile, P, A.outer, B.outer, [](int, int) { return true; });
 }
 

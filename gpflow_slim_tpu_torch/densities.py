@@ -2,7 +2,8 @@
 
 Elementwise log-pdfs that broadcast; the prior hyperparameters may be plain
 floats, which are lifted to tensors of the argument's dtype and device.
-``multivariate_normal`` comes with the models that use it.
+``multivariate_normal`` is the total log-pdf given a Cholesky factor; its
+solve is ``torch.linalg``'s, as the JAX package's is ``jax.scipy``'s.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import math
 import torch
 
 __all__ = ["gaussian", "bernoulli", "lognormal", "poisson", "exponential", "gamma", "student_t", "beta",
-           "laplace"]
+           "laplace", "multivariate_normal"]
 
 
 def _like(v, x):
@@ -76,3 +77,18 @@ def beta(alpha, bet, y):
 def laplace(mu, sigma, y):
     sigma = _like(sigma, y)
     return -torch.abs(mu - y) / sigma - torch.log(2.0 * sigma)
+
+
+def multivariate_normal(x, mu, L):
+    """Total MVN log-pdf of the column(s) of ``x`` given the mean ``mu`` and
+    the lower Cholesky factor ``L`` of the covariance: x, mu (N,) or (N, P),
+    L (N, N). The sum over the P columns of
+    ``-N/2 log 2 pi - sum log diag L - 1/2 ||L^-1 (x - mu)||^2``."""
+    d = x - mu
+    if d.dim() == 1:
+        d = d[:, None]
+    alpha = torch.linalg.solve_triangular(L, d, upper=False)
+    num_dims, num_col = d.shape
+    return (-0.5 * num_dims * num_col * math.log(2.0 * math.pi)
+            - num_col * torch.sum(torch.log(torch.diagonal(L)))
+            - 0.5 * torch.sum(torch.square(alpha)))

@@ -80,7 +80,8 @@ def _factor_padded(K):
     is the masked leading block, a view into the buffer (row stride Np)."""
     N = K.shape[0]
     Np = N + (-N) % BLOCK
-    Kp = F.pad(K, (0, Np - N, 0, Np - N))
+    # contiguous: a zero pad keeps K's strides, and the kernel reads rows
+    Kp = F.pad(K, (0, Np - N, 0, Np - N)).contiguous()
     Kp.diagonal()[N:] = 1.0
     if Kp.device.type == "cpu":  # plain for CPU tensors; launch or raise otherwise
         Kp.copy_(cholesky_plain(Kp))

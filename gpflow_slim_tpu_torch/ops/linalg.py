@@ -5,7 +5,8 @@ solves.
 Counterpart of ``gpr_chol_terms``, ``chol_logdet_quad``, ``cholesky``,
 ``solve_lower``, ``solve_upper``, ``cho_solve_lower``, the ``batched_*``
 solves and ``robust_cholesky`` in ``gpflow_slim_tpu/ops/linalg.py``, with
-the same dispatch shape. The route is decided here and nowhere else, by
+the same dispatch shape, and ``solve_lower_refined``, a float32 solve
+refined on float64 residuals. The route is decided here and nowhere else, by
 ``kernels_active``: for a CUDA float32 tensor with
 ``config.settings().use_kernels`` on, it is the hand-written kernels at
 every N and every right-hand-side width:
@@ -51,9 +52,10 @@ def pad_system(K, D):
     system's."""
     N = K.shape[0]
     Np = N + (-N) % _chol.BLOCK
-    Kp = F.pad(K, (0, Np - N, 0, Np - N))
+    # contiguous: a zero pad keeps K's strides, and the kernel reads rows
+    Kp = F.pad(K, (0, Np - N, 0, Np - N)).contiguous()
     Kp.diagonal()[N:] = 1.0
-    return Kp, F.pad(D.to(K.dtype), (0, 0, 0, Np - N))
+    return Kp, F.pad(D.to(K.dtype), (0, 0, 0, Np - N)).contiguous()
 
 
 def chol_logdet_quad(K, D):
@@ -107,6 +109,22 @@ def solve_lower(L, B):
     if kernels_active(L):
         return _trsm.solve_lower(L, B)
     return _trsm.solve_triangular_plain(L, B, lower=True)
+
+
+def solve_lower_refined(L, B):
+    """``solve_lower(L, B)`` and, for a float32 ``L``, one step of iterative
+    refinement on float64 residuals ``B - L X`` (a second solve and a
+    float64 product) on either route; a float64 solve is returned as it
+    is. A float32 solve's error relative to L is about cond(L) x 6e-8, and
+    the BayesianGPLVM's bound amplifies its solves against an
+    ill-conditioned Kuu (cond(Kuu) ~1e5 on example 08's data at M=64,
+    where unrefined float32 solves put its gradients ~1e-2 off float64 on
+    either route: tools/lvm_grad_points.py on an H100)."""
+    X = solve_lower(L, B)
+    if L.dtype != torch.float32:
+        return X
+    R = (B.double() - torch.tril(L).double() @ X.double()).to(X.dtype)
+    return X + solve_lower(L, R)
 
 
 def solve_upper(U, B):

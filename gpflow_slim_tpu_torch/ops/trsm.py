@@ -225,7 +225,9 @@ class _Trsm(torch.autograd.Function):
 
 
 def _apply(T, B, lower):
-    X = _Trsm.apply(T, B if B.dim() == 2 else B[:, None], lower)
+    # the kernels read B's rows contiguously: a transposed view (the
+    # BayesianGPLVM's psi1^T) is copied first
+    X = _Trsm.apply(T, (B if B.dim() == 2 else B[:, None]).contiguous(), lower)
     return X if B.dim() == 2 else X[:, 0]
 
 

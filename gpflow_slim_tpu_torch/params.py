@@ -24,7 +24,7 @@ from torch import nn
 
 from .transforms import Identity, Transform
 
-__all__ = ["Param", "Module", "parameters", "log_prior", "pack_trainable", "unpack_trainable"]
+__all__ = ["Param", "Module", "parameters", "trainable_leaves", "log_prior", "pack_trainable", "unpack_trainable"]
 
 
 class Param(nn.Module):
@@ -77,6 +77,10 @@ class Param(nn.Module):
     def dtype(self):
         return self.unconstrained.dtype
 
+    @property
+    def device(self):
+        return self.unconstrained.device
+
     def prior_logp(self):
         u = self.unconstrained
         if self.prior is None:
@@ -113,6 +117,18 @@ def parameters(module: nn.Module) -> list[tuple[str, Param]]:
     the other)."""
     found = [(n, m) for n, m in module.named_modules() if isinstance(m, Param)]
     return sorted(found, key=lambda item: _path_key(item[0]))
+
+
+def trainable_leaves(module: nn.Module) -> list[tuple[str, torch.Tensor]]:
+    """Every tensor an optimizer updates, named: the trainable Params'
+    unconstrained values under the Param's name, in ``parameters`` order
+    (that of ``pack_trainable``), then every other trainable
+    ``nn.Parameter`` under its ``named_parameters`` name (a ``DeepKernel``'s
+    warp: ``kern.warp.layers.0.weight``, the names ``interop`` loads)."""
+    params = parameters(module)
+    held = {id(p.unconstrained) for _, p in params}
+    return ([(n, p.unconstrained) for n, p in params if p.trainable]
+            + [(n, t) for n, t in module.named_parameters() if t.requires_grad and id(t) not in held])
 
 
 def log_prior(module: nn.Module):

@@ -14,7 +14,7 @@ from typing import Callable
 
 import torch
 
-from ..params import parameters
+from ..params import trainable_leaves
 
 
 LINE_SEARCH_EVALS = 25  # evaluations a line search of fit_lbfgs may take (torch's max_ls)
@@ -25,9 +25,7 @@ def _objective(m):
 
 
 def _trainable(model):
-    """The trainable unconstrained leaves in ``parameters`` order, that of
-    ``params.pack_trainable`` (and of the JAX package's)."""
-    return [p.unconstrained for _, p in parameters(model) if p.trainable]
+    return [t for _, t in trainable_leaves(model)]
 
 
 def fit(model, num_steps: int = 1000, learning_rate: float = 0.01,

@@ -839,3 +839,124 @@ def test_fit_lbfgs_on_the_entry_gpr(dev):
     with torch.no_grad():
         got, want = m.objective().item(), m64.objective().item()
     assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+
+
+@pytest.mark.parametrize("jitter", [1e-4, 1e-3, 1e-2])
+def test_half_logdet_on_an_ill_conditioned_K(dev, jitter):
+    # fault l's gate (chip_smoke.py phase 4g): the RBF Gram of a 64 x 32
+    # grid over [0, 1]^2 (lengthscale 0.1) + jitter I, Np = 2048 (cond 1.1e6
+    # at 1e-4): both Cholesky modes' half-logdet within twice cuSOLVER's
+    # f32 error + 1e-6 of the f64 factor of the same f32 input
+    gx, gy = np.meshgrid(np.linspace(0, 1, 64), np.linspace(0, 1, 32), indexing="ij")
+    xs = torch.tensor(np.stack([gx.ravel(), gy.ravel()], 1) / 0.1, dtype=torch.float32, device=dev)
+    K = gram.gram_lower_cuda("rbf", xs, torch.tensor(1.0, device=dev))
+    K.diagonal().add_(jitter)
+    ref = float(torch.log(torch.diagonal(cholesky.cholesky_plain(torch.tril(K).double()))).sum())
+    lib = float(torch.log(torch.diagonal(cholesky.cholesky_plain(torch.tril(K))).double()).sum())
+    fac = float(torch.log(torch.diagonal(cholesky.cholesky_cuda(K.clone())).double()).sum())
+    fused = float(cholesky.cholesky_solve_cuda(K.clone(), torch.zeros(2048, 1, device=dev))[2])
+    tol = 2 * abs(lib - ref) / abs(ref) + 1e-6
+    for got in (fac, fused):
+        assert abs(got - ref) / abs(ref) <= tol, (got, ref, lib)
+
+
+def _deep_cg(dev, dtype, like=None):
+    rng = np.random.RandomState(0)
+    X = rng.uniform(-1, 1, (3000, 2))
+    Y = np.sin(3 * (X[:, :1] + 0.5 * X[:, 1:2])) + 0.05 * rng.randn(3000, 1)
+    kern = gft.kernels_deep.DeepKernel(2, gft.kernels.RBF(1, lengthscales=0.5),
+                                       gft.kernels_deep.mlp_warp([2, 8, 1], torch.Generator().manual_seed(0)))
+    m = gft.models.GPRCG(X.astype(np.float32), Y.astype(np.float32), kern=kern, materialize_k=False, cg_iters=60,
+                         slq_steps=20, device=dev, dtype=dtype)
+    if like is not None:
+        m.load_state_dict(like.state_dict())
+    return m
+
+
+def test_gprcg_streaming_on_the_cross_gram_matches_f64_plain(dev, monkeypatch):
+    # config #5's path at N = 3000 with 1024-row panels (3 panels, a ragged
+    # last one), on given probes: the cross Gram launches once a panel a
+    # matvec (+ the surrogate's panels, forward and backward); the value and
+    # every gradient (the warp's layer by layer) within 2x the stock f32
+    # route's error against f64 + 1e-5 / 1e-3; the warp's last bias, which
+    # shifts every warped input alike, has a gradient of zero to f64 rounding
+    from gpflow_slim_tpu_torch.models import cg_gpr
+    from gpflow_slim_tpu_torch.ops import iterative
+
+    monkeypatch.setattr(cg_gpr, "STREAM_BLOCK", 1024)
+    Z = tuple(iterative.rademacher(torch.tensor(3, device=dev), s, (3000, 16), torch.float64) for s in (0, 1))
+    monkeypatch.setattr(iterative, "cg_probes", lambda params, n, p, dtype: tuple(z.to(dtype) for z in Z))
+    m32 = _deep_cg(dev, torch.float32)
+    m64 = _deep_cg(dev, torch.float64, like=m32)
+
+    def run(m, flag):
+        m.zero_grad(set_to_none=True)
+        with gft.config.temp_settings(use_kernels=flag):
+            loss = m.objective()
+            loss.backward()
+        return loss.item(), {n: t.grad.double() for n, t in gft.params.trainable_leaves(m)}
+
+    before = gram.gram_cuda.launches
+    k32 = run(m32, True)
+    assert gram.gram_cuda.launches - before == 3 * (60 + 20 + 2)
+    s32, v64 = run(m32, False), run(m64, False)
+    err = [abs(v - v64[0]) / abs(v64[0]) for v, _ in (k32, s32)]
+    assert err[0] <= 2 * err[1] + 1e-5, err
+    shift = f"kern.warp.layers.{len(m32.kern.warp.layers) - 1}.bias"
+    top = max(float(w.abs().max()) for w in v64[1].values())
+    assert float(v64[1].pop(shift).abs().max()) <= 1e-8 * top
+    for n, want in v64[1].items():
+        scale = float(want.abs().max())
+        e = [float((g[n] - want).abs().max()) / scale for _, g in (k32, s32)]
+        assert e[0] <= 2 * e[1] + 1e-3, (n, e)
+
+
+def test_gplvm_latent_gradient_matches_f64_plain(dev):
+    # the X gradient of a GPLVM (example 08's data at N = 1024) goes through
+    # the lower-tile Gram's closed-form VJP in f32: within 2x the stock f32
+    # route's error against f64 + 1e-3 (max-norm relative), the value 1e-5
+    rng = np.random.RandomState(0)
+    Xt = rng.randn(1024, 2)
+    Y = (np.tanh(Xt @ rng.randn(2, 12)) + 0.05 * rng.randn(1024, 12)).astype(np.float32)
+    m32 = gft.models.GPLVM(Y, 2, kern=gft.kernels.RBF(2, ARD=True), device=dev, dtype=torch.float32)
+    m64 = gft.models.GPLVM(Y, 2, kern=gft.kernels.RBF(2, ARD=True), device=dev, dtype=torch.float64)
+    m64.load_state_dict(m32.state_dict())
+
+    def run(m, flag):
+        m.zero_grad(set_to_none=True)
+        with gft.config.temp_settings(use_kernels=flag):
+            loss = m.objective()
+            loss.backward()
+        return loss.item(), m.X.unconstrained.grad.double()
+
+    before = gram.gram_lower_cuda.launches
+    k32 = run(m32, True)
+    assert gram.gram_lower_cuda.launches > before
+    s32, v64 = run(m32, False), run(m64, False)
+    err = [abs(v - v64[0]) / abs(v64[0]) for v, _ in (k32, s32)]
+    assert err[0] <= 2 * err[1] + 1e-5, err
+    scale = float(v64[1].abs().max())
+    e = [float((g - v64[1]).abs().max()) / scale for _, g in (k32, s32)]
+    assert e[0] <= 2 * e[1] + 1e-3, e
+
+
+def test_factor_and_solve_take_strided_inputs(dev):
+    # a transposed right-hand side (the BayesianGPLVM's psi1^T) and a
+    # matrix whose side is a multiple of 64 in another layout (no pad to
+    # copy it into rows) reach the kernels contiguous, and the input is not
+    # overwritten
+    rng = np.random.RandomState(4)
+    A = torch.tensor(rng.randn(128, 128), dtype=torch.float32, device=dev)
+    K = (A @ A.T + 128 * torch.eye(128, device=dev)).T.contiguous().T  # column-major
+    assert not K.is_contiguous()
+    K0 = K.clone()
+    before = cholesky.cholesky_cuda.launches
+    L = ops_linalg.cholesky(K)
+    assert cholesky.cholesky_cuda.launches == before + 1 and torch.equal(K, K0)
+    B = torch.tensor(rng.randn(300, 128), dtype=torch.float32, device=dev)
+    X = ops_linalg.solve_lower(L, B.T)
+    want = torch.linalg.solve_triangular(L.double(), B.T.double(), upper=False)
+    assert float((X.double() - want).abs().max() / want.abs().max()) <= 1e-5
+    half, quad = ops_linalg.chol_logdet_quad(K, B.T[:, :3])
+    L64 = torch.linalg.cholesky(K.double())
+    assert abs(float(half) - float(torch.log(L64.diagonal()).sum())) <= 1e-5 * abs(float(half))

@@ -2,12 +2,13 @@
 """Device time of the port's kernels, each run alone on one NVIDIA GPU, for
 one checkout of the repository; the tool to compare two commits on one card.
 
-    python3 tools/profile_torch_kernels.py [ROOT] [--gram]
+    python3 tools/profile_torch_kernels.py [ROOT] [--gram | --chol]
 
 ROOT is the checkout whose gpflow_slim_tpu_torch (and kernels, built into
 its own build/) is measured; by default the one this file is in. The timing
 methods are this file's chip_smoke.py's. ``--gram`` measures the cross
-Gram alone. It prints:
+Gram alone, ``--chol`` both Cholesky modes alone at Np = 1024, 2048 and
+10048. It prints:
 
 - for Np = 64 .. 10048 (RBF operands of lengthscale 0.1 and unit noise)
   the CUDA-event time of ``cholesky_cuda`` and the mean device time and
@@ -94,8 +95,23 @@ def cross_gram(tag, gram, g, one, dev):
               f"{three(lambda: gram.gram_cuda('rbf', xs, x2, one))[0]}", flush=True)
 
 
+def chol_modes(tag, cholesky, gram, g, one, dev):
+    """Both Cholesky modes at Np = 1024, 2048 and 10048 (RBF operands of
+    lengthscale 0.1 and unit noise; the fused mode with one right-hand
+    side): one call between CUDA events, median of REPS, a fresh copy of
+    the operand each call."""
+    for n in (1024, 2048, 10048):
+        xs = torch.rand(n, 1, generator=g, device=dev) / 0.1
+        Kp = gram.gram_chol_operand_cuda("rbf", xs, one, one, n)
+        D = torch.randn(n, 1, generator=g, device=dev)
+        fresh = lambda: (Kp.clone(),)  # noqa: E731
+        fac = statistics.median(cs.cuda_ms(torch, cholesky.cholesky_cuda, fresh))
+        fused = statistics.median(cs.cuda_ms(torch, lambda K: cholesky.cholesky_solve_cuda(K, D), fresh))
+        print(f"{tag} Np={n}: cholesky_cuda {fac:.4f} ms, cholesky_solve_cuda {fused:.4f} ms", flush=True)
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a != "--gram"]
+    args = [a for a in sys.argv[1:] if a not in ("--gram", "--chol")]
     root = os.path.abspath(args[0]) if args else REPO
     if not torch.cuda.is_available():
         print("profile_torch_kernels: no CUDA device; nothing was run", file=sys.stderr)
@@ -111,6 +127,9 @@ def main():
     print(f"{tag}: kernels of {os.path.dirname(gram.__file__)}", flush=True)
     if "--gram" in sys.argv:
         cross_gram(tag, gram, g, one, dev)
+        return 0
+    if "--chol" in sys.argv:
+        chol_modes(tag, cholesky, gram, g, one, dev)
         return 0
     for n in (64, 256, 1024, 4096, 10048):
         xs = torch.rand(n, 1, generator=g, device=dev) / 0.1
