@@ -154,6 +154,31 @@ entry()'s GPR).
    Opper-Archambeau ELBO + gradient on both routes with the device's idle
    share and the peak memory.
 
+4h (continued), fault m on the card: mcmc.batched_value_and_grad (vmap of
+   grad_and_value) over 2 rows of config #5's streaming GPRCG (N=50000,
+   deep kernel, fixed probes): each row against plain autograd at that row
+   (1e-5 / 1e-3), the cross Gram exactly once a panel a matvec a row, the
+   peak memory above the model under a materialized K's 10 GB;
+4i. config #3 from disk: bench_svgp_natgrad's (X, Y) written as a .gfsb
+   file, read by io.BinaryDataset's native loader (every prefetched
+   minibatch equal to the gather of its indices), 20 steps of
+   parallel.make_svgp_step (whitened SVGP, M=256, Adam) on minibatches of
+   1024 copied from pinned memory, on a 1-rank nccl world (the cross Gram,
+   factor-only Cholesky and wide TRSM launch every step; the loss on a
+   fixed batch lower after), dp_value_and_grad against the single-device
+   value and gradient (1e-6), the step time, idle share and launches a
+   step; utils.check_determinism of one step, then 10 steps, a checkpoint
+   of the model, Adam and the generators, a resume into fresh objects and
+   10 more, equal bit for bit to 20 uninterrupted steps; bench.py's GPR
+   served from a checkpoint: posterior(), save_checkpoint, load_checkpoint
+   into a template posterior of the same shapes, 4 predict_f requests of
+   2048 points and a full-covariance one of 1024, equal bit for bit to the
+   original posterior's, the restored side launching the cross Gram and
+   the TRSM and no Cholesky; phase 5 holds its kernels at the shapes they
+   ran (the cross Gram at 256 x 256 and 256 x 1024, the factor at M=256,
+   the TRSM at N=256, P=1024; the cross Gram at 10000 x 2048 and the TRSM
+   at P=2048 on the restored cache) to f64 and times them.
+
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero and prints no result. The
 last line is {"ok": true, "device": {...}}.
@@ -167,6 +192,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -284,6 +310,15 @@ LVM_NQ = 1024
 LVM_STEPS = 5
 LVM_LR = 1e-2       # example 08's GPLVM rate; its BayesianGPLVM takes half
 OA_N, OA_CLASSES = 2048, 3
+FUNC_ROWS = 2       # rows of batched_value_and_grad over config #5's streaming model (fault m on the card)
+# phase 4i: config #3 (bench_svgp_natgrad's data, the whitened SVGP) trained from disk through the
+# data-parallel step on a 1-rank nccl world, checkpointed and resumed; GPR served from a checkpoint
+DP_STEPS = 20       # disk-fed steps of make_svgp_step (Adam at SVGP_LR, minibatches of SVGP_B)
+DP_RESUME_AT = 10   # the resume run's checkpoint
+DP_PROFILED = 10    # steady disk-fed steps timed by the host's clock, and as many profiled
+DP_SEED = 5         # the index generators' seeds
+DP_REL = 1e-6       # dp_value_and_grad on the 1-rank world against one device; the resume gate where a step
+                    # is not deterministic
 # the card's peaks for the bound of each kernel (vendor figures, H100 SXM)
 F32_FLOPS = 67e12   # float32 without tensor cores
 HBM_BYTES = 3.35e12  # bytes per second
@@ -2957,6 +2992,395 @@ def nkn_checks(gft, torch, gram, cholesky, trsm, dev):
     return launches
 
 
+# -- phase 4h, fault m on the card; phase 4i: config #3 from disk, resume, serving from a checkpoint ----
+
+def cg_func_check(gft, torch, gram, cholesky, trsm, cg_model, dev):
+    """Phase 4h, fault m: ``mcmc.batched_value_and_grad`` (``vmap`` of
+    ``grad_and_value``) over FUNC_ROWS rows of config #5's streaming model
+    (the float32 model of ``cg_checks``, N=CG_N, deep kernel) on fixed
+    probes. Each row's value and gradient against plain autograd's at that
+    row, at phase 4h's gates: the row's error against the f64 plain path
+    at that row within twice plain autograd's + 1e-5 (value) / 1e-3
+    (each leaf's gradient, max-norm; the warp's last bias, zero in exact
+    arithmetic, checked zero on the f64 path); the cross Gram exactly once
+    a panel a matvec a row (the forward's matvecs, the surrogate's panels
+    and their regeneration in the backward); the peak memory above the
+    model under a materialized K's. Returns the launches."""
+    panels = -(-CG_N // gft.models.cg_gpr.STREAM_BLOCK)
+    lp, x0, unpack = gft.mcmc.model_logprob(cg_model)
+    lp64 = gft.mcmc.model_logprob(deep_model(gft, torch, torch.float64, dev, like=cg_model))[0]
+    z = torch.stack([x0, x0 + 0.01 * torch.tensor(np.random.RandomState(6).randn(x0.shape[0]), dtype=x0.dtype,
+                                                     device=dev)])
+    sizes = {n: t.numel() for n, t in unpack(x0).items()}
+
+    def by_leaf(g):
+        return dict(zip(sizes, torch.split(g.double(), list(sizes.values()))))
+
+    def autograd_at(fn, v):
+        v = v.clone().requires_grad_()
+        val = fn(v)
+        return val.item(), by_leaf(torch.autograd.grad(val, v)[0])
+
+    with FixedProbes(gft, torch, CG_N, cg_model.num_probes, dev):
+        reset_counts(gram, cholesky, trsm)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        vals, grads = gft.mcmc.base.batched_value_and_grad(lp)(z)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches = read_counts(gram, cholesky, trsm)
+        want = FUNC_ROWS * panels * (cg_model.cg_iters + cg_model.slq_steps + 2)
+        shape = (gft.models.cg_gpr.STREAM_BLOCK, CG_N)
+        print(f"config #5 under torch.func (batched_value_and_grad over {FUNC_ROWS} rows, {x0.shape[0]} leaves): "
+              f"{seconds:.2f} s; cross Gram at {shape}: {launches['gram_by_shape'].get(shape, 0)} (want {want}); "
+              f"peak memory above the model {peak:.3f} GB")
+        last_bias = f"kern.warp.layers.{len(cg_model.kern.warp.layers) - 1}.bias"
+        for r in range(FUNC_ROWS):
+            if not (math.isfinite(float(vals[r])) and bool(grads[r].isfinite().all())):
+                raise AssertionError(f"config #5 under torch.func: row {r} is not finite")
+            gate_against_f64(f"config #5 under torch.func, row {r} (batched row; plain autograd at the row as the "
+                             f"scale)", (float(vals[r]), by_leaf(grads[r])), autograd_at(lp, z[r]),
+                             autograd_at(lp64, z[r].double()), zero=(last_bias,))
+    if launches["gram_by_shape"] != {shape: want}:
+        raise AssertionError(f"config #5 under torch.func: the cross Gram did not launch once a panel a matvec a "
+                             f"row: {launches}")
+    if not peak < CG_N ** 2 * 4 / 1e9:
+        raise AssertionError(f"config #5 under torch.func: peak memory {peak:.3f} GB is not below a materialized K's")
+    return launches
+
+
+def free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def disk_steps(step, ds, generator, num, dev):
+    """``num`` steps of ``step`` on minibatches of SVGP_B rows that ``ds``
+    reads from disk (prefetched, in pinned memory, copied to the card
+    without blocking); returns the losses."""
+    losses = []
+    for batch in ds.minibatches(generator, SVGP_B, num, pin_memory=True):
+        b = batch.to(dev, non_blocking=True)
+        losses.append(step(batch=(b[:, :1], b[:, 1:])))
+    return losses
+
+
+def dp_checks(gft, torch, gram, cholesky, trsm, dev, card, tmp):
+    """Phase 4i, config #3 from disk (bench_svgp_natgrad's data and the
+    whitened SVGP, float32, on a 1-rank nccl world): svgp_data()'s (X, Y)
+    written as a .gfsb file; every prefetched minibatch equal to the gather
+    of its indices; DP_STEPS disk-fed steps of make_svgp_step with Adam
+    (the cross Gram, factor-only Cholesky and wide TRSM launch every step;
+    the loss on a fixed batch finite and lower after); at the trained
+    model, dp_value_and_grad on one batch against the single-device value
+    and gradient (DP_REL); the step time over DP_PROFILED steady steps, the
+    device's idle share (its busy time over DP_PROFILED profiled steps
+    against that) and the launches a step. Then check_determinism of one
+    step, and a run of DP_RESUME_AT steps checkpointed (model, Adam, the
+    index generator, the CUDA generator), loaded into fresh objects and run
+    on to DP_STEPS: equal bit for bit to DP_STEPS uninterrupted steps (to
+    DP_REL where check_determinism finds a step not deterministic).
+    Returns the launches, the trained model and batch, and whether a step
+    is deterministic."""
+    X, Y, _ = svgp_data()
+    path = gft.io.write_gfsb(os.path.join(tmp, "config3.gfsb"), np.hstack([X, Y]))
+    ds = gft.io.BinaryDataset(path)
+    if not ds.native:
+        raise AssertionError("the native loader is not active")
+    g, replay = torch.Generator().manual_seed(DP_SEED), torch.Generator().manual_seed(DP_SEED)
+    for t, batch in enumerate(ds.minibatches(g, SVGP_B, DP_STEPS, pin_memory=True)):
+        idx = torch.randint(0, ds.rows, (SVGP_B,), generator=replay)
+        if not (batch.is_pinned() and torch.equal(batch, ds.gather(idx))):
+            raise AssertionError(f"prefetched minibatch {t} is not the gather of its indices")
+    print(f"config #3 from disk ({path.rsplit(os.sep, 1)[-1]}: {ds.rows} x {ds.cols} float32, native loader): "
+          f"{DP_STEPS} prefetched minibatches of {SVGP_B} equal the gathers of their indices")
+    first = ds.gather(torch.randint(0, ds.rows, (SVGP_B,), generator=torch.Generator().manual_seed(DP_SEED))).to(dev)
+    Xb, Yb = first[:, :1], first[:, 1:]
+
+    gft.parallel.initialize_distributed(f"localhost:{free_port()}", 1, 0)  # nccl on the card
+    try:
+        mesh = gft.parallel.make_mesh({"data": 1})
+
+        def adam(ps):
+            return torch.optim.Adam(ps, lr=SVGP_LR)
+
+        # DP_STEPS disk-fed steps from the model as built
+        model = svgp_model(gft, torch, True, torch.float32)
+        step, _ = gft.parallel.make_svgp_step(model, adam, mesh=mesh)
+
+        def fixed_loss():
+            with torch.no_grad():
+                return -(model.build_likelihood_batch(Xb, Yb) + model.log_prior()).item()
+
+        before = fixed_loss()
+        reset_counts(gram, cholesky, trsm)
+        per_step, losses = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in ds.minibatches(torch.Generator().manual_seed(DP_SEED + 1), SVGP_B, DP_STEPS, pin_memory=True):
+            was = read_counts(gram, cholesky, trsm)
+            b = batch.to(dev, non_blocking=True)
+            losses.append(step(batch=(b[:, :1], b[:, 1:])))
+            now = read_counts(gram, cholesky, trsm)
+            per_step.append({k: now[k] - was[k] for k in ("gram", "cholesky", "trsm_wide", "trsm_thin")})
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3 / DP_STEPS
+        launches = read_counts(gram, cholesky, trsm)
+        after = fixed_loss()
+        losses = torch.stack(losses).cpu().numpy()
+        print(f"make_svgp_step x {DP_STEPS} from disk (whitened SVGP, M={SVGP_M}, B={SVGP_B}, Adam lr {SVGP_LR}): "
+              f"batch losses {losses[0]:.2f} -> {losses[-1]:.2f}; loss on a fixed batch {before:.4f} -> {after:.4f}; "
+              f"launches {launches}; a step {per_step[0]}")
+        if not (np.isfinite(losses).all() and math.isfinite(after) and after < before):
+            raise AssertionError("the data-parallel SVGP did not lower its loss from disk")
+        if not all(s["gram"] > 0 and s["cholesky"] > 0 and s["trsm_wide"] + s["trsm_thin"] > 0 for s in per_step):
+            raise AssertionError(f"a step did not run the cross Gram, the factor and the TRSM: {per_step}")
+
+        # the trained model (its gradients all live) on the 1-rank world against one device
+        loss, grads = gft.parallel.dp_value_and_grad(model, Xb, Yb, mesh)
+        model.zero_grad(set_to_none=True)
+        single = -(model.build_likelihood_batch(Xb, Yb) + model.log_prior())
+        single.backward()
+        v_rel = abs(loss.item() - single.item()) / abs(single.item())
+        errs = {n: float((grads[n] - t.grad).abs().max()) / float(t.grad.abs().max())
+                for n, t in gft.params.trainable_leaves(model) if float(t.grad.abs().max()) > 0}
+        print(f"dp_value_and_grad on the 1-rank nccl world vs single-device value_and_grad (B={SVGP_B}): value "
+              f"{loss.item():.6f} vs {single.item():.6f}, rel diff {v_rel:.3e}; gradients max-norm rel diff "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" (gate {DP_REL:g})")
+        if not (v_rel <= DP_REL and all(e <= DP_REL for e in errs.values())):
+            raise AssertionError("dp_value_and_grad on the 1-rank world disagrees with the single-device gradient")
+
+        # steady state: DP_PROFILED disk-fed steps by the host's clock, then
+        # DP_PROFILED more under torch.profiler for the device's busy time
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        gen = torch.Generator().manual_seed(DP_SEED + 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        disk_steps(step, ds, gen, DP_PROFILED, dev)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / DP_PROFILED
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            disk_steps(step, ds, gen, DP_PROFILED, dev)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name]
+        busy = busy_ms(events) / DP_PROFILED
+        kernels = [e for e in events if "Memcpy" not in e.name and "Memset" not in e.name]
+        print(f"config #3 data-parallel step from disk on {card}: {step_ms:.3f} ms a step (wall clock over "
+              f"{DP_PROFILED} steady steps, the loader's reads included; the first {DP_STEPS}, the communicator's "
+              f"set-up included, {first_ms:.3f} ms a step); device busy {busy:.3f} ms a step (profiler), idle share "
+              f"{1 - busy / step_ms:.4f}; {len(kernels) / DP_PROFILED:.1f} device kernels a step (profiler), counters a "
+              f"step {per_step[-1]}")
+        out = {"launches": launches, "step_ms": step_ms, "idle": 1 - busy / step_ms, "model": model, "batch": (Xb, Yb)}
+
+        # determinism of one step, then checkpoint and resume
+        def one_step():
+            m = svgp_model(gft, torch, True, torch.float32)
+            st, _ = gft.parallel.make_svgp_step(m, adam, mesh=mesh)
+            return [st(batch=(Xb, Yb))] + [t.detach().clone() for _, t in gft.params.trainable_leaves(m)]
+
+        deterministic = gft.utils.check_determinism(one_step)
+        print(f"utils.check_determinism of one data-parallel step: {deterministic}")
+        out["deterministic"] = deterministic
+
+        def state(m, o, gen):
+            return {"model": m, "opt": o, "index_gen": gen, "cuda_gen": torch.cuda.default_generators[0]}
+
+        m1 = svgp_model(gft, torch, True, torch.float32)
+        s1, _ = gft.parallel.make_svgp_step(m1, adam, mesh=mesh)
+        disk_steps(s1, ds, torch.Generator().manual_seed(DP_SEED + 3), DP_STEPS, dev)
+        m2 = svgp_model(gft, torch, True, torch.float32)
+        s2, o2 = gft.parallel.make_svgp_step(m2, adam, mesh=mesh)
+        g2 = torch.Generator().manual_seed(DP_SEED + 3)
+        disk_steps(s2, ds, g2, DP_RESUME_AT, dev)
+        base = os.path.join(tmp, "dp_ckpt")
+        gft.utils.save_checkpoint(base, state(m2, o2, g2), step=DP_RESUME_AT)
+        del m2, s2, o2, g2  # the job ends; a new one starts from the checkpoint
+        m3 = svgp_model(gft, torch, True, torch.float32)
+        s3, o3 = gft.parallel.make_svgp_step(m3, adam, mesh=mesh)
+        g3 = torch.Generator().manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gft.utils.load_checkpoint(gft.utils.latest_checkpoint(base), state(m3, o3, g3))
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        disk_steps(s3, ds, g3, DP_STEPS - DP_RESUME_AT, dev)
+        pairs = [(n, a.detach(), b.detach()) for (n, a), (_, b) in zip(gft.params.trainable_leaves(m1),
+                                                                       gft.params.trainable_leaves(m3))]
+        diffs = {n: float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30) for n, a, b in pairs}
+        same = all(torch.equal(a, b) for _, a, b in pairs)
+        print(f"resume: {DP_RESUME_AT} steps, checkpoint (model, Adam, index and CUDA generators; loaded in "
+              f"{load_ms:.1f} ms), {DP_STEPS - DP_RESUME_AT} more from it vs {DP_STEPS} uninterrupted: bit for bit "
+              f"{same}; max rel diff " + ", ".join(f"{n} {d:.3e}" for n, d in diffs.items()))
+        if not same and (deterministic or not all(d <= DP_REL for d in diffs.values())):
+            raise AssertionError("the resumed run does not equal the uninterrupted one")
+    finally:
+        torch.distributed.destroy_process_group()
+        ds.close()
+    return out
+
+
+def serve_ckpt_checks(gft, torch, gram, cholesky, trsm, dev, card, deterministic, tmp):
+    """Phase 4i, serving from a checkpoint at bench.py's GPR (N=10000, RBF
+    lengthscale 0.1, float32): posterior() -> save_checkpoint ->
+    load_checkpoint into a template GPRPosterior of the same shapes from a
+    fresh model (its buffers empty: no factorization on the serving side),
+    then 4 predict_f requests of NQ points and a full-covariance one of
+    NQ_FULL. The answers equal the original posterior's bit for bit (where
+    check_determinism found a step not deterministic: within twice the
+    original's error against the f64 oracle + SERVE_ABS); the restored side
+    launches the cross Gram and the TRSM and no Cholesky. Prints the load
+    and per-request times. Returns the launches, the restored posterior and
+    a request."""
+    X, Y = bench_data()
+    model = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE), device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        post = model.posterior()
+    path = gft.utils.save_checkpoint(os.path.join(tmp, "gpr_posterior"), post)
+    fresh = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=0.5), device=dev, dtype=torch.float32)
+    template = gft.models.posterior.GPRPosterior(fresh.kern, fresh.likelihood, fresh.mean_function, fresh.X,
+                                                 torch.empty(post.L.shape, device=dev), torch.empty_like(post.alpha),
+                                                 fresh.num_latent)
+    rq = np.random.RandomState(2)
+    requests = [rq.uniform(0, 1, (NQ, 1)).astype(np.float32) for _ in range(4)]
+    Xf = rq.uniform(0, 1, (NQ_FULL, 1)).astype(np.float32)
+    reset_counts(gram, cholesky, trsm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = gft.utils.load_checkpoint(path, template)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        got = [restored.predict_f(q) for q in requests] + [restored.predict_f(Xf, full_cov=True)]
+        torch.cuda.synchronize()
+        launches = read_counts(gram, cholesky, trsm)
+        want = [post.predict_f(q) for q in requests] + [post.predict_f(Xf, full_cov=True)]
+    same = all(torch.equal(a, b) for g_, w_ in zip(got, want) for a, b in zip(g_, w_))
+    print(f"serving from a checkpoint (GPR N={N}, {os.path.getsize(path) / 1e6:.1f} MB): loaded in {load_ms:.1f} ms; "
+          f"4 x predict_f at {NQ} and full_cov at {NQ_FULL} equal the original posterior's bit for bit: {same}; "
+          f"restored side's launches {launches}")
+    if not same:
+        if deterministic:
+            raise AssertionError("the restored posterior's answers differ from the original's")
+        ls, var, noise = (model.kern.lengthscales.value.item(), model.kern.variance.value.item(),
+                          model.likelihood.variance.value.item())
+        for q, g_, w_ in zip(requests[:1], got, want):
+            for what, a, b, o in zip(("mean", "var"), g_, w_, oracle_predict(torch, X, Y, q, ls, var, noise)):
+                o = o.reshape(a.shape)
+                gate(f"restored predict_f {what} vs f64 oracle (the original's error as the scale)",
+                     float((a.double() - o).abs().max()), float((b.double() - o).abs().max()), SERVE_ABS)
+    if not (launches["gram"] > 0 and launches["trsm_wide"] > 0 and launches["cholesky"] == 0
+            and launches["chol_solve"] == 0):
+        raise AssertionError(f"the restored posterior refactorized or skipped a kernel: {launches}")
+    q0 = torch.tensor(requests[0], device=dev)
+
+    def request():
+        with torch.no_grad():
+            restored.predict_f(q0)
+
+    req_ms = statistics.median(cuda_ms(torch, request))
+    print(f"  a predict_f request of {NQ} points from the restored cache on {card}: {req_ms:.3f} ms")
+    return {"launches": launches, "restored": restored, "q": q0, "load_ms": load_ms, "req_ms": req_ms}
+
+
+def timed_kernel(torch, name, kernel, plain, want, err_of, gate_tol, flop, nbytes, library=None, setup=None):
+    """Hold ``kernel()`` against ``want`` (its plain version in f64) by
+    ``err_of`` at ``gate_tol``, then time it against ``plain`` (and
+    ``library``): a row of the kernels line with its max abs error."""
+    got = kernel() if setup is None else kernel(*setup())
+    err, rel = err_of(got.double(), want)
+    print(f"{name}: max abs err {err:.3e}, gated {rel:.3e} (tol {gate_tol:.3e})")
+    if not rel <= gate_tol:
+        raise AssertionError(f"{name} disagrees with its plain version: {rel}")
+    k_ms, p_ms = paired_ms(torch, kernel, plain, setup=setup or (lambda: ()))
+    lib_ms = statistics.median(cuda_ms(torch, library, setup or (lambda: ()))) if library else None
+    b_ms, b_by = bound(flop, nbytes)
+    row = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": err, **other_ms(torch, kernel, library, setup)}
+    print(f"  {name}: kernel {k_ms:.4f} ms (runs of {RUN} {row['run20_ms']}, device {row['device_ms']:.4f}), "
+          f"plain f32 {p_ms:.4f} ms, library " + ("-" if lib_ms is None else f"{lib_ms:.4f} ms")
+          + f", bound {b_ms:.6f} ms ({b_by})")
+    return row
+
+
+def abs_err(got, want):
+    err = float((got - want).abs().max())
+    return err, err
+
+
+def rel_err(got, want):
+    err = float((got - want).abs().max())
+    return err, err / float(want.abs().max())
+
+
+def slice4i_times(gft, torch, gram, cholesky, trsm, dp_out, serve_out, dev):
+    """Phase 3 and phase 5 for phase 4i, at the shapes its paths ran: the
+    cross Gram of the trained data-parallel SVGP's Kuu (256 x 256) and Kuf
+    (256 x 1024), the factor-only Cholesky of its Kuu (gated at twice
+    cuSOLVER's f32 error + FACTOR_TOL: cond(Kuu) ~1e6) and the wide TRSM
+    of its factor on Kuf; the cross Gram (10000 x 2048) and the wide TRSM
+    (P = 2048) of a request to the restored posterior; each held to its
+    plain version in f64 at phase 3's gates, then timed."""
+    rows = {}
+    m = dp_out["model"]
+    with torch.no_grad():
+        ls = m.kern.lengthscales.value.detach()
+        var = m.kern.variance.value.detach().reshape(())
+        Zs = (m.feature.Z.value / ls).contiguous()
+        Xbs = (dp_out["batch"][0] / ls).contiguous()
+    for name, xs in (("gram_dp_kuu", Zs), ("gram_dp_kuf", Xbs)):
+        n, k = Zs.shape[0], xs.shape[0]
+        rows[name] = timed_kernel(
+            torch, f"{name} (cross Gram, {n} x {k})", lambda xs=xs: gram.gram_cuda("rbf", Zs, xs, var),
+            lambda xs=xs: gram.gram_reference("rbf", Zs, xs, var),
+            gram.gram_reference("rbf", Zs.double(), xs.double(), var.double()), abs_err, OPERAND_TOL * float(var),
+            5 * n * k, n * k * 4 + (n + k) * 4)
+    M = Zs.shape[0]
+    with torch.no_grad():
+        Kuu = gram.gram_cuda("rbf", Zs, Zs, var) + SVGP_JITTER * torch.eye(M, device=dev)
+        Kuf = gram.gram_cuda("rbf", Zs, Xbs, var)
+    L_ref = cholesky.cholesky_plain(Kuu.double())
+    lib_rel = rel_err(torch.linalg.cholesky(Kuu).double(), L_ref)[1]
+    rows["cholesky_dp"] = timed_kernel(
+        torch, f"cholesky_dp (factor only, Kuu of the trained model, M={M}; cuSOLVER f32 rel err {lib_rel:.3e})",
+        lambda K: cholesky.cholesky_cuda(K).tril_(), cholesky.cholesky_plain, L_ref, rel_err,
+        2 * lib_rel + FACTOR_TOL, M ** 3 / 3, 2 * tri_bytes(M), library=torch.linalg.cholesky_ex,
+        setup=lambda: (Kuu.clone(),))
+    Lm = cholesky.cholesky_cuda(Kuu.clone()).tril_()
+    P = Kuf.shape[1]
+    rows["trsm_dp"] = timed_kernel(
+        torch, f"trsm_dp (wide, Lm^-1 Kuf, N={M}, P={P})", lambda: trsm.trsm_cuda(Lm, Kuf, True),
+        lambda: trsm.solve_triangular_plain(Lm, Kuf, True),
+        trsm.solve_triangular_plain(Lm.double(), Kuf.double(), True), rel_err, TRSM_TOL, M * M * P,
+        tri_bytes(M) + 2 * M * P * 4, library=lambda: torch.linalg.solve_triangular(Lm, Kuf, upper=False))
+    post, q = serve_out["restored"], serve_out["q"]
+    with torch.no_grad():
+        ls = post.kern.lengthscales.value.detach()
+        var = post.kern.variance.value.detach().reshape(())
+        Xs, Qs = (post.X / ls).contiguous(), (q / ls).contiguous()
+        Kx = gram.gram_cuda("rbf", Xs, Qs, var)
+    n, k = Xs.shape[0], Qs.shape[0]
+    rows["gram_serve_ckpt"] = timed_kernel(
+        torch, f"gram_serve_ckpt (cross Gram of a restored request, {n} x {k})",
+        lambda: gram.gram_cuda("rbf", Xs, Qs, var), lambda: gram.gram_reference("rbf", Xs, Qs, var),
+        gram.gram_reference("rbf", Xs.double(), Qs.double(), var.double()), abs_err, OPERAND_TOL * float(var),
+        5 * n * k, n * k * 4 + (n + k) * 4)
+    L = post.L
+    rows["trsm_serve_ckpt"] = timed_kernel(
+        torch, f"trsm_serve_ckpt (wide, the restored L^-1 Kx, N={n}, P={k})", lambda: trsm.trsm_cuda(L, Kx, True),
+        lambda: trsm.solve_triangular_plain(L, Kx, True),
+        trsm.solve_triangular_plain(L.double(), Kx.double(), True), rel_err, TRSM_TOL, n * n * k,
+        tri_bytes(n) + 2 * n * k * 4, library=lambda: torch.linalg.solve_triangular(L, Kx, upper=False))
+    return rows
+
+
 def main():
     import torch
 
@@ -3193,6 +3617,15 @@ def main():
     exact_vs_cg(gft, torch, dev)
     lvm_launches, lvm_models = lvm_checks(gft, torch, gram, cholesky, trsm, dev)
     nkn_launches = nkn_checks(gft, torch, gram, cholesky, trsm, dev)
+    # fault m on the card: batched_value_and_grad over config #5's streaming model
+    cg_func_check(gft, torch, gram, cholesky, trsm, cg_model, dev)
+
+    # 4i. config #3 trained from disk through the data-parallel step on a
+    # 1-rank nccl world, checkpointed and resumed; bench.py's GPR served
+    # from a checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_out = dp_checks(gft, torch, gram, cholesky, trsm, dev, card, tmp)
+        serve_out = serve_ckpt_checks(gft, torch, gram, cholesky, trsm, dev, card, dp_out["deterministic"], tmp)
 
     # 5. times on the card, kernel route against plain
     def on_card(ms):
@@ -3324,6 +3757,8 @@ def main():
     vgp_rows = vgp_times(gft, torch, gram, cholesky, trsm, vgp_L, vgp_models, dev, card)
     # the matrix-free and latent-variable slice
     slice_rows = slice_times(gft, torch, gram, trsm, cg_model, lvm_models["BayesianGPLVM"], dev)
+    # phase 4i's data-parallel step and restored posterior
+    rows4i = slice4i_times(gft, torch, gram, cholesky, trsm, dp_out, serve_out, dev)
 
     # each kernel's bound at the shape it was timed at (D = 1 inputs; a map
     # entry counted as 5 flop: the difference, its square, the scale, exp)
@@ -3352,6 +3787,7 @@ def main():
         return row(name, source, replaces, launches, err, timed["ms"], timed["plain_ms"], timed["library_ms"])
 
     by_shape = svgp_launches["gram_by_shape"]
+    dp_by_shape = dp_out["launches"]["gram_by_shape"]
     print(json.dumps({"kernels": [
         row("gram_chol_operand", "gram_operand.cu", "pallas_gram.py:328", n_opnd, operand_err, opnd_ms,
             opnd_plain_ms, None),
@@ -3408,6 +3844,14 @@ def main():
                  slice_rows["gram_cg_panel"]["max_abs_err"], slice_rows["gram_cg_panel"]),
         timed_row("trsm_bgplvm", "trsm.cu", "pallas_trsm.py:116", lvm_launches["BayesianGPLVM"]["trsm_wide"],
                  slice_rows["trsm_bgplvm"]["max_abs_err"], slice_rows["trsm_bgplvm"]),
+        *(timed_row(name, source, replaces, launches, rows4i[name]["max_abs_err"], rows4i[name])
+          for name, source, replaces, launches in (
+              ("gram_dp_kuu", "gram.cu", "pallas_gram.py:95", dp_by_shape.get((SVGP_M, SVGP_M), 0)),
+              ("gram_dp_kuf", "gram.cu", "pallas_gram.py:95", dp_by_shape.get((SVGP_M, SVGP_B), 0)),
+              ("cholesky_dp", "chol_solve.cu", "pallas_cholesky.py:716", dp_out["launches"]["cholesky"]),
+              ("trsm_dp", "trsm.cu", "pallas_trsm.py:116", dp_out["launches"]["trsm_wide"]),
+              ("gram_serve_ckpt", "gram.cu", "pallas_gram.py:95", serve_out["launches"]["gram"]),
+              ("trsm_serve_ckpt", "trsm.cu", "pallas_trsm.py:116", serve_out["launches"]["trsm_wide"]))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

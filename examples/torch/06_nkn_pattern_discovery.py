@@ -41,7 +41,6 @@ m, _ = gft.training.fit(m, num_steps=10 if FAST else 400, learning_rate=0.03)
 with torch.no_grad():
     mu, _ = m.predict_f(X)
     objective = m.objective().item()
-    weights = m.kern.layers[0].weights.value.cpu().numpy()
 rmse = float(np.sqrt(np.mean((mu.cpu().numpy() - Y) ** 2)))
-print("first layer's weights (out x in):\n" + np.array2string(weights, precision=3))
+gft.utils.print_summary(m.kern.layers[0])
 print(f"objective {objective:.1f}, train RMSE {rmse:.4f}")

@@ -23,6 +23,7 @@ from . import (
     entry,
     features,
     interop,
+    io,
     kernels,
     kernels_deep,
     kernels_nkn,
@@ -38,6 +39,7 @@ from . import (
     quadrature,
     training,
     transforms,
+    utils,
 )
 from .config import settings, temp_settings
 from .params import Module, Param

@@ -35,7 +35,8 @@ def one_hot(idx, K, dtype):
     return (idx == torch.arange(K, device=idx.device)).to(dtype)
 
 __all__ = ["Likelihood", "Gaussian", "Poisson", "Exponential", "StudentT", "Bernoulli", "Gamma", "Beta",
-           "RobustMax", "MultiClass", "SwitchedLikelihood", "Ordinal", "probit"]
+           "RobustMax", "MultiClass", "SwitchedLikelihood", "Ordinal", "probit",
+           "inv_probit"]
 
 
 class Likelihood(Module):
@@ -72,6 +73,13 @@ class Likelihood(Module):
 def probit(x):
     """The reference's probit link, with its 1e-3 clamp."""
     return 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0))) * (1 - 2e-3) + 1e-3
+
+
+def inv_probit(x):
+    """``probit`` under the reference's other name. A function of its own,
+    as in the JAX package: a ``Bernoulli`` given it takes the quadrature
+    path, as the JAX package's does."""
+    return probit(x)
 
 
 class Gaussian(Likelihood):

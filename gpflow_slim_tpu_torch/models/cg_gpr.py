@@ -20,12 +20,19 @@ gradient is wanted.
 
 ``materialize_k=False`` never forms K: every matvec regenerates K one
 4096-row panel at a time (``kern.K(xb, X)``, the cross-Gram kernel on the
-kernel route, then a product), and the surrogate runs each panel under
-``torch.utils.checkpoint``, so its backward regenerates the panel as
+kernel route, then a product). The surrogate's panels go through one
+autograd Function (``_PanelTerms``) that takes the kernel's parameter
+tensors as explicit inputs and calls the kernel on them through
+``torch.func.functional_call``; its backward (``_PanelTermsGrad``, a
+Function too) regenerates each panel and takes the panel's VJP, as
 ``jax.checkpoint`` does in the JAX package: no more than one panel is held
-in either direction. The alpha solve and the trace-probe solves share one
-batched CG (their columns are independent, so each is the JAX package's
-solve), and the logdet probes one batched Lanczos.
+in either direction, also under ``vmap``, whose rules take the batch one
+entry at a time. Both are in the ``forward`` + ``setup_context`` form with
+a ``vmap`` rule (``ops/_func.py``), so they compose with ``torch.func.grad``
+and ``vmap``, and ``mcmc`` samples a streaming GPRCG. The alpha solve and
+the trace-probe solves share one batched CG (their columns are
+independent, so each is the JAX package's solve), and the logdet probes
+one batched Lanczos.
 
 The probes come from ``ops.iterative.cg_probes``: redrawn whenever the
 hyperparameters move, the same within one evaluation. Predictions solve
@@ -38,10 +45,12 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch import nn
+from torch.func import functional_call
 
 from ..likelihoods import Gaussian
 from ..ops import iterative
+from ..ops._func import vmap_loop
 from .model import GPModel, as_tensor_like
 
 __all__ = ["GPRCG"]
@@ -69,20 +78,138 @@ def _panels(X, block):
 
 def _make_streaming_matvec(kern, X, noise):
     """A v without materializing K: one ``STREAM_BLOCK`` x N Gram panel at a
-    time, each used at once. Peak memory O(N STREAM_BLOCK)."""
-    N = X.shape[0]
-    panels = _panels(X, _stream_block(N))
+    time, each used at once (``_StreamMatvec``). Peak memory O(N
+    STREAM_BLOCK)."""
+    call = _KernelCall(kern)
+    named = list(call.named_parameters())
+    names, params = tuple(n for n, _ in named), [t for _, t in named]
+    block = _stream_block(X.shape[0])
 
     def mv(v):
-        out = torch.cat([kern.K(xb, X, presliced=False) @ v for xb in panels])[:N]
-        return out + noise * v
+        return _StreamMatvec.apply(call, names, block, X, v, *params) + noise * v
 
     return mv
 
 
-def _panel_terms(kern, X, xb, W, C):
-    # sum(C * (K(xb, X) @ W)): a panel's share of the quadratic forms
-    return torch.sum(C * (kern.K(xb, X, presliced=False) @ W))
+class _KernelCall(nn.Module):
+    """``kern.K(xb, X)`` as a module call, for ``functional_call``."""
+
+    def __init__(self, kern):
+        super().__init__()
+        self.kern = kern
+
+    def forward(self, xb, X):
+        return self.kern.K(xb, X, presliced=False)
+
+
+class _StreamMatvec(torch.autograd.Function):
+    """``K(X, X) @ v`` by panels of ``block`` rows, K the kernel of ``call``
+    on ``params`` (as ``_PanelTerms``). For the solvers, which run without
+    gradients: not differentiable. ``vmap``: the Function on each entry of
+    the batch, so that each entry's products are the unbatched ones (a
+    batched product sums in another order, and the float32 CG and Lanczos
+    amplify that) and one panel is held at a time."""
+
+    @staticmethod
+    def forward(call, names, block, X, v, *params):
+        state = dict(zip(names, params))
+        return torch.cat([functional_call(call, state, (xb, X)) @ v for xb in _panels(X, block)])[:X.shape[0]]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("the streaming matvec serves the solvers, which run without gradients")
+
+    @staticmethod
+    def vmap(info, in_dims, call, names, block, *tensors):
+        return vmap_loop(lambda *ts: _StreamMatvec.apply(call, names, block, *ts), info, in_dims[3:], *tensors)
+
+
+class _PanelTerms(torch.autograd.Function):
+    """``sum_b sum(C_b * (K(xb, X) @ W))`` over the ``block``-row panels xb
+    of X (C padded to whole panels), with ``K`` the kernel evaluated on
+    ``params``, the tensors ``names`` of ``call`` (a ``_KernelCall``).
+    Forward: one panel at a time, each dropped once used. Backward:
+    ``_PanelTermsGrad``, which regenerates the panels. ``vmap``: the
+    Function on each entry of the batch."""
+
+    @staticmethod
+    def forward(call, names, block, X, W, C, *params):
+        state = dict(zip(names, params))
+        return sum(torch.sum(cb * (functional_call(call, state, (xb, X)) @ W))
+                   for xb, cb in zip(_panels(X, block), C.split(block)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.call, ctx.names, ctx.block = inputs[:3]
+        ctx.save_for_backward(*inputs[3:])
+
+    @staticmethod
+    def backward(ctx, g):
+        wanted = tuple(i for i, n in enumerate(ctx.needs_input_grad[3:]) if n)
+        grads = [None] * len(ctx.saved_tensors)
+        if wanted:
+            out = _PanelTermsGrad.apply(ctx.call, ctx.names, ctx.block, wanted, g, *ctx.saved_tensors)
+            for i, gi in zip(wanted, out):
+                grads[i] = gi
+        return (None, None, None, *grads)
+
+    @staticmethod
+    def vmap(info, in_dims, call, names, block, *tensors):
+        return vmap_loop(lambda *ts: _PanelTerms.apply(call, names, block, *ts), info, in_dims[3:], *tensors)
+
+
+class _PanelTermsGrad(torch.autograd.Function):
+    """The VJP of ``_PanelTerms`` in its inputs ``wanted`` (indices into X,
+    W, C, *params): each panel regenerated and its VJP taken with
+    ``torch.func.vjp``, one panel at a time. A Function of its own, so that
+    a transform's backward (``torch.func.grad`` records it to differentiate
+    again) holds none of a panel's temporaries, and so that its ``vmap``
+    rule takes the batch one entry at a time: one panel's VJP is held at
+    once. Differentiable once."""
+
+    @staticmethod
+    def forward(call, names, block, wanted, g, *inputs):
+        grads = [torch.zeros_like(inputs[i]) for i in wanted]
+        for b in range(inputs[2].shape[0] // block):
+            rows = slice(b * block, (b + 1) * block)
+
+            def panel(*diff, rows=rows, b=b):
+                args = list(inputs)
+                for i, t in zip(wanted, diff):
+                    args[i] = t
+                X, W, C, *params = args
+                return torch.sum(C[rows] * (functional_call(call, dict(zip(names, params)),
+                                                            (_panels(X, block)[b], X)) @ W))
+
+            _, vjp = torch.func.vjp(panel, *(inputs[i] for i in wanted))
+            for acc, gi in zip(grads, vjp(g)):
+                acc += gi
+        return tuple(grads)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the streaming GPRCG surrogate is differentiable once")
+
+    @staticmethod
+    def vmap(info, in_dims, call, names, block, wanted, *tensors):
+        return vmap_loop(lambda *ts: _PanelTermsGrad.apply(call, names, block, wanted, *ts), info, in_dims[4:],
+                         *tensors)
+
+
+def _panel_terms(kern, X, block, W, C):
+    """``sum(C * (K(X, X) @ W))`` by panels of ``block`` rows (C padded to
+    whole panels), each regenerated in the backward."""
+    call = _KernelCall(kern)
+    named = list(call.named_parameters())
+    return _PanelTerms.apply(call, tuple(n for n, _ in named), block, X, W, C, *(t for _, t in named))
 
 
 def _surrogate(kern, noise, X, err, alpha, Z, U, num_probes, materialize, K=None):
@@ -102,8 +229,7 @@ def _surrogate(kern, noise, X, err, alpha, Z, U, num_probes, materialize, K=None
     block = _stream_block(N)
     W = torch.cat([alpha, Z], dim=1)
     C = F.pad(torch.cat([0.5 * alpha, -c * U], dim=1), (0, 0, 0, (-N) % block))
-    tot = sum(checkpoint(_panel_terms, kern, X, xb, W, cb, use_reentrant=False)
-              for xb, cb in zip(_panels(X, block), C.split(block)))
+    tot = _panel_terms(kern, X, block, W, C)
     t_noise = 0.5 * noise * torch.sum(torch.square(alpha)) - c * noise * torch.sum(U * Z)
     return tot + t_noise + t_err
 

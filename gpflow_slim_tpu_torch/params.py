@@ -10,14 +10,17 @@ compose with any PyTorch code (autograd, ``torch.optim``, ``.to(device)``).
 ``likelihood.variance``, ...), in the same order. It is a function, not a
 method: ``nn.Module.parameters()`` keeps its PyTorch meaning.
 
-``pack_trainable(module)`` concatenates the trainable Params' unconstrained
-values into one 1-D vector, in the order of the JAX package's
-``pack_trainable`` (the chain state of ``mcmc``); its ``unpack`` turns a
-vector back into the ``{"<name>.unconstrained": tensor}`` dict that
-``torch.func.functional_call`` takes.
+``pack_trainable(module)`` concatenates every trainable leaf (the
+trainable Params' unconstrained values and any other trainable
+``nn.Parameter``, such as a ``DeepKernel``'s warp) into one 1-D vector, in
+the order and layout of the JAX package's ``pack_trainable`` (the chain
+state of ``mcmc``); its ``unpack`` turns a vector back into the dict of
+named tensors that ``torch.func.functional_call`` takes.
 """
 
 from __future__ import annotations
+
+import re
 
 import torch
 from torch import nn
@@ -119,16 +122,46 @@ def parameters(module: nn.Module) -> list[tuple[str, Param]]:
     return sorted(found, key=lambda item: _path_key(item[0]))
 
 
-def trainable_leaves(module: nn.Module) -> list[tuple[str, torch.Tensor]]:
-    """Every tensor an optimizer updates, named: the trainable Params'
-    unconstrained values under the Param's name, in ``parameters`` order
-    (that of ``pack_trainable``), then every other trainable
-    ``nn.Parameter`` under its ``named_parameters`` name (a ``DeepKernel``'s
-    warp: ``kern.warp.layers.0.weight``, the names ``interop`` loads)."""
+# an ``nn.Linear`` warp layer's parameters under the JAX package's path:
+# ``mlp_warp`` keeps layer i as the dict ``warp_params[i]`` of ``W`` and
+# ``b`` (``W`` sorts first: upper case before lower)
+_LINEAR_LEAF = re.compile(r"\.warp\.layers\.(\d+)\.(weight|bias)$")
+
+
+def _jax_order_key(name: str):
+    name = _LINEAR_LEAF.sub(lambda m: f".warp_params.{m[1]}.{'W' if m[2] == 'weight' else 'b'}", name)
+    return _path_key(name)
+
+
+def all_leaves(module: nn.Module):
+    """``[(name, leaf, transposed)]``: every Param and every other
+    ``nn.Parameter`` under ``module`` (trainable or not), in the order of
+    the JAX package's tree (its paths sorted as ``parameters`` sorts them).
+    ``transposed`` marks an ``nn.Linear``'s ``weight``, which holds the JAX
+    package's ``W`` (``x @ W``) transposed."""
     params = parameters(module)
     held = {id(p.unconstrained) for _, p in params}
-    return ([(n, p.unconstrained) for n, p in params if p.trainable]
-            + [(n, t) for n, t in module.named_parameters() if t.requires_grad and id(t) not in held])
+    linear = {id(m.weight) for m in module.modules() if isinstance(m, nn.Linear)}
+    out = [(n, p, False) for n, p in params]
+    out += [(n, t, id(t) in linear) for n, t in module.named_parameters() if id(t) not in held]
+    return sorted(out, key=lambda leaf: _jax_order_key(leaf[0]))
+
+
+def _leaves(module: nn.Module):
+    """``[(name, state_name, tensor, transposed)]``: the trainable leaves of
+    ``all_leaves``, ``state_name`` the name ``functional_call`` takes."""
+    return [(n, f"{n}.unconstrained", p.unconstrained, False) if isinstance(p, Param) else (n, n, p, tr)
+            for n, p, tr in all_leaves(module)
+            if (p.trainable if isinstance(p, Param) else p.requires_grad)]
+
+
+def trainable_leaves(module: nn.Module) -> list[tuple[str, torch.Tensor]]:
+    """Every tensor an optimizer updates, named: the trainable Params'
+    unconstrained values under the Param's name, and every other trainable
+    ``nn.Parameter`` under its ``named_parameters`` name (a ``DeepKernel``'s
+    warp: ``kern.warp.layers.0.weight``, the names ``interop`` loads), in
+    the order of ``pack_trainable``'s vector."""
+    return [(n, t) for n, _, t, _ in _leaves(module)]
 
 
 def log_prior(module: nn.Module):
@@ -143,22 +176,26 @@ def log_prior(module: nn.Module):
 
 
 def pack_trainable(module: nn.Module):
-    """``(vector, unpack)``: the trainable Params' unconstrained values,
-    flattened and concatenated in ``parameters`` order (that of
-    ``gpflow_slim_tpu.params.pack_trainable``), detached from autograd.
-    ``unpack(v)`` slices a vector of that layout back into
-    ``{"<name>.unconstrained": tensor}``, the names ``functional_call``
+    """``(vector, unpack)``: every trainable leaf (``trainable_leaves``),
+    flattened and concatenated in the order and layout of
+    ``gpflow_slim_tpu.params.pack_trainable``'s vector (an ``nn.Linear``'s
+    weight as the JAX package's ``W``, its transpose), detached from
+    autograd. ``unpack(v)`` slices a vector of that layout back into
+    ``{state_name: tensor}`` (``"<Param name>.unconstrained"``, a warp
+    layer's ``kern.warp.layers.0.weight``), the names ``functional_call``
     takes for ``module``; it works on batched tensors under ``vmap``."""
-    infos = [(f"{n}.unconstrained", p.unconstrained.shape) for n, p in parameters(module) if p.trainable]
-    if not infos:
+    leaves = _leaves(module)
+    if not leaves:
         raise ValueError("no trainable parameters in module")
-    vec = torch.cat([module.get_parameter(n).detach().reshape(-1) for n, _ in infos])
+    vec = torch.cat([(t.T if tr else t).detach().reshape(-1) for _, _, t, tr in leaves])
+    infos = [(state, t.shape, tr) for _, state, t, tr in leaves]
 
     def unpack(v):
         out, off = {}, 0
-        for name, shape in infos:
+        for name, shape, transposed in infos:
             size = shape.numel()
-            out[name] = v[off:off + size].reshape(shape)
+            chunk = v[off:off + size]
+            out[name] = chunk.reshape(shape[::-1]).T if transposed else chunk.reshape(shape)
             off += size
         return out
 

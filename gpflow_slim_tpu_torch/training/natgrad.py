@@ -27,7 +27,7 @@ import torch
 from torch.func import functional_call
 
 from ..ops.cholesky import cholesky_plain
-from ..params import parameters
+from ..params import trainable_leaves
 
 __all__ = ["natgrad_step", "fit_svgp_natgrad"]
 
@@ -209,7 +209,8 @@ def fit_svgp_natgrad(model, num_steps: int, generator: torch.Generator | None = 
     (``torch.randperm`` with ``generator``, a ``torch.Generator`` on the
     model's device in place of the JAX key; None uses torch's default), takes
     a natural-gradient step on (q_mu, q_sqrt), then an optimizer step on
-    every other trainable parameter (optax's ``masked`` optimizer of the JAX
+    every other trainable leaf (``params.trainable_leaves``: a
+    ``DeepKernel``'s warp too; optax's ``masked`` optimizer of the JAX
     package). ``optimizer``, in place of the JAX package's optax
     transformation, builds the hyperparameters' optimizer from their list of
     tensors (``lambda ps: torch.optim.SGD(ps, lr=0.01)``); None is Adam at
@@ -220,8 +221,7 @@ def fit_svgp_natgrad(model, num_steps: int, generator: torch.Generator | None = 
     N = model.num_data
     B = batch_size or N
     q_leaves = {id(model.q_mu.unconstrained), id(model.q_sqrt.unconstrained)}
-    hypers = [p.unconstrained for _, p in parameters(model)
-              if p.trainable and id(p.unconstrained) not in q_leaves]
+    hypers = [t for _, t in trainable_leaves(model) if id(t) not in q_leaves]
     if optimizer is None:
         def optimizer(ps):
             return torch.optim.Adam(ps, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)

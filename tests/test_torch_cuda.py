@@ -960,3 +960,87 @@ def test_factor_and_solve_take_strided_inputs(dev):
     half, quad = ops_linalg.chol_logdet_quad(K, B.T[:, :3])
     L64 = torch.linalg.cholesky(K.double())
     assert abs(float(half) - float(torch.log(L64.diagonal()).sum())) <= 1e-5 * abs(float(half))
+
+
+def test_gprcg_streaming_under_torch_func_on_the_card(dev, monkeypatch):
+    # fault m on the kernels: batched_value_and_grad over two rows of the
+    # streaming deep-kernel GPRCG (N = 3000, 1024-row panels) on given
+    # probes: the cross Gram once a panel a matvec a row; each row's value
+    # and gradient within 2x plain autograd's error at that row against f64
+    # + 1e-5 / 1e-3 (max-norm)
+    from gpflow_slim_tpu_torch.models import cg_gpr
+    from gpflow_slim_tpu_torch.ops import iterative
+
+    monkeypatch.setattr(cg_gpr, "STREAM_BLOCK", 1024)
+    Z = tuple(iterative.rademacher(torch.tensor(3, device=dev), s, (3000, 16), torch.float64) for s in (0, 1))
+    monkeypatch.setattr(iterative, "cg_probes", lambda params, n, p, dtype: tuple(z.to(dtype) for z in Z))
+    m32 = _deep_cg(dev, torch.float32)
+    lp, x0, _ = gft.mcmc.model_logprob(m32)
+    lp64 = gft.mcmc.model_logprob(_deep_cg(dev, torch.float64, like=m32))[0]
+    z = torch.stack([x0, x0 + 0.01 * torch.randn(x0.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                                                 device=dev)])
+    before = gram.gram_cuda.launches
+    vals, grads = gft.mcmc.base.batched_value_and_grad(lp)(z)
+    assert gram.gram_cuda.launches - before == 2 * 3 * (60 + 20 + 2)
+    for r in range(2):
+        refs = []
+        for fn, v in ((lp, z[r]), (lp64, z[r].double())):
+            v = v.clone().requires_grad_()
+            val = fn(v)
+            refs.append((val.item(), torch.autograd.grad(val, v)[0].double()))
+        (va, ga), (v64, g64) = refs
+        assert abs(float(vals[r]) - v64) <= 2 * abs(va - v64) + 1e-5 * abs(v64)
+        scale = float(g64.abs().max())
+        assert float((grads[r].double() - g64).abs().max()) <= 2 * float((ga - g64).abs().max()) + 1e-3 * scale
+
+
+def test_dp_step_from_pinned_batches_on_the_card(dev, tmp_path):
+    # minibatches read from disk into pinned memory, copied without
+    # blocking, through make_svgp_step on the kernels; and a step that draws
+    # its batch on the card from a CUDA generator
+    rng = np.random.RandomState(0)
+    X = rng.uniform(0, 1, (4096, 1)).astype(np.float32)
+    Y = (np.sin(10 * X) > 0).astype(np.float32)
+    path = gft.io.write_gfsb(str(tmp_path / "xy.gfsb"), np.hstack([X, Y]))
+    m = gft.models.SVGP(X, Y, kern=gft.kernels.RBF(1, lengthscales=0.2), likelihood=gft.likelihoods.Bernoulli(),
+                        Z=np.linspace(0, 1, 32)[:, None], device=dev, dtype=torch.float32)
+    step, _ = gft.parallel.make_svgp_step(m, lambda ps: torch.optim.Adam(ps, lr=0.01), batch_size=256)
+    ds = gft.io.BinaryDataset(path)
+    before = (gram.gram_cuda.launches, cholesky.cholesky_cuda.launches, trsm.trsm_cuda.launches)
+    losses = []
+    for batch in ds.minibatches(torch.Generator().manual_seed(0), 256, 5, pin_memory=True):
+        assert batch.is_pinned()
+        b = batch.to(dev, non_blocking=True)
+        losses.append(step(batch=(b[:, :1], b[:, 1:])))
+    ds.close()
+    losses.append(step(torch.Generator(device=dev).manual_seed(1)))
+    after = (gram.gram_cuda.launches, cholesky.cholesky_cuda.launches, trsm.trsm_cuda.launches)
+    assert all(a >= b + 6 for a, b in zip(after, before))
+    assert bool(torch.isfinite(torch.stack(losses)).all())
+
+
+def test_restored_posterior_serves_bit_for_bit(dev, tmp_path):
+    # posterior() -> save_checkpoint -> load_checkpoint into a template of
+    # the same shapes whose buffers are empty: the same answers, bit for
+    # bit, and no factorization on the restored side
+    rng = np.random.RandomState(1)
+    X = rng.uniform(0, 1, (2000, 1)).astype(np.float32)
+    Y = np.sin(12 * X).astype(np.float32)
+    m = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=0.1), device=dev, dtype=torch.float32)
+    with torch.no_grad():
+        post = m.posterior()
+    path = gft.utils.save_checkpoint(str(tmp_path / "post"), post)
+    fresh = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1), device=dev, dtype=torch.float32)
+    template = gft.models.posterior.GPRPosterior(fresh.kern, fresh.likelihood, fresh.mean_function, fresh.X,
+                                                 torch.empty(post.L.shape, device=dev),
+                                                 torch.empty_like(post.alpha), 1)
+    restored = gft.utils.load_checkpoint(path, template)
+    Xq = torch.tensor(rng.uniform(0, 1, (512, 1)), dtype=torch.float32, device=dev)
+    before = (cholesky.cholesky_cuda.launches, gram.gram_cuda.launches, trsm.trsm_cuda.launches)
+    with torch.no_grad():
+        got = restored.predict_f(Xq, full_cov=True)
+    after = (cholesky.cholesky_cuda.launches, gram.gram_cuda.launches, trsm.trsm_cuda.launches)
+    assert after[0] == before[0] and after[1] > before[1] and after[2] > before[2]
+    with torch.no_grad():
+        want = post.predict_f(Xq, full_cov=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -15,8 +15,11 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 EXAMPLES = sorted((REPO / "examples" / "torch").glob("*.py"))
 # a line each example prints last
 LAST_LINE = {"01_gpr_regression.py": "posterior-mean RMSE vs noiseless truth",
+             "02_svgp_classification.py": "ELBO:",
+             "03_nuts_hyperparameters.py": "posterior noise variance: median=",
              "05_deep_kernel.py": "objective",
              "06_nkn_pattern_discovery.py": "objective",
+             "07_serving_posterior.py": "pred mean range:",
              "08_gplvm_latent_discovery.py": "BGPLVM",
              "09_grouped_data_switched.py": "learned offsets",
              "10_coregion_multioutput.py": "task-1 prediction RMSE"}

@@ -264,6 +264,46 @@ def test_gprcg_streaming_matches_materialized(monkeypatch):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-8, atol=1e-10)
 
 
+@pytest.mark.parametrize("kern", ["rbf", "deep"])
+def test_gprcg_streaming_under_torch_func(kern, monkeypatch):
+    """Fault m: ``mcmc.batched_value_and_grad`` (``vmap(grad_and_value)``)
+    over a streaming GPRCG. Each row equals plain autograd's value and
+    gradient at that row, and the materialized mode's row, on fixed probes;
+    every leaf of the vector (a deep kernel's warp too) gets its gradient."""
+    monkeypatch.setattr(cg_gpr, "STREAM_BLOCK", 32)  # three panels, the last ragged
+    rng = np.random.RandomState(11)
+    probes = (_t(np.sign(rng.randn(70, 4))), _t(np.sign(rng.randn(70, 4))))
+    monkeypatch.setattr(it, "cg_probes", lambda params, n, p, dtype: probes)
+    rows = {}
+    for materialize in (False, True):
+        _, tm = _cg_pair(kern, materialize)
+        lp, x0, unpack = gft.mcmc.model_logprob(tm)
+        vs = x0[None] + 0.05 * _t(np.random.RandomState(4).randn(3, x0.shape[0]))
+        rows[materialize] = gft.mcmc.base.batched_value_and_grad(lp)(vs)
+        if materialize:
+            continue
+        for c in range(vs.shape[0]):
+            v = vs[c].clone().requires_grad_()
+            want = lp(v)
+            (want_g,) = torch.autograd.grad(want, v)
+            np.testing.assert_allclose(rows[False][0][c].item(), want.item(), rtol=1e-12)
+            # the batched products sum in another order, which CG's
+            # iterations amplify to ~1e-10 of the largest gradient
+            np.testing.assert_allclose(rows[False][1][c].numpy(), want_g.numpy(), rtol=1e-8,
+                                       atol=1e-9 * want_g.abs().max().item())
+        # every leaf gets a gradient, but the warp's last bias, which the
+        # RBF cannot see (it shifts every warped input alike)
+        sizes = {n: t.numel() for n, t in unpack(x0).items()}
+        blind = list(sizes).index("kern.warp.layers.1.bias") if kern == "deep" else None
+        scale = rows[False][1].abs().max()
+        reached = [bool(g.abs().max() > 1e-8 * scale)
+                   for g in torch.split(rows[False][1], list(sizes.values()), dim=1)]
+        assert reached == [i != blind for i in range(len(sizes))]
+    np.testing.assert_allclose(rows[False][0].numpy(), rows[True][0].numpy(), rtol=1e-10)
+    np.testing.assert_allclose(rows[False][1].numpy(), rows[True][1].numpy(), rtol=1e-8,
+                               atol=1e-10 * rows[True][1].abs().max().item())
+
+
 def test_gprcg_against_exact_gpr():
     # tests/test_iterative.py's oracle: the estimate near the exact value,
     # the gradient's noise component near GPR's

@@ -139,6 +139,72 @@ def test_model_logprob_value_and_grad_match_jax(name, route):
     np.testing.assert_array_equal(gft.params.pack_trainable(tm)[0].numpy(), np.asarray(jx0))
 
 
+def _warped_pair(kind):
+    """A GPR in both packages on a kernel with leaves beyond plain Params:
+    ``DeepKernel(1, RBF, mlp_warp([1, 4, 1]))``, example 05's deep kernel
+    (``mlp_warp([2, 16, 1])``, narrower data), or example 06's NKN."""
+    from gpflow_slim_tpu.kernels_deep import DeepKernel as JDeep
+    from gpflow_slim_tpu.kernels_deep import mlp_warp as jmlp
+    from gpflow_slim_tpu.kernels_nkn import NKN as JNKN
+    from gpflow_slim_tpu.kernels_nkn import NKNLinear as JLinear
+    from gpflow_slim_tpu.kernels_nkn import NKNProduct as JProduct
+    from gpflow_slim_tpu_torch.kernels_nkn import NKN, NKNLinear, NKNProduct
+
+    rng = np.random.RandomState(5)
+    if kind == "nkn":
+        X = rng.uniform(0, 2, (24, 1))
+        kerns = []
+        for pkg, lin, prod, nkn in ((gfs, JLinear, JProduct, JNKN), (gft, NKNLinear, NKNProduct, NKN)):
+            prims = [pkg.kernels.RBF(1, lengthscales=0.5, name="p_rbf"),
+                     pkg.kernels.Periodic(1, period=0.7, name="p_per"), pkg.kernels.Linear(1, name="p_lin"),
+                     pkg.kernels.Matern32(1, lengthscales=1.0, name="p_mat")]
+            kerns.append(nkn(1, prims, [lin(4, 4, name="l0"), prod(4, 2, name="l1"), lin(2, 1, name="l2")]))
+        jk, tk = kerns
+    else:
+        sizes = [1, 4, 1] if kind == "deep_1_4_1" else [2, 16, 1]
+        X = rng.uniform(-1, 1, (24, sizes[0]))
+        fn, params = jmlp(jax.random.PRNGKey(0), sizes)
+        jk = JDeep(sizes[0], gfs.kernels.RBF(1, lengthscales=0.5), fn, params)
+        tk = gft.kernels_deep.DeepKernel(sizes[0], gft.kernels.RBF(1, lengthscales=0.5),
+                                         gft.kernels_deep.mlp_warp(sizes))
+    Y = np.sin(3 * X[:, :1]) + 0.1 * rng.randn(len(X), 1)
+    jm = gfs.models.GPR(X, Y, kern=jk)
+    tm = gft.models.GPR(X, Y, kern=tk, device="cpu", dtype=torch.float64)
+    gft.interop.load_unconstrained(tm, _unconstrained(jm))
+    return jm, tm
+
+
+@pytest.mark.parametrize("kind", ["deep_1_4_1", "deep_example05", "nkn"])
+def test_model_logprob_packs_every_trainable_leaf(kind, route):
+    # fault n: the vector holds every leaf JAX's pack_trainable packs (a
+    # DeepKernel's warp, W as JAX lays it out), in its order, and nothing
+    # but what the optimizers train
+    jm, tm = _warped_pair(kind)
+    jlp, jx0, _ = gfs.mcmc.model_logprob(jm)
+    tlp, tx0, unpack = gft.mcmc.model_logprob(tm)
+    if kind == "deep_1_4_1":
+        assert tx0.shape == jx0.shape == (16,)
+    np.testing.assert_array_equal(tx0.numpy(), np.asarray(jx0))
+    assert sorted(unpack(tx0)) == sorted(
+        n if n.startswith("kern.warp.") else f"{n}.unconstrained" for n, _ in gft.params.trainable_leaves(tm))
+    v = np.asarray(jx0) + 0.1 * np.random.RandomState(3).randn(jx0.shape[0])
+    jval, jgrad = jax.value_and_grad(jlp)(jnp.asarray(v))
+    lp, g = tbase.batched_value_and_grad(tlp)(_t(v)[None])
+    assert not lp.requires_grad  # no leaf outside the vector reaches the value
+    np.testing.assert_allclose(lp.numpy()[0], float(jval), rtol=LOGPROB_RTOL)
+    np.testing.assert_allclose(g.numpy()[0], np.asarray(jgrad), rtol=1e-9,
+                               atol=1e-10 * np.abs(np.asarray(jgrad)).max())
+    # unpack round-trips the model's own tensors (a warp weight transposed
+    # back), under vmap too
+    for n, t in unpack(tx0).items():
+        assert torch.equal(t, tm.get_parameter(n))
+    rows = torch.func.vmap(lambda z: unpack(z)["kern.warp.layers.0.weight" if kind != "nkn"
+                                                else "kern.layers.0.weights.unconstrained"])(
+        torch.stack([tx0, 2 * tx0]))
+    name = "kern.warp.layers.0.weight" if kind != "nkn" else "kern.layers.0.weights.unconstrained"
+    assert torch.equal(rows[1], 2 * tm.get_parameter(name))
+
+
 @pytest.mark.parametrize("name", ["gpr", "gpmc", "sgpmc"])
 def test_batched_logprob_equals_autograd_loop(name, route):
     _, tm = _model_pair(name)

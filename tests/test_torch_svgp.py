@@ -262,6 +262,39 @@ def test_fit_svgp_natgrad_with_an_optimizer_matches_jax():
     _assert_params_close(tm, jm2, 1e-8, "value")
 
 
+def test_fit_svgp_natgrad_trains_a_deep_kernels_warp_as_jax():
+    # the hyperparameters' optimizer takes every trainable leaf that is not
+    # q, a DeepKernel's warp too, as the JAX package's mask does
+    from gpflow_slim_tpu.kernels_deep import DeepKernel as JDeep
+    from gpflow_slim_tpu.kernels_deep import mlp_warp as jmlp
+
+    rng = np.random.RandomState(3)
+    X = rng.uniform(-1, 1, (30, 1))
+    Y = (np.sin(3 * X) > 0).astype(float)
+    Z = np.linspace(-1, 1, 6)[:, None]
+    fn, params = jmlp(jax.random.PRNGKey(0), [1, 3, 1])
+    jm = gfs.models.SVGP(X, Y, kern=JDeep(1, gfs.kernels.RBF(1, lengthscales=0.5), fn, params),
+                         likelihood=gfs.likelihoods.Bernoulli(), Z=Z)
+    jm.q_mu = gfs.params.Param(0.3 * rng.randn(6, 1), name="q_mu")  # the warp's gradient is 0 at q's start
+    tk = gft.kernels_deep.DeepKernel(1, gft.kernels.RBF(1, lengthscales=0.5), gft.kernels_deep.mlp_warp([1, 3, 1]))
+    tm = gft.models.SVGP(X, Y, kern=tk, likelihood=gft.likelihoods.Bernoulli(), Z=Z, device="cpu",
+                         dtype=torch.float64)
+    gft.interop.load_unconstrained(tm, {n: np.asarray(p.unconstrained) for n, p in jax_parameters(jm)})
+    w0 = tm.kern.warp.layers[0].weight.detach().clone()
+    jm2, jlosses = jax_natgrad.fit_svgp_natgrad(jm, 5, jax.random.PRNGKey(0), gamma=0.1, learning_rate=0.05)
+    _, losses = gft.training.fit_svgp_natgrad(tm, 5, torch.Generator().manual_seed(0), gamma=0.1, learning_rate=0.05)
+    np.testing.assert_allclose(losses.numpy(), np.asarray(jlosses), rtol=1e-8)
+    assert (tm.kern.warp.layers[0].weight - w0).abs().max() > 1e-3
+    want = gft.interop.port_arrays(tm, {n: np.asarray(p.unconstrained) for n, p in jax_parameters(jm2)})
+    for n, t in gft.params.trainable_leaves(tm):
+        if n == "kern.warp.layers.1.bias":
+            # the RBF cannot see a shift of every warped input: its gradient
+            # is rounding in both packages, which Adam divides by its eps
+            assert abs(t.item()) < 1e-5 and abs(want[n].item()) < 1e-5
+            continue
+        np.testing.assert_allclose(t.detach().numpy(), want[n], rtol=1e-7, atol=1e-9, err_msg=n)
+
+
 def test_interop_of_a_jax_svgp():
     jm, tm, _, _ = _svgp_pair("gaussian", False, False, M=7)
     names = [n for n, _ in gft.params.parameters(tm)]
