@@ -178,6 +178,25 @@ entry()'s GPR).
    ran (the cross Gram at 256 x 256 and 256 x 1024, the factor at M=256,
    the TRSM at N=256, P=1024; the cross Gram at 10000 x 2048 and the TRSM
    at P=2048 on the restored cache) to f64 and times them.
+4j. the distributed exact-GP paths on a 1-rank nccl world: BASELINE config
+   #5 (example 05's data and deep kernel, N=50000, f32, block 250) through
+   parallel.make_distributed_gpr_loss (the ring Gram in 4096-row panels on
+   the cross-Gram kernel, the blocked factor with its diagonal blocks on
+   the factor-only Cholesky and its panels on the wide TRSM, Murray's
+   adjoint through the blocked solves): one objective + gradient under the
+   profiler (time, device busy and idle share, peak memory, launches by
+   kernel, no library factorization or solve), the value against an f64
+   oracle (1e-5; cuSOLVER f64 on the same K, 40 GB) and every gradient
+   against the f64 closed form (1e-3); on bench.py's GPR the distributed
+   loss against the single device and f64, cyclic_cholesky and
+   grid_cholesky (1 x 1 mesh, block 125) against cuSOLVER f64 (factor
+   1e-4, half-logdet 1e-5), make_grid_gpr_loss against f64,
+   make_distributed_cg_loss on fixed probes within 2% of the exact GPR,
+   ring_gram_matvec against K @ v in f64; config #4's 8 chains through
+   sample_chains on the 1-rank mesh equal bit for bit to mesh=None;
+   entry.dryrun_multichip(1); phase 5 holds the cross Gram at a ring panel,
+   the factor at a 250-block and the wide TRSM at N=250, P=49750 to f64
+   and times them.
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero and prints no result. The
@@ -319,6 +338,16 @@ DP_PROFILED = 10    # steady disk-fed steps timed by the host's clock, and as ma
 DP_SEED = 5         # the index generators' seeds
 DP_REL = 1e-6       # dp_value_and_grad on the 1-rank world against one device; the resume gate where a step
                     # is not deterministic
+# phase 4j: the distributed exact-GP paths on a 1-rank nccl world: config #5 through the distributed
+# block-Cholesky at full width, bench.py's GPR through the other distributed paths on 1 x 1 meshes
+DIST_N = 50_000     # config #5's N: not cut
+DIST_BS = 250       # ops.blocked needs N a multiple of the block: 50000 is none of 256, 250 the nearest divisor
+DIST_PANEL = 4096   # rows of a ring Gram panel (parallel.ring_gram.PANEL)
+DIST_SMALL_BS = 250  # bench.py's N=10000 is no multiple of 256 either
+GRID_BS = 125       # the cyclic and grid factors' block at N=10000 (80 blocks)
+RING_MATVEC_TOL = 1e-4  # relative, max-norm: f32 sums of 10^4 products against f64
+DIST_CHAIN_DRAWS = 5  # config #4's chains: warmup and draws, each
+DIST_CHAIN_SEED = 4
 # the card's peaks for the bound of each kernel (vendor figures, H100 SXM)
 F32_FLOPS = 67e12   # float32 without tensor cores
 HBM_BYTES = 3.35e12  # bytes per second
@@ -3290,6 +3319,353 @@ def serve_ckpt_checks(gft, torch, gram, cholesky, trsm, dev, card, deterministic
     return {"launches": launches, "restored": restored, "q": q0, "load_ms": load_ms, "req_ms": req_ms}
 
 
+# -- phase 4j: the distributed exact-GP paths on a 1-rank nccl world -----------
+
+def dist_model(gft, torch, dtype, dev, like=None):
+    """BASELINE config #5 through the distributed block-Cholesky: GPR on
+    example 05's data and deep kernel at N=DIST_N (phase 4h's
+    ``deep_data``, the warp drawn from the same seeded generator), the
+    likelihood's default noise. ``like``: a model whose state it takes."""
+    X, Y = deep_data()
+    warp = gft.kernels_deep.mlp_warp([2, 16, 1], torch.Generator().manual_seed(0))
+    kern = gft.kernels_deep.DeepKernel(2, gft.kernels.RBF(1, lengthscales=0.5), warp)
+    m = gft.models.GPR(X[:DIST_N], Y[:DIST_N], kern=kern, device=dev, dtype=dtype)
+    if like is not None:
+        m.load_state_dict(like.state_dict())
+    return m
+
+
+def gram_panels(torch, kern, X, out):
+    """``out`` (N, N) filled with ``kern.K(X, X)`` by DIST_PANEL-row panels
+    (no gradient); returned."""
+    with torch.no_grad():
+        for r0 in range(0, X.shape[0], DIST_PANEL):
+            out[r0:r0 + DIST_PANEL] = kern.K(X[r0:r0 + DIST_PANEL], X)
+    return out
+
+
+def oracle_gpr64(gft, torch, m64):
+    """-(log p(Y) + log prior) of a float64 GPR on the card and its gradient
+    in every trainable leaf, written out of the port's pieces: K by panels,
+    cuSOLVER's f64 factor (``cholesky_ex``), alpha, and the gradient in
+    closed form, dmll/dK = W = (beta beta^T - K^-1) / 2 (one output): the
+    leaves' gradients are those of sum(W * K) with W held constant, taken
+    by autograd through one DIST_PANEL-row panel of K(X, X) at a time, W's
+    rows from two f64 triangular solves of identity columns; the noise
+    takes tr(W). Peak ~2 N^2 x 8 bytes (K, then its factor). Returns
+    ``(value, {name: gradient})``."""
+    X, Y = m64.X, m64.Y
+    N = X.shape[0]
+    with torch.no_grad():
+        noise = m64.likelihood.variance.value.detach().reshape(())
+        err = Y - m64.mean_function(X)
+        K = gram_panels(torch, m64.kern, X, torch.empty((N, N), dtype=torch.float64, device=X.device))
+        K.diagonal().add_(noise)
+        L, info = torch.linalg.cholesky_ex(K)
+        del K
+        if int(info) != 0:
+            raise AssertionError(f"the f64 oracle's K does not factor (info {int(info)})")
+        alpha = torch.linalg.solve_triangular(L, err, upper=False)
+        value = (0.5 * N * math.log(2 * math.pi) + float(torch.log(torch.diagonal(L)).sum())
+                 + 0.5 * float((alpha ** 2).sum()))
+        beta = torch.linalg.solve_triangular(L.T, alpha, upper=True)
+    value -= float(m64.log_prior())
+    m64.zero_grad(set_to_none=True)
+    trW = 0.0
+    for r0 in range(0, N, DIST_PANEL):
+        r1 = min(r0 + DIST_PANEL, N)
+        with torch.no_grad():
+            E = torch.zeros((N, r1 - r0), dtype=torch.float64, device=X.device)
+            E[r0:r1].fill_diagonal_(1.0)
+            Kinv_rows = torch.linalg.solve_triangular(L.T, torch.linalg.solve_triangular(L, E, upper=False),
+                                                      upper=True).T
+            W = 0.5 * (beta[r0:r1] @ beta.T - Kinv_rows)
+            trW += float(W[:, r0:r1].diagonal().sum())
+            del E, Kinv_rows
+        (-(W * m64.kern.K(X[r0:r1], X)).sum()).backward()
+        del W
+    del L
+    (-(m64.likelihood.variance.value.reshape(()) * trW) - m64.log_prior()).backward()
+    return value, {n: t.grad.double() for n, t in gft.params.trainable_leaves(m64)}
+
+
+def library_f32_value(gft, torch, m32):
+    """-(log p(Y) + log prior) of a float32 GPR from cuSOLVER's float32
+    factor of the same K (the fallback gate's reference: phase 4g's
+    convention for an ill-conditioned K)."""
+    X, Y = m32.X, m32.Y
+    N = X.shape[0]
+    with torch.no_grad():
+        K = gram_panels(torch, m32.kern, X, torch.empty((N, N), dtype=torch.float32, device=X.device))
+        K.diagonal().add_(m32.likelihood.variance.value.reshape(()))
+        L, _ = torch.linalg.cholesky_ex(K)
+        del K
+        alpha = torch.linalg.solve_triangular(L, Y - m32.mean_function(X), upper=False)
+        value = (0.5 * N * math.log(2 * math.pi) + float(torch.log(torch.diagonal(L)).sum())
+                 + 0.5 * float((alpha ** 2).sum()) - float(m32.log_prior()))
+    return value
+
+
+def gate_grads(what, got, want, zero=()):
+    """Every gradient within GRAD_TOL (relative, max-norm) of ``want``;
+    ``zero``: leaves zero in exact arithmetic, checked zero in ``want`` and
+    printed, not gated (``gate_against_f64``)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for n, w in want.items():
+        if n in zero:
+            size = float(w.abs().max())
+            print(f"  grad {n}: zero in exact arithmetic, f64 {size:.3e} (largest gradient {top:.3e}); f32 "
+                  f"{float(got[n].abs().max()):.3e} (not gated)")
+            if not size <= ZERO_GRAD_REL * top:
+                raise AssertionError(f"{what}: the gradient of {n} is not zero on the f64 path: {size:.3e}")
+            continue
+        err = float((got[n].double() - w).abs().max()) / float(w.abs().max())
+        worst = max(worst, err)
+        print(f"  grad {n} {tuple(w.shape)}: rel err {err:.3e} (gate {GRAD_TOL:g})")
+        if not err <= GRAD_TOL:
+            raise AssertionError(f"{what}: the gradient of {n} is {err:.3e} off f64")
+    return worst
+
+
+def dist_config5(gft, torch, gram, cholesky, trsm, mesh, dev, card):
+    """Phase 4j, BASELINE config #5 through the distributed block-Cholesky
+    on one card: ``make_distributed_gpr_loss`` of ``dist_model`` (f32,
+    block DIST_BS) at N=DIST_N, one objective + gradient under the
+    profiler: its wall time (host clock around the synchronized call), the
+    device's busy time and idle share, its peak memory above the model, and
+    each kernel's launches (the counters, and the profiler's kernel names:
+    no library factorization or triangular solve). The value within
+    OBJECTIVE_TOL of the f64 oracle (``oracle_gpr64``), or, where that is
+    missed, within twice the f64 error of cuSOLVER's f32 factor of the same
+    K + 1e-6 (both printed); every gradient within GRAD_TOL of the f64
+    closed form, the warp's last bias checked zero there and not gated."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    m32 = dist_model(gft, torch, torch.float32, dev)
+    loss_fn = gft.parallel.make_distributed_gpr_loss(m32, mesh, axis="rows", block_size=DIST_BS)
+    named = gft.params.trainable_leaves(m32)
+    reset_counts(gram, cholesky, trsm)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = loss_fn(m32)
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    launches = read_counts(gram, cholesky, trsm)
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and "Command Buffer Full" not in e.name]
+    busy = busy_ms(dev_events)
+    names = collections.Counter(e.name for e in dev_events if "Memcpy" not in e.name and "Memset" not in e.name)
+    by_time = collections.Counter()
+    for e in dev_events:
+        by_time[e.name] += (e.time_range.end - e.time_range.start) / 1e3
+    del prof, dev_events
+    value = loss.item()
+    got = {n: g.detach() for (n, _), g in zip(named, grads)}
+    del loss, grads
+    nb = DIST_N // DIST_BS
+    print(f"config #5 distributed (make_distributed_gpr_loss, DeepKernel, N={DIST_N}, block {DIST_BS}, 1-rank nccl) "
+          f"objective + gradient on {card}: {wall:.1f} ms (host clock, profiled), device busy {busy:.1f} ms, idle "
+          f"share {1 - busy / wall:.4f}; peak memory above the model {peak:.3f} GB (K in f32: "
+          f"{DIST_N ** 2 * 4 / 1e9:.1f} GB); launches {launches}")
+    top = sorted(by_time.items(), key=lambda kv: -kv[1])[:8]
+    print("  device ms by kernel: " + ", ".join(f"{n[:56]} {t:.1f}" for n, t in top))
+    libs = library_solves(names)
+    seen = {k: sum(c for n, c in names.items() if k in n) for k in ("gram_cross_kernel", "chol_diag_kernel",
+                                                                      "trsm_group_kernel", "trsm_thin_kernel")}
+    print(f"  device kernels {sum(names.values())}, of them by the profiler {seen}; library factorizations and "
+          f"triangular solves {libs or 'none'}")
+    if libs:
+        raise AssertionError(f"config #5 distributed ran a library factorization or solve: {libs}")
+    if not all(seen.values()):
+        raise AssertionError(f"the profiler did not see the cross-Gram, factor and TRSM kernels launch: {seen}")
+    want = {"cholesky": nb, "gram_by_shape": {(DIST_PANEL, DIST_N): DIST_N // DIST_PANEL}}
+    if launches["cholesky"] != nb or launches["trsm_wide"] < nb - 1 or not launches["gram"]:
+        raise AssertionError(f"config #5 distributed: the factor, TRSM and cross-Gram kernels did not all launch "
+                             f"({launches}; want a factor launch per block, {want})")
+    lib32 = library_f32_value(gft, torch, m32)
+    m64 = dist_model(gft, torch, torch.float64, dev, like=m32)
+    v64, g64 = oracle_gpr64(gft, torch, m64)
+    err, lib_err = abs(value - v64) / abs(v64), abs(lib32 - v64) / abs(v64)
+    limit = OBJECTIVE_TOL if err <= OBJECTIVE_TOL else 2 * lib_err + 1e-6
+    print(f"  value {value:.6f}, f64 oracle {v64:.6f}: rel err {err:.3e}; cuSOLVER f32 factor {lib32:.6f}, rel err "
+          f"{lib_err:.3e}; gate {limit:.3e}" + ("" if err <= OBJECTIVE_TOL else " (2 x cuSOLVER f32 + 1e-6)"))
+    if not err <= limit:
+        raise AssertionError(f"config #5 distributed value is {err:.3e} off f64")
+    worst = gate_grads("config #5 distributed", got, g64,
+                       zero=(f"kern.warp.layers.{len(m32.kern.warp.layers) - 1}.bias",))
+    del m64
+    return {"launches": launches, "obj_grad_ms": wall, "busy_ms": busy, "peak_gb": peak, "value_err": err,
+            "lib_value_err": lib_err, "grad_err": worst, "model": m32}
+
+
+def rel_max(got, want):
+    return float((got.double() - want).abs().max()) / float(want.abs().max())
+
+
+def dist_paths(gft, torch, gram, cholesky, trsm, mesh, dev, card):
+    """Phase 4j on bench.py's GPR (N=10000, RBF lengthscale 0.1, f32) and on
+    1 x 1 meshes: ``make_distributed_gpr_loss`` (block DIST_SMALL_BS) against
+    the single-device ``GPR.objective()`` (OBJECTIVE_TOL, GRAD_TOL), the
+    value against the f64 oracle (OBJECTIVE_TOL) and every gradient against
+    the f64 plain path (GRAD_TOL); ``cyclic_cholesky`` and ``grid_cholesky`` (block
+    GRID_BS) against cuSOLVER's f64 factor (FACTOR_TOL, relative max-norm;
+    half-logdet FACTOR_HLD_TOL); ``make_grid_gpr_loss`` against the f64
+    oracle and the f64 plain path; ``make_distributed_cg_loss`` (the JAX
+    package's defaults, fixed probes) within CG_REL of the exact GPR's f64
+    oracle; ``ring_gram_matvec`` against K @ v + noise v in f64
+    (RING_MATVEC_TOL, relative max-norm). Then config #4's 8 chains through
+    ``sample_chains`` on the 1-rank mesh, equal bit for bit to
+    ``sample_chains(mesh=None)``, and ``entry.dryrun_multichip(1)``.
+    Returns the launches of the distributed loss and the f32 K it factored
+    in the cyclic and grid checks."""
+    X, Y = bench_data()
+    m = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE), device=dev, dtype=torch.float32)
+    m64 = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE), device=dev, dtype=torch.float64)
+    m64.load_state_dict(m.state_dict())
+    named = gft.params.trainable_leaves(m)
+    v64_oracle = oracle_objective(torch, X, Y, LENGTHSCALE, 1.0, 1.0)
+    _, g64 = value_and_grads(gft, m64, False)
+
+    def vg(loss_fn):
+        loss = loss_fn(m)
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+        return loss.item(), {n: g.detach() for (n, _), g in zip(named, grads)}
+
+    reset_counts(gram, cholesky, trsm)
+    v_dist, g_dist = vg(gft.parallel.make_distributed_gpr_loss(m, mesh, axis="rows", block_size=DIST_SMALL_BS))
+    launches = read_counts(gram, cholesky, trsm)
+    v_one, g_one = vg(lambda mm: mm.objective())
+    print(f"distributed GPR on bench.py's GPR (N={N}, block {DIST_SMALL_BS}): {v_dist:.6f}, single-device "
+          f"objective {v_one:.6f}, f64 oracle {v64_oracle:.6f}; rel err {abs(v_dist - v64_oracle) / v64_oracle:.3e} "
+          f"and {abs(v_one - v64_oracle) / v64_oracle:.3e}; launches {launches}")
+    if not abs(v_dist - v64_oracle) / v64_oracle <= OBJECTIVE_TOL:
+        raise AssertionError("the distributed GPR's value is off the f64 oracle")
+    gate_grads("distributed GPR (N=10000)", g_dist, g64)
+    print("  single-device gradients against the same f64: "
+          + ", ".join(f"{n} {rel_max(g_one[n], w):.3e}" for n, w in g64.items()))
+    # and the two f32 evaluations against each other, at the same gates
+    diffs = {n: rel_max(g_dist[n], g_one[n].double()) for n in g_one}
+    print(f"  distributed against single-device: value rel {abs(v_dist - v_one) / abs(v_one):.3e}, gradients "
+          + ", ".join(f"{n} {d:.3e}" for n, d in diffs.items()))
+    if not (abs(v_dist - v_one) / abs(v_one) <= OBJECTIVE_TOL and max(diffs.values()) <= GRAD_TOL):
+        raise AssertionError("the distributed GPR differs from the single-device GPR")
+
+    # the cyclic and grid factors of K + noise I, on 1 x 1 meshes
+    with torch.no_grad():
+        Xs = (m.X / LENGTHSCALE).contiguous()
+        K = gram.gram_cuda("rbf", Xs, Xs, torch.ones((), device=dev))
+        K.diagonal().add_(1.0)
+    L64 = torch.linalg.cholesky(K.double())
+    hld64 = float(torch.log(torch.diagonal(L64)).sum())
+    mesh2d = gft.parallel.make_mesh({"rows": 1, "cols": 1})
+    for what, factor in (("cyclic_cholesky", lambda: gft.parallel.cyclic_cholesky(K, mesh, "rows", GRID_BS)),
+                         ("grid_cholesky", lambda: gft.parallel.grid_cholesky(K, mesh2d, ("rows", "cols"), GRID_BS))):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            L = factor()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        err, hld = rel_max(L, L64), abs(float(torch.log(torch.diagonal(L)).sum()) - hld64) / abs(hld64)
+        print(f"{what} (1 x 1 mesh, N={N}, block {GRID_BS}) on {card}: {ms:.1f} ms; factor rel err {err:.3e} "
+              f"(gate {FACTOR_TOL:g}), half-logdet rel err {hld:.3e} (gate {FACTOR_HLD_TOL:g}) vs cuSOLVER f64")
+        if not (err <= FACTOR_TOL and hld <= FACTOR_HLD_TOL):
+            raise AssertionError(f"{what} disagrees with cuSOLVER's f64 factor")
+        del L
+    del L64
+
+    v_grid, g_grid = vg(gft.parallel.make_grid_gpr_loss(m, mesh2d, ("rows", "cols"), block_size=GRID_BS))
+    err = abs(v_grid - v64_oracle) / v64_oracle
+    print(f"grid GPR (1 x 1 mesh, block {GRID_BS}): {v_grid:.6f}, rel err {err:.3e} vs the f64 oracle")
+    if not err <= OBJECTIVE_TOL:
+        raise AssertionError("the grid GPR's value is off the f64 oracle")
+    gate_grads("grid GPR (N=10000)", g_grid, g64)
+
+    with FixedProbes(gft, torch, N, 16, dev):
+        with torch.no_grad():
+            v_cg = gft.parallel.make_distributed_cg_loss(m, mesh, axis="rows")(m).item()
+    err = abs(v_cg - v64_oracle) / v64_oracle
+    print(f"distributed CG (16 probes, 100 CG iterations, 25 Lanczos steps, fixed probes): {v_cg:.6f}, rel err "
+          f"{err:.3e} vs the exact GPR's f64 oracle (gate {CG_REL:g})")
+    if not err <= CG_REL:
+        raise AssertionError("the distributed CG estimate is off the exact GPR")
+
+    v = torch.randn((N, 3), generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    with torch.no_grad():
+        out = gft.parallel.ring_gram_matvec(m.kern, m.X, v, mesh, "rows", noise=1.0)
+    want = K.double() @ v.double()  # K holds the noise on its diagonal
+    err = rel_max(out, want)
+    print(f"ring_gram_matvec (N={N}, 3 columns): rel err {err:.3e} vs K @ v in f64 (gate {RING_MATVEC_TOL:g})")
+    if not err <= RING_MATVEC_TOL:
+        raise AssertionError("ring_gram_matvec disagrees with K @ v")
+    del K, want
+
+    cm = config4_model(gft, torch, torch.float32, dev)
+    lp, x0, _ = gft.mcmc.model_logprob(cm)
+    x0s = x0[None].repeat(NUTS_CHAINS, 1)
+    runs = [gft.parallel.sample_chains(lp, x0s, torch.Generator(device=dev).manual_seed(DIST_CHAIN_SEED),
+                                       DIST_CHAIN_DRAWS, mesh=mesh_, axis="rows", num_warmup=DIST_CHAIN_DRAWS,
+                                       max_depth=NUTS_DEPTH) for mesh_ in (mesh, None)]
+    same = torch.equal(runs[0][0], runs[1][0]) and all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[1][1])
+    print(f"config #4's {NUTS_CHAINS} chains, {DIST_CHAIN_DRAWS} warmup + {DIST_CHAIN_DRAWS} draws through "
+          f"sample_chains on the 1-rank mesh and with mesh=None: bit for bit {same}")
+    if not same:
+        raise AssertionError("sample_chains on a 1-rank mesh differs from mesh=None")
+    out = gft.entry.dryrun_multichip(1)
+    print(f"entry.dryrun_multichip(1): every distributed loss equals its unsharded counterpart: {out}")
+    return launches
+
+
+def slice4j_times(gft, torch, gram, cholesky, trsm, m32, dev):
+    """Phase 3 and phase 5 for phase 4j, at the shapes config #5's
+    distributed path ran its kernels: the cross Gram of a ring panel
+    (DIST_PANEL x DIST_N of the warped inputs, D=1), the factor-only
+    Cholesky of K's first diagonal block (DIST_BS, padded to the kernel's
+    64-multiple) and the wide TRSM of its factor on the panel below it
+    (N=DIST_BS, P=DIST_N - DIST_BS), each held to its plain version in f64
+    at phase 3's gates, then timed against its plain f32 version and the
+    library call where there is one."""
+    rows = {}
+    bs = DIST_BS
+    with torch.no_grad():
+        H = (m32.kern.warp(m32.X) / m32.kern.base_kernel.lengthscales.value).contiguous()
+        var = m32.kern.base_kernel.variance.value.detach().reshape(())
+        noise = m32.likelihood.variance.value.detach().reshape(())
+    xb = H[:DIST_PANEL].contiguous()
+    rows["gram_dist_panel"] = timed_kernel(
+        torch, f"gram_dist_panel (cross Gram, a ring panel, {DIST_PANEL} x {DIST_N})",
+        lambda: gram.gram_cuda("rbf", xb, H, var), lambda: gram.gram_reference("rbf", xb, H, var),
+        gram.gram_reference("rbf", xb.double(), H.double(), var.double()), abs_err, OPERAND_TOL * float(var),
+        5 * DIST_PANEL * DIST_N, DIST_PANEL * DIST_N * 4 + (DIST_PANEL + DIST_N) * 4)
+    with torch.no_grad():
+        Np = bs + (-bs) % cholesky.BLOCK
+        Kp = torch.eye(Np, device=dev)
+        Kp[:bs, :bs] = gram.gram_cuda("rbf", H[:bs].contiguous(), H[:bs].contiguous(), var)
+        Kp[:bs, :bs].diagonal().add_(noise)
+        panel = gram.gram_cuda("rbf", H[:bs].contiguous(), H[bs:].contiguous(), var)  # (bs, N - bs): K[bs:, :bs]^T
+    L_ref = cholesky.cholesky_plain(Kp.double())
+    lib_rel = rel_err(torch.linalg.cholesky(Kp).double(), L_ref)[1]
+    rows["cholesky_dist"] = timed_kernel(
+        torch, f"cholesky_dist (factor only, K's first diagonal block, {bs} padded to {Np}; cuSOLVER f32 rel err "
+        f"{lib_rel:.3e})", lambda K: cholesky.cholesky_cuda(K).tril_(), cholesky.cholesky_plain, L_ref, rel_err,
+        2 * lib_rel + FACTOR_TOL, Np ** 3 / 3, 2 * tri_bytes(Np), library=torch.linalg.cholesky_ex,
+        setup=lambda: (Kp.clone(),))
+    Lkk = cholesky.cholesky_cuda(Kp.clone()).tril_()[:bs, :bs]
+    P = panel.shape[1]
+    rows["trsm_dist"] = timed_kernel(
+        torch, f"trsm_dist (wide, Lkk^-1 of the panel below it, N={bs}, P={P})",
+        lambda: trsm.trsm_cuda(Lkk, panel, True), lambda: trsm.solve_triangular_plain(Lkk, panel, True),
+        trsm.solve_triangular_plain(Lkk.double(), panel.double(), True), rel_err, TRSM_TOL, bs * bs * P,
+        tri_bytes(bs) + 2 * bs * P * 4, library=lambda: torch.linalg.solve_triangular(Lkk, panel, upper=False))
+    return rows
+
+
 def timed_kernel(torch, name, kernel, plain, want, err_of, gate_tol, flop, nbytes, library=None, setup=None):
     """Hold ``kernel()`` against ``want`` (its plain version in f64) by
     ``err_of`` at ``gate_tol``, then time it against ``plain`` (and
@@ -3627,6 +4003,19 @@ def main():
         dp_out = dp_checks(gft, torch, gram, cholesky, trsm, dev, card, tmp)
         serve_out = serve_ckpt_checks(gft, torch, gram, cholesky, trsm, dev, card, dp_out["deterministic"], tmp)
 
+    # 4j. the distributed exact-GP paths on a 1-rank nccl world: config #5
+    # (N=50000) through the distributed block-Cholesky, then bench.py's GPR
+    # through the identity of the distributed loss, the cyclic and grid
+    # factors, the grid loss, the distributed CG and the ring matvec;
+    # config #4's chains over the mesh; the dry run
+    gft.parallel.initialize_distributed(f"localhost:{free_port()}", 1, 0)  # nccl on the card
+    try:
+        mesh = gft.parallel.make_mesh({"rows": 1})
+        dist_out = dist_config5(gft, torch, gram, cholesky, trsm, mesh, dev, card)
+        dist_paths(gft, torch, gram, cholesky, trsm, mesh, dev, card)
+    finally:
+        torch.distributed.destroy_process_group()
+
     # 5. times on the card, kernel route against plain
     def on_card(ms):
         return f"{ms:.3f} ms"
@@ -3759,6 +4148,8 @@ def main():
     slice_rows = slice_times(gft, torch, gram, trsm, cg_model, lvm_models["BayesianGPLVM"], dev)
     # phase 4i's data-parallel step and restored posterior
     rows4i = slice4i_times(gft, torch, gram, cholesky, trsm, dp_out, serve_out, dev)
+    # phase 4j's distributed path
+    rows4j = slice4j_times(gft, torch, gram, cholesky, trsm, dist_out["model"], dev)
 
     # each kernel's bound at the shape it was timed at (D = 1 inputs; a map
     # entry counted as 5 flop: the difference, its square, the scale, exp)
@@ -3852,6 +4243,12 @@ def main():
               ("trsm_dp", "trsm.cu", "pallas_trsm.py:116", dp_out["launches"]["trsm_wide"]),
               ("gram_serve_ckpt", "gram.cu", "pallas_gram.py:95", serve_out["launches"]["gram"]),
               ("trsm_serve_ckpt", "trsm.cu", "pallas_trsm.py:116", serve_out["launches"]["trsm_wide"]))),
+        *(timed_row(name, source, replaces, launches, rows4j[name]["max_abs_err"], rows4j[name])
+          for name, source, replaces, launches in (
+              ("gram_dist_panel", "gram.cu", "pallas_gram.py:95",
+               dist_out["launches"]["gram_by_shape"].get((DIST_PANEL, DIST_N), 0)),
+              ("cholesky_dist", "chol_solve.cu", "pallas_cholesky.py:716", dist_out["launches"]["cholesky"]),
+              ("trsm_dist", "trsm.cu", "pallas_trsm.py:116", dist_out["launches"]["trsm_wide"]))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

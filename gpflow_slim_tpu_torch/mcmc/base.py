@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call, grad_and_value, vmap
 
@@ -154,8 +155,51 @@ def per_chain(x0, value):
     return value.to(dtype=x0.dtype, device=x0.device).expand(x0.shape[:-1]).clone()
 
 
-def share(x, shared: bool):
-    """The mean over the chains, broadcast back to every chain, when the
-    adaptation is shared (the JAX package's ``pmean`` over the chain axis);
-    ``x`` itself otherwise."""
-    return x.mean(dim=0, keepdim=True).expand_as(x) if shared else x
+class ChainShard(NamedTuple):
+    """This rank's chains of a run whose chains are split over ranks
+    (``parallel.sample_chains`` with a mesh): chains ``[start, start +
+    count)`` of ``total``, and the process group of the chain axis. Every
+    rank draws each random tensor for all ``total`` chains from a generator
+    seeded alike and keeps its rows, and the samplers' loops run until no
+    chain on any rank is live, so a chain's draws do not depend on the
+    number of ranks."""
+
+    total: int
+    start: int
+    count: int
+    group: object
+
+
+def mine(t, chains: ChainShard | None):
+    """This rank's rows of a draw for all the chains."""
+    return t if chains is None else t[chains.start:chains.start + chains.count]
+
+
+def num_chains(x, chains: ChainShard | None) -> int:
+    """The number of chains over every rank, for ``x``'s of this rank."""
+    return x.shape[0] if chains is None else chains.total
+
+
+def total(k: int, chains: ChainShard | None, device) -> int:
+    """``k`` summed over the chain axis's ranks (a host integer)."""
+    if chains is None:
+        return k
+    t = torch.tensor([k], device=device)
+    dist.all_reduce(t, group=chains.group)
+    return int(t.item())
+
+
+def share(x, shared: bool, chains: ChainShard | None = None):
+    """The mean over the chains (over every rank's chains), broadcast back
+    to every chain, when the adaptation is shared (the JAX package's
+    ``pmean`` over the chain axes); ``x`` itself otherwise. Over ranks the
+    chains' values are all-gathered and averaged in the one-rank order: a
+    sum of per-rank sums rounds otherwise, and dual averaging amplifies a
+    last-bit difference over a warmup."""
+    if not shared:
+        return x
+    if chains is not None:
+        parts = [torch.empty_like(x) for _ in range(chains.total // chains.count)]
+        dist.all_gather(parts, x.contiguous(), group=chains.group)
+        return torch.cat(parts).mean(dim=0, keepdim=True).expand_as(x)
+    return x.mean(dim=0, keepdim=True).expand_as(x)

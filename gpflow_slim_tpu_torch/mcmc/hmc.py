@@ -22,7 +22,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .base import batched_value_and_grad, da_init, da_update, kinetic_energy, leapfrog, per_chain, share
+from .base import (ChainShard, batched_value_and_grad, da_init, da_update, kinetic_energy, leapfrog, mine, num_chains,
+                   per_chain, share)
 
 
 class HMCState(NamedTuple):
@@ -51,21 +52,23 @@ def _integrate(logprob_grad_fn, z, r, logp, grad, eps, L, inv_mass):
     return z, r, logp, grad
 
 
-def _hmc_transition(logprob_grad_fn, state: HMCState, generator, epsilon, lmin, lmax, epsilon_jitter, inv_mass):
+def _hmc_transition(logprob_grad_fn, state: HMCState, generator, epsilon, lmin, lmax, epsilon_jitter, inv_mass,
+                    chains=None):
     z = state.z
-    C = z.shape[0]
+    C = num_chains(z, chains)  # every rank draws for all the chains and keeps its own
     dtype, device = z.dtype, z.device
 
     def uniform():
-        return torch.rand(C, generator=generator, dtype=dtype, device=device)
+        return mine(torch.rand(C, generator=generator, dtype=dtype, device=device), chains)
 
     lo, hi = epsilon * (1.0 - epsilon_jitter), epsilon * (1.0 + epsilon_jitter)
     eps_mag = lo + (hi - lo) * uniform()
     sign = torch.where(uniform() < 0.5, 1.0, -1.0).to(dtype)
     eps = eps_mag * sign
-    L = torch.randint(lmin, max(lmax, lmin + 1), (C,), generator=generator, device=device)
+    L = mine(torch.randint(lmin, max(lmax, lmin + 1), (C,), generator=generator, device=device), chains)
 
-    r0 = torch.randn(z.shape, generator=generator, dtype=dtype, device=device) / torch.sqrt(inv_mass)
+    r0 = mine(torch.randn((C, z.shape[1]), generator=generator, dtype=dtype, device=device),
+              chains) / torch.sqrt(inv_mass)
     H0 = state.logp - kinetic_energy(r0, inv_mass)
     z1, r1, lp1, grad1 = _integrate(logprob_grad_fn, z, r0, state.logp, state.grad, eps, L, inv_mass)
     H1 = lp1 - kinetic_energy(r1, inv_mass)
@@ -99,13 +102,16 @@ def hmc(
     adapt_step_size: bool = False,
     target_accept: float = 0.8,
     shared_adaptation: bool = False,
+    chains: ChainShard | None = None,
 ):
     """Run HMC chains from ``x0`` (C, D), or one chain from ``x0`` (D,);
     ``generator`` a ``torch.Generator`` on ``x0``'s device. Returns
     ``(samples, dict(logp, accept_rate, epsilon))``: samples (C, S, D),
     post burn-in and thinned, logp (C, S), accept_rate and epsilon (C,);
     for one chain without the leading dimension. ``shared_adaptation``:
-    dual averaging's accept statistic is averaged over the chains."""
+    dual averaging's accept statistic is averaged over the chains.
+    ``chains``: ``x0`` is this rank's share of a run over ranks
+    (``ChainShard``; ``parallel.sample_chains`` passes it)."""
     single = x0.dim() == 1
     z = x0[None] if single else x0
     inv_mass = torch.ones_like(z) if inv_mass is None else torch.as_tensor(inv_mass).to(z).expand_as(z).clone()
@@ -117,9 +123,9 @@ def hmc(
     da = da_init(eps0)
     for _ in range(burn):
         eps = torch.exp(da.log_step) if adapt_step_size else eps0
-        state, accept_prob = _hmc_transition(fn, state, generator, eps, lmin, lmax, epsilon_jitter, inv_mass)
+        state, accept_prob = _hmc_transition(fn, state, generator, eps, lmin, lmax, epsilon_jitter, inv_mass, chains)
         if adapt_step_size:
-            da = da_update(da, share(accept_prob, shared_adaptation), target=target_accept)
+            da = da_update(da, share(accept_prob, shared_adaptation, chains), target=target_accept)
     eps_final = torch.exp(da.log_step_avg) if adapt_step_size else eps0
 
     # sampling, thinned
@@ -127,7 +133,7 @@ def hmc(
     for _ in range(num_samples):
         aps = []
         for _ in range(thin):
-            state, ap = _hmc_transition(fn, state, generator, eps_final, lmin, lmax, epsilon_jitter, inv_mass)
+            state, ap = _hmc_transition(fn, state, generator, eps_final, lmin, lmax, epsilon_jitter, inv_mass, chains)
             aps.append(ap)
         zs.append(state.z)
         logps.append(state.logp)

@@ -42,13 +42,17 @@ from typing import Callable, NamedTuple
 import torch
 
 from .base import (
+    ChainShard,
     batched_value_and_grad,
     da_init,
     da_update,
     kinetic_energy,
     leapfrog,
+    mine,
+    num_chains,
     per_chain,
     share,
+    total,
     welford_init,
     welford_update,
     welford_variance,
@@ -133,12 +137,14 @@ def _put(x, idx, v):
 
 
 def _build_subtree(logprob_grad_fn, z0, r0, grad0, depth: int, direction, step_size, inv_mass, H0,
-                   generator, building=None, idx=None):
+                   generator, building=None, idx=None, chains=None):
     """Integrate ``2^depth`` leapfrog steps from ``(z0, r0)`` of each chain
     in ``building`` (C,) bool (None: all), whose indices ``idx`` are known
     on the device (None: all); iterative U-turn checks. ``direction`` and
-    ``step_size`` (C,), ``inv_mass`` (C, D), ``H0`` (C,)."""
+    ``step_size`` (C,), ``inv_mass`` (C, D), ``H0`` (C,). ``chains``: this
+    rank's chains of a run over ranks (``ChainShard``), None for all."""
     C, D = z0.shape
+    C_all = num_chains(z0, chains)
     dtype, device = z0.dtype, z0.device
     eps = (direction * step_size)[:, None]
     z, r, grad = z0, r0, grad0
@@ -158,11 +164,13 @@ def _build_subtree(logprob_grad_fn, z0, r0, grad0, depth: int, direction, step_s
             if building is not None:
                 live &= building
             act = live.nonzero()[:, 0]  # the leaf's host sync
-            if act.numel() == 0:
+            if total(act.numel(), chains, device) == 0:
                 stopped = True
                 break
             idx = None if act.numel() == C else act
-        u = torch.rand(C, generator=generator, dtype=dtype, device=device)
+        u = mine(torch.rand(C_all, generator=generator, dtype=dtype, device=device), chains)
+        if idx is not None and idx.numel() == 0:
+            continue  # no chain of this rank builds this leaf; another rank's do
         ima = _rows(inv_mass, idx)
         za, ra, lpa, ga = leapfrog(logprob_grad_fn, _rows(z, idx), _rows(r, idx), _rows(grad, idx),
                                    _rows(eps, idx), ima)
@@ -238,12 +246,16 @@ class _Transition(NamedTuple):
     num_leaves: torch.Tensor
 
 
-def _nuts_transition(logprob_grad_fn, z, logp, grad, generator, step_size, inv_mass, max_depth: int):
+def _nuts_transition(logprob_grad_fn, z, logp, grad, generator, step_size, inv_mass, max_depth: int,
+                     chains=None):
     """One NUTS transition of every chain: ``z`` (C, D), ``logp`` (C,),
-    ``grad`` (C, D), ``step_size`` (C,), ``inv_mass`` (C, D)."""
+    ``grad`` (C, D), ``step_size`` (C,), ``inv_mass`` (C, D); ``chains`` as
+    ``_build_subtree``'s."""
     C = z.shape[0]
+    C_all = num_chains(z, chains)
     dtype, device = z.dtype, z.device
-    r0 = torch.randn(z.shape, generator=generator, dtype=dtype, device=device) / torch.sqrt(inv_mass)
+    r0 = mine(torch.randn((C_all, z.shape[1]), generator=generator, dtype=dtype, device=device),
+              chains) / torch.sqrt(inv_mass)
     H0 = logp - kinetic_energy(r0, inv_mass)
 
     z_left = z_right = z_prop = z
@@ -262,17 +274,17 @@ def _nuts_transition(logprob_grad_fn, z, logp, grad, generator, step_size, inv_m
         if d > 0:
             live = ~(turning | diverging)
             act = live.nonzero()[:, 0]  # the host sync of this doubling's first leaf
-            if act.numel() == 0:
+            if total(act.numel(), chains, device) == 0:
                 break
             idx = None if act.numel() == C else act
             live = None if idx is None else live
-        u_dir = torch.rand(C, generator=generator, dtype=dtype, device=device)
+        u_dir = mine(torch.rand(C_all, generator=generator, dtype=dtype, device=device), chains)
         direction = torch.where(u_dir < 0.5, 1.0, -1.0).to(dtype)
         fwd = direction > 0
         fwd2 = fwd[:, None]
         sub = _build_subtree(logprob_grad_fn, torch.where(fwd2, z_right, z_left),
                              torch.where(fwd2, r_right, r_left), torch.where(fwd2, g_right, g_left), d,
-                             direction, step_size, inv_mass, H0, generator, live, idx)
+                             direction, step_size, inv_mass, H0, generator, live, idx, chains)
 
         # the trajectory's new ends
         nz_left = torch.where(fwd2, z_left, sub.z)
@@ -286,7 +298,7 @@ def _nuts_transition(logprob_grad_fn, z, logp, grad, generator, step_size, inv_m
         lw_new = torch.logaddexp(log_weight, sub.log_weight)
         p_new = torch.exp(torch.clamp(sub.log_weight - log_weight, max=0.0))
         invalid = sub.turning | sub.diverging
-        u = torch.rand(C, generator=generator, dtype=dtype, device=device)
+        u = mine(torch.rand(C_all, generator=generator, dtype=dtype, device=device), chains)
         take = (u < p_new) & ~invalid
         take2 = take[:, None]
         nz_prop = torch.where(take2, sub.z_prop, z_prop)
@@ -314,12 +326,12 @@ def _nuts_transition(logprob_grad_fn, z, logp, grad, generator, step_size, inv_m
 
 
 def _warmup_steps(logprob_grad_fn, z, lp, grad, generator, num_steps, da, welford, inv_mass, max_depth,
-                  target_accept, adapt_mass, shared_adaptation):
+                  target_accept, adapt_mass, shared_adaptation, chains=None):
     for _ in range(num_steps):
         tr = _nuts_transition(logprob_grad_fn, z, lp, grad, generator, torch.exp(da.log_step), inv_mass,
-                              max_depth)
+                              max_depth, chains)
         z, lp, grad = tr.z, tr.logp, tr.grad
-        da = da_update(da, share(tr.accept_prob, shared_adaptation), target=target_accept)
+        da = da_update(da, share(tr.accept_prob, shared_adaptation, chains), target=target_accept)
         if adapt_mass:
             welford = welford_update(welford, z)
     return z, lp, grad, da, welford
@@ -363,11 +375,11 @@ def nuts_warmup_window(
     return z, da, welford, inv_mass
 
 
-def nuts_slow_window_close(da, welford, shared_adaptation: bool = False):
+def nuts_slow_window_close(da, welford, shared_adaptation: bool = False, chains: ChainShard | None = None):
     """End a Stan slow window: re-estimate the diagonal inverse mass from
-    the window's Welford moments (averaged over the chains when shared)
-    and restart dual averaging from the averaged step size."""
-    inv_mass = share(welford_variance(welford), shared_adaptation)
+    the window's Welford moments (averaged over the chains, every rank's,
+    when shared) and restart dual averaging from the averaged step size."""
+    inv_mass = share(welford_variance(welford), shared_adaptation, chains)
     return da_init(torch.exp(da.log_step_avg)), inv_mass
 
 
@@ -383,6 +395,7 @@ def nuts(
     adapt_mass: bool = True,
     shared_adaptation: bool = False,
     inv_mass=None,
+    chains: ChainShard | None = None,
 ):
     """Run NUTS chains from ``x0`` (C, D), or one chain from ``x0`` (D,).
 
@@ -393,6 +406,9 @@ def nuts(
     ``shared_adaptation``: warmup's accept statistics and Welford variances
     are averaged over the chains (BASELINE's "shared step-size
     adaptation"); each chain adapts alone otherwise.
+
+    ``chains``: ``x0`` is this rank's share of a run over ranks
+    (``ChainShard``; ``parallel.sample_chains`` passes it).
 
     ``step_size`` and ``inv_mass`` (D,) or (C, D): where warmup starts, or
     with ``num_warmup=0`` the sampler's (resuming from a checkpointed
@@ -418,16 +434,16 @@ def nuts(
             if span <= 0:
                 continue
             z, lp, grad, da, w = _warmup_steps(fn, z, lp, grad, generator, span, da, welford_init(z), inv_mass,
-                                               max_depth, target_accept, adapt_mass, shared_adaptation)
+                                               max_depth, target_accept, adapt_mass, shared_adaptation, chains)
             if phase == "slow" and adapt_mass:
-                da, inv_mass = nuts_slow_window_close(da, w, shared_adaptation)
+                da, inv_mass = nuts_slow_window_close(da, w, shared_adaptation, chains)
         eps = torch.exp(da.log_step_avg)
     else:
         eps = per_chain(z, step_size)
 
     draws = []
     for _ in range(num_samples):
-        tr = _nuts_transition(fn, z, lp, grad, generator, eps, inv_mass, max_depth)
+        tr = _nuts_transition(fn, z, lp, grad, generator, eps, inv_mass, max_depth, chains)
         z, lp, grad = tr.z, tr.logp, tr.grad
         draws.append(tr)
     samples = torch.stack([t.z for t in draws], dim=1)

@@ -1,3 +1,3 @@
-from . import cholesky, gram, linalg, trsm
+from . import blocked, cholesky, gram, iterative, linalg, trsm
 
-__all__ = ["cholesky", "gram", "linalg", "trsm"]
+__all__ = ["blocked", "cholesky", "gram", "iterative", "linalg", "trsm"]

@@ -32,72 +32,88 @@ __all__ = ["batched_cg", "lanczos_tridiag", "slq_logdet", "pivoted_cholesky", "w
            "probe_seed", "rademacher", "cg_probes"]
 
 
+def _local_sum(x):
+    return x
+
+
+def _norm(x, reduce):
+    """The columns' 2-norms; over every rank's rows where ``reduce`` sums."""
+    if reduce is _local_sum:
+        return torch.linalg.vector_norm(x, dim=0)
+    return torch.sqrt(reduce(torch.sum(x * x, dim=0)))
+
+
 def batched_cg(matvec: Callable, B, max_iters: int = 100, tol: float = 1e-6,
-               precond: Callable | None = None):
+               precond: Callable | None = None, reduce: Callable = _local_sum):
     """Solve A X = B for PSD A with (preconditioned) conjugate gradients.
 
     B: (N, P); all right-hand sides iterate together (matrix-matrix
     products). Runs a fixed ``max_iters`` with convergence masking:
-    converged columns stop updating. Returns (X, residual_norms (P,))."""
+    converged columns stop updating. ``reduce`` completes each inner
+    product's column sums: the identity for rows held whole, a sum over the
+    ranks for row shards (``parallel.dist_cg``). Returns (X,
+    residual_norms (P,))."""
     if precond is None:
         precond = lambda v: v  # noqa: E731
     X = torch.zeros_like(B)
     R = B
     P = precond(R)
-    rz = torch.sum(R * P, dim=0)
-    bnorm = torch.sqrt(torch.sum(B * B, dim=0)) + 1e-30
+    rz = reduce(torch.sum(R * P, dim=0))
+    bnorm = torch.sqrt(reduce(torch.sum(B * B, dim=0))) + 1e-30
     for _ in range(max_iters):
         AP = matvec(P)
-        denom = torch.sum(P * AP, dim=0)
+        denom = reduce(torch.sum(P * AP, dim=0))
         alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
-        active = torch.sqrt(torch.sum(R * R, dim=0)) / bnorm > tol
+        active = torch.sqrt(reduce(torch.sum(R * R, dim=0))) / bnorm > tol
         alpha = torch.where(active, alpha, torch.zeros_like(alpha))
         X = X + alpha[None, :] * P
         R = R - alpha[None, :] * AP
         Z = precond(R)
-        rz_new = torch.sum(R * Z, dim=0)
+        rz_new = reduce(torch.sum(R * Z, dim=0))
         beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
         beta = torch.where(active, beta, torch.zeros_like(beta))
         P = Z + beta[None, :] * P
         rz = rz_new
-    return X, torch.sqrt(torch.sum(R * R, dim=0)) / bnorm
+    return X, torch.sqrt(reduce(torch.sum(R * R, dim=0))) / bnorm
 
 
-def lanczos_tridiag(matvec: Callable, V0, num_steps: int):
+def lanczos_tridiag(matvec: Callable, V0, num_steps: int, reduce: Callable = _local_sum):
     """Lanczos tridiagonalization (no reorthogonalization, fixed steps) from
-    each column of V0 (N, P) at once. Returns (alphas (num_steps, P), betas
-    (num_steps - 1, P)); a column is the JAX package's run from that start
-    vector."""
-    V = V0 / torch.linalg.vector_norm(V0, dim=0)
+    each column of V0 (N, P) at once; ``reduce`` as ``batched_cg``'s.
+    Returns (alphas (num_steps, P), betas (num_steps - 1, P)); a column is
+    the JAX package's run from that start vector."""
+    V = V0 / _norm(V0, reduce)
     V_prev = torch.zeros_like(V)
     beta = torch.zeros_like(V[0])
     alphas, betas = [], []
     for _ in range(num_steps):
         W = matvec(V) - beta * V_prev
-        alpha = torch.sum(W * V, dim=0)
+        alpha = reduce(torch.sum(W * V, dim=0))
         W = W - alpha * V
-        beta = torch.linalg.vector_norm(W, dim=0)
+        beta = _norm(W, reduce)
         V_prev, V = V, W / torch.where(beta == 0, torch.ones_like(beta), beta)
         alphas.append(alpha)
         betas.append(beta)
     return torch.stack(alphas), torch.stack(betas)[:-1]
 
 
-def slq_logdet(matvec: Callable, probes, num_steps: int = 20):
+def slq_logdet(matvec: Callable, probes, num_steps: int = 20, reduce: Callable = _local_sum):
     """Stochastic Lanczos quadrature estimate of log det A (A PSD) over the
     probe columns (N, num_probes), Rademacher in the JAX package:
     z^T log(A) z ~ ||z||^2 sum_k (e1^T u_k)^2 log lambda_k from each probe's
-    tridiagonal T = U diag(lambda) U^T; the mean over the probes."""
-    dim = probes.shape[0]
-    alphas, betas = lanczos_tridiag(matvec, probes, num_steps)
+    tridiagonal T = U diag(lambda) U^T; the mean over the probes. ``reduce``
+    as ``batched_cg``'s (N is then the rows over every rank)."""
+    dim = float(probes.shape[0])
+    if reduce is not _local_sum:  # a fill on the device: no copy from the host
+        dim = reduce(torch.full((), dim, dtype=probes.dtype, device=probes.device))
+    alphas, betas = lanczos_tridiag(matvec, probes, num_steps, reduce)
     T = torch.diag_embed(alphas.T) + torch.diag_embed(betas.T, 1) + torch.diag_embed(betas.T, -1)
     lam, U = torch.linalg.eigh(T)  # (P, m), (P, m, m)
     lam = torch.clamp(lam, min=1e-10)
-    ests = torch.sum(torch.square(U[:, 0, :]) * torch.log(lam), dim=-1) * (dim * 1.0)
+    ests = torch.sum(torch.square(U[:, 0, :]) * torch.log(lam), dim=-1) * dim
     return torch.mean(ests)
 
 
-@torch.no_grad()
 def pivoted_cholesky(K, rank: int):
     """Partial pivoted Cholesky: K ~ L L^T with L (N, rank), greedy
     max-diagonal pivoting (the GPyTorch preconditioner). Each pivot is an

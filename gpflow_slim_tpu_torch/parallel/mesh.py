@@ -5,9 +5,10 @@ The JAX package lays devices on a ``jax.sharding.Mesh`` of named axes and
 lets XLA's SPMD partitioner insert the collectives. The port's unit is a
 process (a rank, one card each): ``make_mesh`` lays the world's ranks on
 named axes and builds, for each axis, the process group of this rank's
-line along it; the distributed paths (``dp``) write their collectives out
-on those groups. ``shard_rows`` and ``replicated`` are the row slice and
-the broadcast that ``P(axis)`` and ``P()`` mean for an array. A mesh of one
+line along it; the distributed paths (``dp``, ``dist_linalg``,
+``grid_gpr``, ...) write their collectives out on those groups.
+``shard_rows`` and ``replicated`` are the row slice and the broadcast that
+``P(axis)`` and ``P()`` mean for an array. A mesh of one
 rank is the identity on every path: with no process group initialized, a
 1 x ... x 1 mesh runs in the one process and calls no collective, so the
 same code runs on one card or many.
@@ -24,18 +25,19 @@ import torch.distributed as dist
 __all__ = ["Mesh", "make_mesh", "replicated", "shard_rows", "initialize_distributed"]
 
 
-def initialize_distributed(coordinator_address=None, num_processes=None, process_id=None, backend=None):
+def initialize_distributed(coordinator_address=None, num_processes=None, process_id=None, backend="nccl"):
     """Join the process group: ``dist.init_process_group`` with ``backend``,
-    by default ``nccl`` when a card is present and ``gloo`` otherwise (a
-    world of CPU tensors on a machine with cards takes ``gloo``).
+    ``nccl`` (one card a rank) unless the caller asks for another: a world
+    of CPU tensors asks for ``gloo``. Without a card, ``nccl`` raises here:
+    the port runs on the card unless the caller asks for the CPU.
     ``coordinator_address`` (``host:port``), ``num_processes`` and
     ``process_id`` default to the environment (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``,
     ``RANK``), as the JAX package's ``jax.distributed.initialize``
     discovers its own. On ``nccl`` the rank takes card ``LOCAL_RANK`` (else
     its rank modulo the cards). No elasticity: a job recovers by restarting
     from a checkpoint (``utils.checkpoint``)."""
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device for the nccl backend: pass backend="gloo" for a world of CPU tensors')
     init_method = f"tcp://{coordinator_address}" if coordinator_address is not None else "env://"
     world = int(num_processes if num_processes is not None else os.environ.get("WORLD_SIZE", 1))
     rank = int(process_id if process_id is not None else os.environ.get("RANK", 0))
@@ -47,9 +49,11 @@ def initialize_distributed(coordinator_address=None, num_processes=None, process
 class Mesh:
     """Ranks on named axes. ``shape``: ``{axis: size}``; ``devices``: the
     ranks as an array of that shape; ``coordinate(axis)``: this rank's
-    index along an axis; ``group(axis)``: the process group of this rank's
-    line along it (None where the mesh has one rank and no process group
-    is initialized); ``world_group``: the group of all the mesh's ranks."""
+    index along an axis; ``line(axis)``: the ranks of this rank's line
+    along it, in the order of their coordinate; ``group(axis)``: the process
+    group of that line (None where the mesh has one rank and no process
+    group is initialized); ``world_group``: the group of all the mesh's
+    ranks."""
 
     def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...]):
         self.devices = devices
@@ -60,6 +64,11 @@ class Mesh:
         if self.rank not in devices:
             raise ValueError(f"rank {self.rank} is not in the mesh {devices.tolist()}")
         self._coords = dict(zip(axis_names, (int(c[0]) for c in np.nonzero(devices == self.rank))))
+        self._lines = {}
+        for i, name in enumerate(axis_names):
+            index = [self._coords[a] for a in axis_names]
+            index[i] = slice(None)
+            self._lines[name] = [int(r) for r in devices[tuple(index)]]
         self._groups = {}
         self.world_group = None
         if dist.is_initialized():
@@ -77,6 +86,9 @@ class Mesh:
 
     def coordinate(self, axis: str) -> int:
         return self._coords[axis]
+
+    def line(self, axis: str) -> list[int]:
+        return self._lines[axis]
 
     def group(self, axis: str):
         return self._groups.get(axis)

@@ -1044,3 +1044,79 @@ def test_restored_posterior_serves_bit_for_bit(dev, tmp_path):
     with torch.no_grad():
         want = post.predict_f(Xq, full_cov=True)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_blocked_factor_and_solves_on_the_kernels(dev):
+    # ops.blocked on a CUDA float32 tensor: each diagonal block on the
+    # factor-only Cholesky kernel and each panel and diagonal solve on the
+    # wide TRSM, against the f64 plain path; Murray's adjoint through the
+    # same solves against 1/2 K^-1
+    from gpflow_slim_tpu_torch.ops import blocked
+
+    rng = np.random.RandomState(3)
+    N, bs = 1000, 250
+    A = rng.randn(N, N) / np.sqrt(N)
+    K64 = torch.tensor(A @ A.T + np.eye(N), device=dev)
+    K = K64.float()
+    before = (cholesky.cholesky_cuda.launches, trsm.trsm_cuda.launches)
+    L = blocked.blocked_cholesky(K, bs)
+    after = (cholesky.cholesky_cuda.launches, trsm.trsm_cuda.launches)
+    assert after[0] - before[0] == N // bs and after[1] - before[1] == N // bs - 1
+    L64 = torch.linalg.cholesky(K64)
+    assert float((L.double() - L64).abs().max()) / float(L64.abs().max()) <= 1e-4
+    B = torch.tensor(rng.randn(N, 3), dtype=torch.float32, device=dev)
+    X = blocked.blocked_solve_lower(L, B, bs)
+    want = torch.linalg.solve_triangular(L64, B.double(), upper=False)
+    assert float((X.double() - want).abs().max()) / float(want.abs().max()) <= 1e-3
+    U = blocked.blocked_solve_upper(L.T, B[:, 0], bs)
+    want = torch.linalg.solve_triangular(L64.T, B[:, :1].double(), upper=True)[:, 0]
+    assert float((U.double() - want).abs().max()) / float(want.abs().max()) <= 1e-3
+    Kg = K.clone().requires_grad_()
+    (g,) = torch.autograd.grad(torch.log(torch.diagonal(blocked.blocked_cholesky(Kg, bs))).sum(), Kg)
+    want = 0.5 * torch.cholesky_inverse(L64)
+    sym = 0.5 * (g + g.T).double()
+    assert float((sym - want).abs().max()) / float(want.abs().max()) <= 1e-3
+
+
+def _one_rank_world():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    gft.parallel.initialize_distributed(f"localhost:{port}", 1, 0)  # nccl
+
+
+def test_distributed_gpr_on_a_one_rank_nccl_world(dev):
+    # make_distributed_gpr_loss on a 1-rank nccl world equals the single
+    # device's GPR objective (the fused route), value and gradients, within
+    # the f32 gates against each other's f64
+    rng = np.random.RandomState(4)
+    X = rng.uniform(0, 1, (2000, 1)).astype(np.float32)
+    Y = (np.sin(12 * X) + 0.1 * rng.randn(2000, 1)).astype(np.float32)
+    m = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=0.1), device=dev, dtype=torch.float32)
+    m64 = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=0.1), device=dev, dtype=torch.float64)
+    m64.load_state_dict(m.state_dict())
+    named = gft.params.trainable_leaves(m)
+    _one_rank_world()
+    try:
+        loss = gft.parallel.make_distributed_gpr_loss(m, gft.parallel.make_mesh({"rows": 1}), axis="rows",
+                                                      block_size=250)(m)
+        grads = torch.autograd.grad(loss, [t for _, t in named])
+    finally:
+        torch.distributed.destroy_process_group()
+    with gft.config.temp_settings(use_kernels=False):
+        want = m64.objective()
+        want_g = torch.autograd.grad(want, [t for _, t in gft.params.trainable_leaves(m64)])
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    for g, w in zip(grads, want_g):
+        assert float((g.double() - w).abs().max()) <= 1e-3 * float(w.abs().max())
+
+
+def test_dryrun_multichip_on_the_card(dev):
+    _one_rank_world()
+    try:
+        out = gft.entry.dryrun_multichip(1)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert set(out) == {"dist_gpr", "dp_svgp", "dist_cg", "grid_gpr", "chains"}

@@ -17,6 +17,7 @@ EXAMPLES = sorted((REPO / "examples" / "torch").glob("*.py"))
 LAST_LINE = {"01_gpr_regression.py": "posterior-mean RMSE vs noiseless truth",
              "02_svgp_classification.py": "ELBO:",
              "03_nuts_hyperparameters.py": "posterior noise variance: median=",
+             "04_distributed_gpr.py": "matches single-device: True",
              "05_deep_kernel.py": "objective",
              "06_nkn_pattern_discovery.py": "objective",
              "07_serving_posterior.py": "pred mean range:",

@@ -520,9 +520,11 @@ def test_warmup_window_chunking_bit_identical():
 
 def test_sample_chains_arguments():
     lp = functools.partial(_gauss, torch)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        gft.parallel.sample_chains(lp, torch.zeros(2, 3, dtype=torch.float64), torch.Generator(), 2,
-                                   mesh=object())
+    # chains split over a mesh axis must divide by its size (a mesh of two
+    # ranks without a process group raises before any collective)
+    with pytest.raises(ValueError, match="not divisible"):
+        gft.parallel.sample_chains(lp, torch.zeros(3, 3, dtype=torch.float64), torch.Generator(), 2,
+                                   mesh=gft.parallel.make_mesh({"chains": 2}, devices=[0, 1]))
     with pytest.raises(ValueError, match="unknown sampler"):
         gft.parallel.sample_chains(lp, torch.zeros(2, 3, dtype=torch.float64), torch.Generator(), 2,
                                    sampler="mala")
