@@ -38,7 +38,12 @@ entry()'s GPR).
    config's chol(Kuu); its backward's gB and dL); the cross Gram at the edges
    of its row bands and sweeps (six kinds, N = 1, 7, 10001, M = 1, 3, 1023,
    2049, D = 1, 3, 8: partial bands, rows that are not 16-byte aligned,
-   a last sweep of one column); config #2's shapes: both Cholesky modes on
+   a last sweep of one column); the lower-tile Gram at the edges of its
+   bands, tiles and sweeps (six kinds, N = 1, 7, 31, 32, 33, 255, 1003,
+   2047, 2048, 4097, 10001, D = 1, 2, 5, 8: 1-row and 8-row bands, N % 4 !=
+   0 on the scalar-store variant, a last sweep of one column; every entry
+   against the plain version, the strictly-upper 32 x 32 tiles exactly 0,
+   one launch a call); config #2's shapes: both Cholesky modes on
    its Kuu at M = 64 and 100 (Np = 64 and 128, under one 256-wide panel),
    the TRSM on the M = 100 factor (two block rows, the last ragged) at
    P = 10000, 2047 and 1, lower and upper through the transposed view of
@@ -136,7 +141,8 @@ entry()'s GPR).
    function where there is one, and of the kernel and the library call by
    two more methods, named apart in the kernels line: the mean of runs of
    20 back-to-back calls (run20_ms) and one call queued behind a spin
-   kernel, so the host's launch work is hidden (device_ms); each kernel's
+   kernel, so the host's launch work is hidden (device_ms), and their
+   difference, the host's microseconds a call (host_us); each kernel's
    bound (the larger of its bytes over 3.35 TB/s and its flop over 67
    TFLOP/s), the cross Gram also at the SVGP path's shapes
    (256 x 256, 256 x 1024) and with a ragged M (its scalar-store variant),
@@ -147,7 +153,8 @@ entry()'s GPR).
    objective, objective+gradient, GPRFITC objective, posterior() and
    request on both routes; config #4's operand (N=1000 padded to 1024) and
    fused Cholesky (Np=1024), and one batched log posterior + gradient of its
-   8 chains on both routes; the lower-tile Gram at N=2048 (D=2), the factor
+   8 chains on both routes; the lower-tile Gram at GPMC's N (D=1), with its
+   launches in phase 4f's HMC run; the lower-tile Gram at N=2048 (D=2), the factor
    at Np=2048, the wide TRSM at N=P=2048, the cross Gram at 2048 x 2048
    and 2048 x 1024 (D=2), entry()'s operand and fused Cholesky (N=2048) of
    phase 4g, and its VGP and
@@ -286,6 +293,11 @@ LIBRARY_SOLVES = ("trsm", "trsv", "potrf", "potrs", "potri", "getrf", "syrk", "c
 # the cross Gram's edges: partial 8-row bands, rows that are not 16-byte
 # aligned, last 1024-column sweeps of one column, D up to 8 (ARD)
 GRAM_EDGE_N, GRAM_EDGE_M, GRAM_EDGE_D = (1, 7, 10_001), (1, 3, 1023, 2049), (1, 3, 8)
+# the lower-tile Gram's edges: 1-row bands (N < 2112), 8-row bands, partial
+# bands and tiles, N % 4 != 0 (the scalar-store variant), last 1024-column
+# sweeps of one column (4097, 10001)
+GRAM_LOWER_EDGE_N = (1, 7, 31, 32, 33, 255, 1003, 2047, 2048, 4097, 10_001)
+GRAM_LOWER_EDGE_D = (1, 2, 5, 8)
 # BASELINE config #4: benchmarks/bench_svgp_nuts.py's bench_nuts model (GPR,
 # N=1000 on [0, 1], Y = sin(6 X) + 0.2 noise, RBF with LogNormal(0, 1) on the
 # variance and LogNormal(-1, 1) on the lengthscale, LogNormal(-2, 1) on the
@@ -577,6 +589,35 @@ def check_gram_edges(torch, gram, dev):
                     raise AssertionError(f"cross-Gram kernel disagrees at N={n} M={m} D={D}: {errs}")
         print(f"gram (cross) edges D={D}, N in {GRAM_EDGE_N}, M in {GRAM_EDGE_M}, six kinds: max abs err "
               f"{worst:.3e} (tol {OPERAND_TOL:g} x variance {var})")
+    return worst
+
+
+def check_gram_lower_edges(torch, gram, dev):
+    """Phase 3 at the edges of the lower-tile Gram's bands, tiles and
+    sweeps: every kind at each (N, D) of the grid against
+    ``gram_lower_plain`` in f64 over every entry (the diagonal tiles'
+    upper entries included), the strictly-upper 32 x 32 tiles exactly 0,
+    one launch a call. Returns the max abs error (at variance 1.7, gated at
+    1e-5 x variance)."""
+    rng = np.random.RandomState(7)
+    var, worst = 1.7, 0.0
+    for D in GRAM_LOWER_EDGE_D:
+        for n in GRAM_LOWER_EDGE_N:
+            xs = torch.tensor(rng.uniform(0, 1, (n, D)) / 0.3, dtype=torch.float32, device=dev)
+            t = torch.arange(n, device=dev) // gram.TILE
+            upper_tiles = t[:, None] < t[None, :]
+            for kind in gram.KINDS:
+                before = gram.gram_lower_cuda.launches
+                got = gram.gram_lower_cuda(kind, xs, torch.tensor(var, device=dev))
+                launched = gram.gram_lower_cuda.launches - before
+                err = float((got.double() - gram.gram_lower_plain(kind, xs.double(), var)).abs().max())
+                upper_zero = bool((got[upper_tiles] == 0).all())
+                worst = max(worst, err)
+                if not (err <= OPERAND_TOL * var and upper_zero and launched == 1):
+                    raise AssertionError(f"lower-tile Gram kernel disagrees at N={n} D={D} {kind}: max abs err "
+                                         f"{err:.3e}, strictly-upper tiles 0: {upper_zero}, launches {launched}")
+        print(f"gram_lower edges D={D}, N in {GRAM_LOWER_EDGE_N}, six kinds: max abs err {worst:.3e} (tol "
+              f"{OPERAND_TOL:g} x variance {var}); strictly-upper tiles exactly 0; one launch a call")
     return worst
 
 
@@ -1640,7 +1681,8 @@ def sparse_times(gft, torch, gram, cholesky, trsm, Lp, L, rng, dev, card):
         return "-" if t is None else f"{t:.4f}"
 
     for name, r in rows.items():
-        print(f"  {name}: kernel {ms(r['ms'])} ms (runs of {RUN} {ms(r['run20_ms'])}, device {ms(r['device_ms'])}), "
+        print(f"  {name}: kernel {ms(r['ms'])} ms (runs of {RUN} {ms(r['run20_ms'])}, device {ms(r['device_ms'])}; "
+              f"host {(r['ms'] - r['device_ms']) * 1e3:.2f} us a call), "
               f"plain f32 {ms(r['plain_ms'])} ms, library {ms(r['library_ms'])} ms (runs of {RUN} "
               f"{ms(r['library_run20_ms'])}, device {ms(r['library_device_ms'])}), bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})")
@@ -1999,7 +2041,8 @@ def mc_checks(gft, torch, gram, cholesky, trsm, dev):
     of 8 dispersed vectors on the kernel route against the f64 plain path,
     within twice the use_kernels=False f32 route's error + 1e-5 / 1e-3 (the
     SVGP phase's form); HMC_STEPS HMC transitions of 8 chains, finite; a
-    profiler launch check of the batched evaluation and of predict_f."""
+    profiler launch check of the batched evaluation and of predict_f.
+    Returns GPMC's N and the launches of each model's HMC run."""
     from gpflow_slim_tpu_torch.mcmc import base as mcmc_base
 
     n_gpmc = None
@@ -2083,6 +2126,7 @@ def mc_checks(gft, torch, gram, cholesky, trsm, dev):
     print(f"GPMC and SGPMC ran kernels {sorted(set(need) - set(missing))} of the table")
     if missing:
         raise AssertionError(f"GPMC and SGPMC did not run kernels {missing} of the table")
+    return n_gpmc, launches
 
 
 def nuts_times(torch, gram, cholesky, dev):
@@ -2127,6 +2171,29 @@ def nuts_times(torch, gram, cholesky, dev):
         print(f"  {name} (Np={Np}): kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain f32 "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     return rows
+
+
+def gpmc_lower_times(torch, gram, n, dev):
+    """Phase 5 for GPMC: the lower-tile Gram at its N (RBF, lengthscale
+    0.5, D=1; 1-row bands below N = 2112), held against its plain version
+    in float64 at phase 3's tolerance and timed against it in float32.
+    Returns its row of the kernels line, with its ``max_abs_err``."""
+    X, _ = gpmc_data(n)
+    xs = (torch.tensor(X, device=dev) / 0.5).contiguous()
+    var = torch.tensor(1.0, device=dev)
+    kernel = lambda: gram.gram_lower_cuda("rbf", xs, var)  # noqa: E731
+    err = float((kernel().double() - gram.gram_lower_plain("rbf", xs.double(), 1.0)).abs().max())
+    print(f"GPMC lower-tile Gram (N={n}): max abs err {err:.3e} (tol {OPERAND_TOL:g} x variance)")
+    if not err <= OPERAND_TOL:
+        raise AssertionError("the lower-tile Gram kernel disagrees with its plain version at GPMC's shape")
+    k_ms, p_ms = paired_ms(torch, kernel, lambda: gram.gram_lower_plain("rbf", xs, var))
+    b_ms, b_by = bound(5 * n * (n + 1) // 2, n * n * 4 + n * 4)
+    row = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": err, **other_ms(torch, kernel)}
+    print(f"  gram_lower_gpmc (N={n}): kernel {k_ms:.4f} ms (runs of {RUN} {row['run20_ms']:.4f}, device "
+          f"{row['device_ms']:.4f}; host {(k_ms - row['device_ms']) * 1e3:.2f} us a call), plain f32 {p_ms:.4f} "
+          f"ms, bound {b_ms:.6f} ms ({b_by})")
+    return row
 
 
 @functools.lru_cache(maxsize=None)
@@ -2526,7 +2593,8 @@ def vgp_times(gft, torch, gram, cholesky, trsm, L, models, dev, card):
         return "-" if t is None else f"{t:.4f}"
 
     for name, r in rows.items():
-        print(f"  {name}: kernel {ms(r['ms'])} ms (runs of {RUN} {ms(r['run20_ms'])}, device {ms(r['device_ms'])}), "
+        print(f"  {name}: kernel {ms(r['ms'])} ms (runs of {RUN} {ms(r['run20_ms'])}, device {ms(r['device_ms'])}; "
+              f"host {(r['ms'] - r['device_ms']) * 1e3:.2f} us a call), "
               f"plain f32 {ms(r['plain_ms'])} ms, library {ms(r['library_ms'])} ms (runs of {RUN} "
               f"{ms(r['library_run20_ms'])}, device {ms(r['library_device_ms'])}), bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})")
@@ -3854,6 +3922,7 @@ def main():
     serve_errs, Xqs, Lp, L = check_serving_kernels(torch, gram, cholesky, trsm, Xs, X3s, Kp, var,
                                                    rng, dev)
     serve_errs["gram"] = max(serve_errs["gram"], check_gram_edges(torch, gram, dev))
+    serve_errs["gram_lower"] = max(serve_errs["gram_lower"], check_gram_lower_edges(torch, gram, dev))
     edge_errs = check_schedule_edges(torch, gram, cholesky, trsm, rng, dev)
     serve_errs["trsm"] = max(serve_errs["trsm"], edge_errs["trsm"])
     serve_errs["cholesky"] = max(serve_errs["cholesky"], edge_errs["cholesky"])
@@ -3976,7 +4045,7 @@ def main():
     # 4f. config #4 (NUTS over the GPR hyperparameters, 8 chains) at full
     # width, then GPMC and SGPMC
     nuts_launches = mcmc_checks(gft, torch, gram, cholesky, dev)
-    mc_checks(gft, torch, gram, cholesky, trsm, dev)
+    n_gpmc, mc_launches = mc_checks(gft, torch, gram, cholesky, trsm, dev)
 
     # 4g. the full-data variational slice (VGP, VGPOpperArchambeau,
     # fit_lbfgs on entry()'s GPR) at full width: its kernels at its shapes,
@@ -4120,7 +4189,9 @@ def main():
           f"device {other['gram']['device_ms']:.4f}), plain f32 {on_card(gram_plain_ms)}; at {N} x {NQ - 1} "
           f"(scalar-store variant) {ragged['ms']:.4f} ms (runs of {RUN} {ragged['run20_ms']:.4f}, device "
           f"{ragged['device_ms']:.4f}), plain f32 {ragged['plain_ms']:.4f} ms")
-    print(f"  lower-tile gram ({N}): kernel {on_card(glow_ms)}, plain f32 {on_card(glow_plain_ms)}")
+    print(f"  lower-tile gram ({N}): kernel {on_card(glow_ms)} (runs of {RUN} {other['gram_lower']['run20_ms']:.4f}, "
+          f"device {other['gram_lower']['device_ms']:.4f}; host {(glow_ms - other['gram_lower']['device_ms']) * 1e3:.2f} "
+          f"us a call), plain f32 {on_card(glow_plain_ms)}")
     print(f"  cholesky factor only ({pad_to}): kernel {on_card(fac_ms)}, plain f32 (cuSOLVER) "
           f"{on_card(fac_plain_ms)}, torch.linalg.cholesky_ex {on_card(fac_lib_ms)}")
     print(f"  trsm lower P={NQ} (wide schedule): kernel {on_card(trsm_ms)}, plain f32 (cuBLAS) "
@@ -4140,8 +4211,9 @@ def main():
     kuu_row, kuf_row, bt_row = svgp_times(gft, torch, gram, trsm, svgp_batch, rng, dev)
     # config #2
     sparse_rows = sparse_times(gft, torch, gram, cholesky, trsm, sparse_Lp, sparse_L, rng, dev, card)
-    # config #4
+    # config #4, and GPMC's lower-tile Gram
     nuts_rows = nuts_times(torch, gram, cholesky, dev)
+    gpmc_row = gpmc_lower_times(torch, gram, n_gpmc, dev)
     # the full-data variational slice
     vgp_rows = vgp_times(gft, torch, gram, cholesky, trsm, vgp_L, vgp_models, dev, card)
     # the matrix-free and latent-variable slice
@@ -4170,7 +4242,7 @@ def main():
         return {"name": name, "route": "cuda", "source": f"gpflow_slim_tpu_torch/csrc/{source}",
                 "replaces": f"gpflow_slim_tpu/ops/{replaces}", "launches": launches, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-                **other[name]}
+                **other[name], "host_us": (ms - other[name]["device_ms"]) * 1e3}
 
     def timed_row(name, source, replaces, launches, err, timed):
         bounds[name] = (timed["bound_ms"], timed["bound_by"])
@@ -4215,6 +4287,8 @@ def main():
                  nuts_rows["chol_solve_logdet_nuts"]["max_abs_err"], nuts_rows["chol_solve_logdet_nuts"]),
         timed_row("gram_lower_vgp", "gram.cu", "pallas_gram.py:173", vgp_launches["VGP"]["gram_lower"],
                  vgp_errs["gram_lower"], vgp_rows["gram_lower_vgp"]),
+        timed_row("gram_lower_gpmc", "gram.cu", "pallas_gram.py:173", mc_launches["GPMC"]["gram_lower"],
+                 gpmc_row["max_abs_err"], gpmc_row),
         timed_row("cholesky_vgp", "chol_solve.cu", "pallas_cholesky.py:716",
                  vgp_launches["VGP"]["cholesky"] + vgp_launches["OA"]["cholesky"], vgp_errs["cholesky"],
                  vgp_rows["cholesky_vgp"]),

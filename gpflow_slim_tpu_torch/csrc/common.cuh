@@ -61,20 +61,6 @@ __device__ __forceinline__ float apply_map(int kind, float var, float d2) {
   }
 }
 
-// d^2 = sum_d (x_d - y_d)^2 of two pre-scaled points, formed directly: the
-// same function as the TPU's ||x||^2 - 2 x.y + ||y||^2 expansion, without
-// its cancellation near d = 0 (which sqrt(d^2 + 1e-12) would amplify for
-// the Matern and exponential kinds).
-__device__ __forceinline__ float sq_dist(const float* __restrict__ x, const float* __restrict__ y,
-                                         int D) {
-  float d2 = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    const float diff = x[d] - y[d];
-    d2 = fmaf(diff, diff, d2);
-  }
-  return d2;
-}
-
 // -- tiles of the triangular solves (trsm.cu, batched_trsm.cu) -------------
 
 constexpr int kTriBs = 64;          // block size
@@ -672,9 +658,12 @@ constexpr int kBandThreads = 256;  // four columns a thread: 1024 columns a swee
 
 // Writes rows [r0, r1) (r1 - r0 <= kRows) and columns [c0, c1) of out
 // (row stride ld): entry (r, c) is value(r, c, d2) with d2 = sum_d (Xr[r][d]
-// - Xc[c][d])^2, the direct d^2 of sq_dist in its order, for r < nr and
-// c < nc, and pad(r, c) elsewhere; a band of pad rows only (r0 >= nr)
-// reads no input and forms no d^2. Each thread holds four columns'
+// - Xc[c][d])^2, formed directly from the differences (the same function as
+// the TPU's ||x||^2 - 2 x.y + ||y||^2 expansion, without its cancellation
+// near d = 0, which sqrt(d^2 + 1e-12) would amplify for the Matern and
+// exponential kinds), for r < nr and c < nc, and pad(r, c) elsewhere; a
+// band of pad rows only (r0 >= nr) reads no input and forms no d^2, and a
+// column at or past nc is neither read nor mapped. Each thread holds four columns'
 // coordinates in registers, loaded once per sweep and dimension and used for
 // every row of the band (kRows of them, kBandRows unless the caller wants
 // shorter bands); a row's coordinate is one load for the whole warp (the

@@ -33,7 +33,7 @@ from ._func import vmap_loop
 EUCLID_EPS = 1e-12
 # kind -> id of the ``Kind`` enum in csrc/common.cuh
 KINDS = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3, "exponential": 4, "cosine": 5}
-TILE = 32  # the output tile of the lower-tile Gram in csrc/gram.cu: it zeroes whole tiles
+TILE = 32  # the lower-tile Gram of csrc/gram.cu zeroes whole TILE x TILE tiles above the diagonal
 S3, S5 = math.sqrt(3.0), math.sqrt(5.0)
 
 
@@ -169,7 +169,10 @@ gram_cuda.by_shape = {}
 def gram_lower_cuda(kind, Xs, variance):
     """Launch the lower-tile Gram kernel of ``csrc/gram.cu`` on a CUDA
     float32 tensor: the (N, N) ``K(Xs, Xs)`` on and below the diagonal
-    tiles, zero in the strictly-upper ``TILE`` x ``TILE`` tiles."""
+    tiles, zero in the strictly-upper ``TILE`` x ``TILE`` tiles. One launch
+    writes 8-row (or, for N below 2112, 1-row) bands of 1024-column sweeps:
+    the Gram left of each band's tile-row edge, zero stores alone right of
+    it. ``gram_lower_cuda.launches`` counts every launch."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     _check_xs("gram_lower_cuda", Xs)

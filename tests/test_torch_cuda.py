@@ -198,6 +198,27 @@ def test_gram_kernels_match_plain(dev, kind, N, M, D):
     assert float((low.double() - want).abs().max()) <= 1e-5 * 1.7
 
 
+# the lower-tile Gram's bands, tiles and sweeps: 1-row bands below N = 2112
+# (1 .. 1003), 8-row bands above, partial bands and tiles, N % 4 != 0 on the
+# scalar-store variant, last 1024-column sweeps of one column (4097, 10001)
+@pytest.mark.parametrize("D", [1, 2, 5, 8])
+@pytest.mark.parametrize("N", [1, 7, 31, 32, 33, 255, 1003, 2047, 2048, 4097, 10001])
+def test_lower_gram_edges_match_plain(dev, N, D):
+    xs = torch.tensor(np.random.RandomState(N + D).uniform(0, 1, (N, D)) / 0.3, dtype=torch.float32, device=dev)
+    t = torch.arange(N, device=dev) // gram.TILE
+    upper_tiles = t[:, None] < t[None, :]
+    var = torch.tensor(1.7, device=dev)
+    for kind in gram.KINDS:
+        before = gram.gram_lower_cuda.launches
+        got = gram.gram_lower_cuda(kind, xs, var)
+        assert gram.gram_lower_cuda.launches == before + 1
+        assert bool((got[upper_tiles] == 0).all()), kind
+        # every entry, the diagonal tiles' upper ones included; f32 rounding
+        # of exp and d^2: 1e-5 x variance absolute
+        want = gram.gram_lower_plain(kind, xs.double(), 1.7)
+        assert float((got.double() - want).abs().max()) <= 1e-5 * 1.7, kind
+
+
 @pytest.mark.parametrize("N", [1, 63, 64, 65, 130, 200, 333, 256, 320, 1000])
 def test_cholesky_kernel_matches_plain(dev, N):
     Np = N + (-N) % cholesky.BLOCK

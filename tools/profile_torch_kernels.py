@@ -2,13 +2,14 @@
 """Device time of the port's kernels, each run alone on one NVIDIA GPU, for
 one checkout of the repository; the tool to compare two commits on one card.
 
-    python3 tools/profile_torch_kernels.py [ROOT] [--gram | --chol]
+    python3 tools/profile_torch_kernels.py [ROOT] [--gram | --chol | --lower]
 
 ROOT is the checkout whose gpflow_slim_tpu_torch (and kernels, built into
 its own build/) is measured; by default the one this file is in. The timing
 methods are this file's chip_smoke.py's. ``--gram`` measures the cross
 Gram alone, ``--chol`` both Cholesky modes alone at Np = 1024, 2048 and
-10048. It prints:
+10048, ``--lower`` the lower-tile Gram alone (``lower_gram``) and the VGP's
+ELBO + gradient on the kernel route. It prints:
 
 - for Np = 64 .. 10048 (RBF operands of lengthscale 0.1 and unit noise)
   the CUDA-event time of ``cholesky_cuda`` and the mean device time and
@@ -83,8 +84,8 @@ def three(fn):
     run = statistics.median(cs.cuda_ms(torch, fn, run=cs.RUN))
     queued = statistics.median(cs.cuda_ms(torch, fn, queued=True))
     dev = per_kernel_us(fn)
-    return (f"one call {one:.4f} ms, runs of {cs.RUN} {run:.4f} ms, queued {queued:.4f} ms; "
-            f"profiler (us, launches) {dev}"), dev
+    return (f"one call {one:.4f} ms, runs of {cs.RUN} {run:.4f} ms, queued {queued:.4f} ms (host "
+            f"{(one - queued) * 1e3:.2f} us a call: one call less queued); profiler (us, launches) {dev}"), dev
 
 
 def cross_gram(tag, gram, g, one, dev):
@@ -93,6 +94,29 @@ def cross_gram(tag, gram, g, one, dev):
         x2 = torch.rand(m, 1, generator=g, device=dev) / 0.1
         print(f"{tag} cross gram rbf {n} x {m} (write bound {n * m * 4 / cs.HBM_BYTES * 1e3:.4f} ms): "
               f"{three(lambda: gram.gram_cuda('rbf', xs, x2, one))[0]}", flush=True)
+
+
+def lower_gram(tag, gram, g, one, dev):
+    """The lower-tile Gram (RBF) at the VGP's N = 2048, D = 2, serving's
+    N = 10000, D = 1 and GPMC's N = 1000, D = 1, by the kernels line's three
+    methods and the profiler, with the write bound; then chip_smoke.py's
+    phase 4g VGP (Poisson, the 64 x 32 grid, untrained) ELBO + gradient on
+    the kernel route, median of 2 x REPS by CUDA events."""
+    for n, d in ((2048, 2), (10000, 1), (1000, 1)):
+        xs = torch.rand(n, d, generator=g, device=dev) / 0.1
+        print(f"{tag} lower-tile gram rbf N={n} D={d} (write bound {n * n * 4 / cs.HBM_BYTES * 1e3:.6f} ms): "
+              f"{three(lambda: gram.gram_lower_cuda('rbf', xs, one))[0]}", flush=True)
+    import gpflow_slim_tpu_torch as gft
+
+    m = cs.vgp_model(gft, torch, "VGP", torch.float32, dev)
+
+    def step():
+        with gft.config.temp_settings(use_kernels=True, jitter=cs.VGP_JITTER):
+            m.zero_grad(set_to_none=True)
+            m.objective().backward()
+
+    ms = statistics.median(cs.cuda_ms(torch, step, reps=2 * cs.REPS))
+    print(f"{tag} VGP ELBO + gradient (N={cs.VGP_N}, kernel route): {ms:.4f} ms", flush=True)
 
 
 def chol_modes(tag, cholesky, gram, g, one, dev):
@@ -111,7 +135,7 @@ def chol_modes(tag, cholesky, gram, g, one, dev):
 
 
 def main():
-    args = [a for a in sys.argv[1:] if a not in ("--gram", "--chol")]
+    args = [a for a in sys.argv[1:] if a not in ("--gram", "--chol", "--lower")]
     root = os.path.abspath(args[0]) if args else REPO
     if not torch.cuda.is_available():
         print("profile_torch_kernels: no CUDA device; nothing was run", file=sys.stderr)
@@ -130,6 +154,9 @@ def main():
         return 0
     if "--chol" in sys.argv:
         chol_modes(tag, cholesky, gram, g, one, dev)
+        return 0
+    if "--lower" in sys.argv:
+        lower_gram(tag, gram, g, one, dev)
         return 0
     for n in (64, 256, 1024, 4096, 10048):
         xs = torch.rand(n, 1, generator=g, device=dev) / 0.1
