@@ -47,7 +47,14 @@ entry()'s GPR).
    its Kuu at M = 64 and 100 (Np = 64 and 128, under one 256-wide panel),
    the TRSM on the M = 100 factor (two block rows, the last ragged) at
    P = 10000, 2047 and 1, lower and upper through the transposed view of
-   the padded factor, the cross Gram at 100 x 10000 and 100 x 2047;
+   the padded factor, the cross Gram at 100 x 10000 and 100 x 2047; both
+   Cholesky modes in each split trailing-update mode (syrk "s3", "s4",
+   "s3d", "s4d") against their plain split versions at Np = 320, 448, 2048
+   and 2112 (last panels of 64 and 192 columns, a last tile of 64), and
+   one trailing update alone in each split mode on panel entries whose
+   split errs one way, so that the modes part by ~40x the float32
+   rounding: each within 1e-6 of its own mode's exact reference and more
+   than 3x that from every other mode's, its f64 pivots exact;
 4. the training path: GPR.objective() (both of its kernels must launch),
    against an f64 oracle at the effective hyperparameters (gate 1e-5
    relative, as bench.py); the gradient against the f64 plain path (1e-3
@@ -142,7 +149,8 @@ entry()'s GPR).
    two more methods, named apart in the kernels line: the mean of runs of
    20 back-to-back calls (run20_ms) and one call queued behind a spin
    kernel, so the host's launch work is hidden (device_ms), and their
-   difference, the host's microseconds a call (host_us); each kernel's
+   difference, the host's microseconds a call (host_us; null where the
+   one-call time came out below the device time); each kernel's
    bound (the larger of its bytes over 3.35 TB/s and its flop over 67
    TFLOP/s), the cross Gram also at the SVGP path's shapes
    (256 x 256, 256 x 1024) and with a ragged M (its scalar-store variant),
@@ -159,7 +167,11 @@ entry()'s GPR).
    and 2048 x 1024 (D=2), entry()'s operand and fused Cholesky (N=2048) of
    phase 4g, and its VGP and
    Opper-Archambeau ELBO + gradient on both routes with the device's idle
-   share and the peak memory.
+   share and the peak memory; both Cholesky modes in "s3" and "s4" at
+   N=10048, held to their plain split versions in f64, timed against them
+   in f32 and against cuSOLVER's exact factor (the rows' exact_library_ms;
+   library_ms is null, since no PyTorch call computes the split), bound by
+   passes x N^3 / 3 flop at the bf16 tensor-core rate.
 
 4h (continued), fault m on the card: mcmc.batched_value_and_grad (vmap of
    grad_and_value) over 2 rows of config #5's streaming GPRCG (N=50000,
@@ -204,6 +216,22 @@ entry()'s GPR).
    entry.dryrun_multichip(1); phase 5 holds the cross Gram at a ring panel,
    the factor at a 250-block and the wide TRSM at N=250, P=49750 to f64
    and times them.
+4k. the Cholesky kernels' split-bf16 trailing-update modes (syrk), the JAX
+   package's default arithmetic, at that package's own hardware gates
+   (tests/test_tpu_compiled.py): the factor of N=2048's RBF Gram (0.1) +
+   1e-2 I in "hi", "s3", "s4", "s4d" and "s4x2" through cholesky(),
+   Frobenius 5e-4 of f64; the fused "s4" pipeline at N=3000 (noise 0.01)
+   against the f64 factor of the device-computed operand, half-logdet 5e-6
+   and quad 5e-5; bench.py's GPR objective with its factorization in "s4"
+   (1e-5 of the f64 oracle) and its gradient (1e-3 of the f64 plain path),
+   "s3" beside it ungated, timed against "hi" and cuSOLVER; each split
+   mode's half-logdet on fault l's grid beside "hi"'s and cuSOLVER's
+   (printed, not gated); the factor tests must launch the factor-only
+   kernel once in each mode they name, and the main path (the objective in
+   "s3" and "s4", the counts set to 0 just before it and read just after)
+   the fused kernel in "s3" and "s4"; phase 5 holds both kernels at
+   N=10048 in "s3" and "s4" to f64 and times them, the factor-only rows
+   with 0 launches (no main path runs that kernel in a split mode).
 
 Any failure raises and exits non-zero. Without a CUDA device, or without
 the package beside this file, it exits non-zero and prints no result. The
@@ -360,8 +388,23 @@ GRID_BS = 125       # the cyclic and grid factors' block at N=10000 (80 blocks)
 RING_MATVEC_TOL = 1e-4  # relative, max-norm: f32 sums of 10^4 products against f64
 DIST_CHAIN_DRAWS = 5  # config #4's chains: warmup and draws, each
 DIST_CHAIN_SEED = 4
+# phase 4k: the Cholesky kernels' split-bf16 trailing-update modes (`syrk`), the JAX package's
+# default arithmetic, held to that package's own hardware gates (tests/test_tpu_compiled.py:178-262)
+SPLIT_MODES = ("s3", "s4", "s3d", "s4d")  # the split arithmetics; an "x2" name runs its base mode
+SPLIT_FACTOR_MODES = ("hi", "s3", "s4", "s4d", "s4x2")  # the modes that test factors with
+SPLIT_FACTOR_N, SPLIT_FACTOR_JITTER = 2048, 1e-2  # its RBF Gram (lengthscale 0.1) + 1e-2 I
+SPLIT_FROB_TOL = 5e-4  # ||tril(L) - L64||_F / ||L64||_F, its gate
+SPLIT_FUSED_N, SPLIT_FUSED_NOISE = 3000, 0.01  # its fused pipeline: RBF 0.1, noise 0.01
+SPLIT_HLD_TOL, SPLIT_QUAD_TOL = 5e-6, 5e-5  # its gates on the half-logdet and quad, relative
+# phase 3's sides for the split modes: last 256-wide panels of 64 and 192 columns, a last
+# 128-tile of 64 columns (which has no second part)
+SPLIT_SIDES = (320, 448, 2048, 2112)
+# phase 3's check that each mode runs its own arithmetic: one trailing update over 3.5 and 4
+# 128-tiles, each mode within SPLIT_APART_TOL (relative, max-norm) of its exact reference
+SPLIT_APART_SIDES, SPLIT_APART_TOL = (704, 768), 1e-6
 # the card's peaks for the bound of each kernel (vendor figures, H100 SXM)
 F32_FLOPS = 67e12   # float32 without tensor cores
+BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense: the split modes' trailing products
 HBM_BYTES = 3.35e12  # bytes per second
 
 
@@ -440,6 +483,22 @@ def bound(flop, nbytes):
     ``flop`` float32 operations moving ``nbytes`` (each input read once,
     each output written once)."""
     t_ops, t_bytes = flop / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def host_us(ms, device_ms):
+    """The host's microseconds a call: the one-call time less the device
+    time behind a spin, both from separate samples; None where the one-call
+    time came out the smaller (a long call's spread, not a host time)."""
+    return (ms - device_ms) * 1e3 if ms >= device_ms else None
+
+
+def split_bound(syrk, Np, nbytes):
+    """(ms, what bounds it) of a split-mode factorization of side Np: its
+    trailing products, passes x Np^3 / 3 flop on the bf16 tensor cores,
+    against ``nbytes`` over the memory rate."""
+    passes = 4 if syrk.startswith("s4") else 3
+    t_ops, t_bytes = passes * Np ** 3 / 3 / BF16_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -675,6 +734,98 @@ def check_schedule_edges(torch, gram, cholesky, trsm, rng, dev):
             if not (h_rel <= HLD_TOL and a_rel <= ALPHA_TOL and pad_zero):
                 raise AssertionError(f"fused Cholesky disagrees at Np={Np}, P={P}")
             errs["chol_solve"] = max(errs["chol_solve"], a_abs)
+    return errs
+
+
+def check_split_modes_apart(torch, _build, cholesky, dev):
+    """Phase 3: which arithmetic each split mode's trailing update runs. One
+    update alone (``gfs_chol_trailing_update``, the first panel's) on panel
+    entries x = 2^e (1 + 3 2^-10 + 2^-18), e in {-1, 0}, whose split errs one
+    way in every product (hi = 2^e, lo = 3 2^(e-10), a remainder "s4" drops),
+    so the modes' updates part by ~6e-6 of the largest entry, ~40x the
+    float32 rounding of a 256-term sum: each mode's update (strictly lower
+    entries) within SPLIT_APART_TOL of its own exact reference, f64 sums of
+    the split halves' products, and every other mode's reference more than
+    3x that away; the f64 pivots the exact sums of squares."""
+    lib = _build.load_library()
+    panel = cholesky.PANEL
+    worst = 0.0
+    for Np in SPLIT_APART_SIDES:
+        rng = np.random.RandomState(Np)
+        X = 2.0 ** rng.randint(-1, 1, (Np - panel, panel)) * (1 + 3 * 2.0 ** -10 + 2.0 ** -18)
+        C = rng.randint(-64, 65, (Np - panel, Np - panel)).astype(np.float64)
+        Xd, Cd = torch.tensor(X, device=dev), torch.tensor(C, device=dev)
+        lower = torch.tril(torch.ones(Np - panel, Np - panel, dtype=torch.bool, device=dev), -1)
+        tiles = torch.arange(panel, Np, device=dev) // cholesky.TILE
+        h, lo = cholesky.bf16_split(Xd)
+        exact = Xd @ Xd.T
+        refs = {"hi": Cd - exact}
+        for syrk in SPLIT_MODES:
+            P = h @ h.T + h @ lo.T + lo @ h.T + (lo @ lo.T if syrk.startswith("s4") else 0)
+            if syrk.endswith("d"):
+                P = torch.where(tiles[:, None] == tiles[None, :], exact, P)
+            refs[syrk] = Cd - P
+        refs = {m: r[lower] for m, r in refs.items()}
+        piv = -(Xd ** 2).sum(1)
+        for syrk in SPLIT_MODES:
+            K = torch.zeros(Np, Np, dtype=torch.float32, device=dev)
+            K[panel:, :panel], K[panel:, panel:] = Xd, Cd
+            dpiv = torch.zeros(Np, dtype=torch.float64, device=dev)
+            _build.check(lib, lib.gfs_chol_trailing_update(K.data_ptr(), Np, 0, dpiv.data_ptr(),
+                                                           cholesky._mode_code(syrk), _build.stream_of(K)),
+                         "chol_trailing_update")
+            scale = float(refs[syrk].abs().max())
+            own = float((K[panel:, panel:].double()[lower] - refs[syrk]).abs().max()) / scale
+            apart = min(float((r - refs[syrk]).abs().max()) / scale for m, r in refs.items() if m != syrk)
+            piv_ok = bool((dpiv[:panel] == 0).all()) and float((dpiv[panel:] - piv).abs().max()) <= 1e-13 * float(
+                piv.abs().max())
+            print(f"split trailing update syrk={syrk} Np={Np}: rel err against its own arithmetic {own:.3e} "
+                  f"(tol {SPLIT_APART_TOL:g}), nearest other mode {apart:.3e} (must exceed {3 * SPLIT_APART_TOL:g}), "
+                  f"f64 pivots exact: {piv_ok}")
+            if not (own <= SPLIT_APART_TOL and apart > 3 * SPLIT_APART_TOL and piv_ok):
+                raise AssertionError(f"the trailing update in {syrk} does not run its own arithmetic at Np={Np}")
+            worst = max(worst, own)
+    return worst
+
+
+def check_split_kernels(torch, gram, cholesky, rng, dev):
+    """Phase 3 for the split trailing-update modes: each of SPLIT_MODES, both
+    Cholesky modes (fused at P = 1 and 7), at SPLIT_SIDES, against its plain
+    split version (``cholesky_split_plain``) run in float64 on the same
+    input, at the "hi" kernel's phase 3 gates. Returns the max abs errors."""
+    errs = {"cholesky": 0.0, "chol_solve": 0.0}
+    for Np in SPLIT_SIDES:
+        n = Np - 7
+        xs = torch.tensor(rng.uniform(0, 1, (n, 1)) / 0.2, dtype=torch.float32, device=dev)
+        Kp = gram.gram_chol_operand_cuda("matern52", xs, 1.0, 0.5, Np)
+        K64 = torch.tril(Kp).double()
+        for syrk in SPLIT_MODES:
+            L_ref = cholesky.cholesky_split_plain(K64, syrk)
+            Lg = torch.tril(cholesky.cholesky_cuda(Kp.clone(), syrk))
+            e = float((Lg.double() - L_ref).abs().max())
+            worst = {"factor": e / float(L_ref.abs().max())}
+            h_ref = float(torch.log(torch.diagonal(L_ref)).sum())
+            worst["factor half_logdet"] = abs(float(torch.log(torch.diagonal(Lg).double()).sum()) - h_ref) / abs(h_ref)
+            errs["cholesky"] = max(errs["cholesky"], e)
+            pad_zero = True
+            for P in (1, 7):
+                Dp = torch.zeros(Np, P, dtype=torch.float32, device=dev)
+                Dp[:n] = torch.tensor(rng.randn(n, P), dtype=torch.float32, device=dev)
+                _, a_ref, h_ref = cholesky.cholesky_solve_split_plain(K64.clone(), Dp.double(), syrk)
+                _, a_got, h_got = cholesky.cholesky_solve_cuda(Kp.clone(), Dp, syrk)
+                a_abs = float((a_got.double() - a_ref).abs().max())
+                worst["half_logdet"] = max(worst.get("half_logdet", 0.0),
+                                           abs(float(h_got) - float(h_ref)) / abs(float(h_ref)))
+                worst["alpha"] = max(worst.get("alpha", 0.0), a_abs / float(a_ref.abs().max()))
+                pad_zero = pad_zero and bool((a_got[n:] == 0).all())
+                errs["chol_solve"] = max(errs["chol_solve"], a_abs)
+            tols = {"factor": FACTOR_TOL, "factor half_logdet": FACTOR_HLD_TOL, "half_logdet": HLD_TOL,
+                    "alpha": ALPHA_TOL}
+            print(f"split syrk={syrk} Np={Np} (factor only; fused P = 1, 7) vs its plain version in f64: "
+                  + ", ".join(f"{k} rel err {v:.3e} (tol {tols[k]:g})" for k, v in worst.items())
+                  + f", pad rows of alpha exactly 0: {pad_zero}")
+            if not (all(v <= tols[k] for k, v in worst.items()) and pad_zero):
+                raise AssertionError(f"split mode {syrk} disagrees with its plain version at Np={Np}")
     return errs
 
 
@@ -3825,6 +3976,203 @@ def slice4i_times(gft, torch, gram, cholesky, trsm, dp_out, serve_out, dev):
     return rows
 
 
+# -- phase 4k: the split-bf16 trailing-update modes ------------------------------
+
+def split_objective(torch, cholesky, model, syrk):
+    """GPR.objective() of ``model`` (no priors) with its fused factorization
+    in the trailing-update arithmetic ``syrk``: build_likelihood's
+    composition (models/gpr.py) on the same public ops, the operand from
+    ``kern.gram_chol_operand`` into ``cholesky.cholesky_solve_logdet``."""
+    import torch.nn.functional as F
+
+    N = model.X.shape[0]
+    d = model.Y - model.mean_function(model.X)
+    noise = torch.squeeze(model.likelihood.variance.value)
+    Np = N + (-N) % cholesky.BLOCK
+    Kp = model.kern.gram_chol_operand(model.X, noise, Np)
+    half_logdet, quad = cholesky.cholesky_solve_logdet(Kp, F.pad(d, (0, 0, 0, Np - N)), syrk=syrk)
+    P = d.shape[1]
+    return 0.5 * N * P * math.log(2.0 * math.pi) + P * half_logdet + 0.5 * quad - model.log_prior()
+
+
+def split_checks(gft, torch, gram, cholesky, model, grads64, dev):
+    """Phase 4k: the split modes through the public entry points, held to
+    the JAX package's own hardware gates; returns the main path's launches
+    by mode (bench.py's GPR with its factorization in "s3" and "s4") and the
+    objective's times."""
+
+    def zero_counts():
+        for fn in (cholesky.cholesky_cuda, cholesky.cholesky_solve_cuda):
+            fn.by_syrk = dict.fromkeys(fn.by_syrk, 0)
+
+    def read_counts():
+        return {"chol_solve": dict(cholesky.cholesky_solve_cuda.by_syrk),
+                "cholesky": dict(cholesky.cholesky_cuda.by_syrk)}
+
+    zero_counts()
+    # the factor alone (tests/test_tpu_compiled.py:190-211): RBF 0.1 + 1e-2 I at N=2048
+    X = np.random.RandomState(0).uniform(0, 1, (SPLIT_FACTOR_N, 1))
+    d = torch.tensor(X / 0.1, dtype=torch.float64, device=dev)
+    Kd = torch.exp(-0.5 * sq_dist64(torch, d, d)) + SPLIT_FACTOR_JITTER * torch.eye(
+        SPLIT_FACTOR_N, dtype=torch.float64, device=dev)
+    Ld = torch.linalg.cholesky(Kd)
+    K32 = Kd.float()
+    for syrk in SPLIT_FACTOR_MODES:
+        L = cholesky.cholesky(K32, syrk=syrk).double()
+        finite = bool(torch.isfinite(L).all())
+        frob = float(torch.linalg.norm(torch.tril(L) - Ld) / torch.linalg.norm(Ld))
+        print(f"split factor syrk={syrk} (N={SPLIT_FACTOR_N}, RBF 0.1 + {SPLIT_FACTOR_JITTER:g} I): finite {finite}, "
+              f"||tril(L) - L64||_F / ||L64||_F {frob:.3e} (gate {SPLIT_FROB_TOL:g})")
+        if not (finite and frob < SPLIT_FROB_TOL):
+            raise AssertionError(f"split factor syrk={syrk} misses the JAX package's gate: {frob}")
+    factor_launches = read_counts()["cholesky"]
+    print(f"split factor launches of the factor-only kernel by arithmetic: {factor_launches}")
+    if factor_launches != {**dict.fromkeys(factor_launches, 0),
+                           **collections.Counter(cholesky.syrk_base(m) for m in SPLIT_FACTOR_MODES)}:
+        raise AssertionError(f"cholesky(K, syrk) did not launch the factor-only kernel in its mode: {factor_launches}")
+    del Kd, Ld, K32
+    # the fused pipeline in "s4" (tests/test_tpu_compiled.py:214-262): the operand of N=3000 (RBF 0.1,
+    # noise 0.01) padded to a multiple of 64, against the f64 factor of the device-computed operand
+    rng = np.random.RandomState(0)
+    X = rng.uniform(0, 1, (SPLIT_FUSED_N, 1))
+    Y = np.sin(12 * X) + 0.1 * rng.randn(SPLIT_FUSED_N, 1)
+    n, pad_to = SPLIT_FUSED_N, SPLIT_FUSED_N + (-SPLIT_FUSED_N) % cholesky.BLOCK
+    Xs = torch.tensor(X / 0.1, dtype=torch.float32, device=dev)
+    Dp = torch.zeros(pad_to, 1, dtype=torch.float32, device=dev)
+    Dp[:n] = torch.tensor(Y, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        Kp = gram.gram_chol_operand("rbf", Xs, 1.0, SPLIT_FUSED_NOISE, pad_to)
+    Kl = Kp[:n, :n].double()
+    Ld = torch.linalg.cholesky(torch.tril(Kl) + torch.tril(Kl, -1).T)
+    hl_ref = float(torch.log(torch.diagonal(Ld)).sum())
+    quad_ref = float((torch.linalg.solve_triangular(Ld, Dp[:n].double(), upper=False) ** 2).sum())
+    for syrk in ("hi", "s4"):
+        with torch.no_grad():
+            hl, quad = cholesky.cholesky_solve_logdet(Kp.clone(), Dp, syrk=syrk)
+        e_hl, e_q = abs(float(hl) - hl_ref) / abs(hl_ref), abs(float(quad) - quad_ref) / abs(quad_ref)
+        print(f"split fused syrk={syrk} (N={n} -> {pad_to}, RBF 0.1, noise {SPLIT_FUSED_NOISE:g}): half_logdet rel "
+              f"err {e_hl:.3e} (gate {SPLIT_HLD_TOL:g}), quad rel err {e_q:.3e} (gate {SPLIT_QUAD_TOL:g})")
+        if syrk == "s4" and not (e_hl < SPLIT_HLD_TOL and e_q < SPLIT_QUAD_TOL):
+            raise AssertionError(f"the fused s4 pipeline misses the JAX package's gates: {e_hl}, {e_q}")
+    del Kp, Kl, Ld
+    # the main path at full width: bench.py's GPR (N=10000) with its factorization in "s4", against the
+    # f64 oracle and the f64 plain path's gradient; "s3" beside it, not gated
+    with torch.no_grad():
+        hi_val = float(split_objective(torch, cholesky, model, "hi"))
+        val = float(model.objective())
+    print(f"split objective syrk=hi {hi_val:.6f} against GPR.objective() {val:.6f} (the same composition)")
+    if not abs(hi_val - val) <= 1e-7 * abs(val):
+        raise AssertionError("split_objective does not compute GPR.objective()")
+    ls_eff = model.kern.lengthscales.value.item()
+    oracle = oracle_objective(torch, *bench_data(), ls_eff, model.kern.variance.value.item(),
+                              model.likelihood.variance.value.item())
+    zero_counts()  # the main path's own run: the counts are read just after it
+    for syrk in ("s3", "s4"):
+        model.zero_grad(set_to_none=True)
+        obj = split_objective(torch, cholesky, model, syrk)
+        obj.backward()
+        obj = float(obj.detach())
+        rel = abs(obj - oracle) / abs(oracle)
+        print(f"split objective syrk={syrk} at N={N}: {obj:.6f}, f64 oracle {oracle:.6f}, rel {rel:.3e}"
+              + (f" (gate {OBJECTIVE_TOL:g})" if syrk == "s4" else " (not gated)"))
+        if syrk == "s4" and not rel <= OBJECTIVE_TOL:
+            raise AssertionError(f"the s4 objective is off the f64 oracle by {rel:.3e}")
+        for name, p in gft.params.parameters(model):
+            g_rel = abs(float(p.unconstrained.grad) - grads64[name]) / abs(grads64[name])
+            print(f"  grad {name}: syrk={syrk} {float(p.unconstrained.grad):.6f}, plain f64 {grads64[name]:.6f}, "
+                  f"rel err {g_rel:.3e}" + (f" (tol {GRAD_TOL:g})" if syrk == "s4" else " (not gated)"))
+            if syrk == "s4" and not g_rel <= GRAD_TOL:
+                raise AssertionError(f"the s4 gradient {name} is off the f64 plain path by {g_rel:.3e}")
+    launches = read_counts()
+    model.zero_grad(set_to_none=True)
+    print(f"phase 4k main path's launches by arithmetic: fused {launches['chol_solve']}, factor only "
+          f"{launches['cholesky']}")
+    if not all(launches["chol_solve"][m] > 0 for m in ("s3", "s4")):
+        raise AssertionError(f"the main path did not run the fused kernel in s3 and s4: {launches}")
+
+    def objective(syrk):
+        def run():
+            with torch.no_grad():
+                split_objective(torch, cholesky, model, syrk)
+        return run
+
+    def stock():
+        with gft.config.temp_settings(use_kernels=False), torch.no_grad():
+            model.objective()
+
+    times = {"s4": cuda_ms(torch, objective("s4")), "hi": cuda_ms(torch, objective("hi")), "cuSOLVER": cuda_ms(torch, stock)}
+    for k in ("s4", "hi", "cuSOLVER"):
+        times[k] += cuda_ms(torch, objective(k) if k != "cuSOLVER" else stock)
+    times = {k: statistics.median(v) for k, v in times.items()}
+    print(f"split objective at N={N} (median of {2 * REPS}, CUDA events): s4 kernel {times['s4']:.3f} ms, hi kernel "
+          f"{times['hi']:.3f} ms, use_kernels=False (cuSOLVER) {times['cuSOLVER']:.3f} ms")
+    # fault l's grid: each split mode's half-logdet beside hi's and cuSOLVER's (a finding, not a gate)
+    Xg, _, _ = vgp_data()
+    K = gram.gram_lower_cuda("rbf", (torch.tensor(Xg, device=dev) / VGP_LS).contiguous(), torch.tensor(1.0, device=dev))
+    zero = torch.zeros(len(K), 1, device=dev)
+    for jitter in LOGDET_JITTERS:
+        Kj = K.clone()
+        Kj.diagonal().add_(jitter)
+        ref = float(torch.log(torch.diagonal(cholesky.cholesky_plain(torch.tril(Kj).double()))).sum())
+        lib = float(torch.log(torch.diagonal(cholesky.cholesky_plain(torch.tril(Kj))).double()).sum())
+        errs = {"cuSOLVER": abs(lib - ref) / abs(ref)}
+        for syrk in ("hi",) + SPLIT_MODES:
+            fused = float(cholesky.cholesky_solve_cuda(Kj.clone(), zero, syrk)[2])
+            fac = float(torch.log(torch.diagonal(cholesky.cholesky_cuda(Kj.clone(), syrk)).double()).sum())
+            errs[syrk] = (abs(fac - ref) / abs(ref), abs(fused - ref) / abs(ref))
+        print(f"half_logdet rel err on the VGP grid's K + {jitter:g} I (Np={len(Kj)}), factor only / fused: "
+              + ", ".join(f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v[0]:.2e} / {v[1]:.2e}"
+                          for k, v in errs.items()))
+    del K, Kj
+    return {"launches": launches, "times": times}
+
+
+def split_times(torch, cholesky, Kp, Dp1, pad_to, launches):
+    """Phase 3 and phase 5 for phase 4k: both Cholesky modes in "s3" and
+    "s4" at N = pad_to (bench.py's operand), each held to its plain split
+    version in f64 at phase 3's gates, then timed against its plain split
+    version in f32 and, as the exact function's yardstick, cuSOLVER's (no
+    PyTorch call computes the split): rows of the kernels line."""
+    rows = {}
+    K64 = torch.tril(Kp).double()
+    for syrk in ("s3", "s4"):
+        _, a_ref, h_ref = cholesky.cholesky_solve_split_plain(K64.clone(), Dp1.double(), syrk)
+        _, a_got, h_got = cholesky.cholesky_solve_cuda(Kp.clone(), Dp1, syrk)
+        err = float((a_got.double() - a_ref).abs().max())
+        a_rel, h_rel = err / float(a_ref.abs().max()), abs(float(h_got) - float(h_ref)) / abs(float(h_ref))
+        print(f"chol_solve_logdet[{syrk}] Np={pad_to} vs its plain version in f64: half_logdet rel err {h_rel:.3e} "
+              f"(tol {HLD_TOL:g}), alpha rel err {a_rel:.3e} (tol {ALPHA_TOL:g})")
+        if not (h_rel <= HLD_TOL and a_rel <= ALPHA_TOL):
+            raise AssertionError(f"the fused kernel in {syrk} disagrees with its plain version at Np={pad_to}")
+        del a_ref
+        L_ref = cholesky.cholesky_split_plain(K64, syrk)
+        Lg = torch.tril(cholesky.cholesky_cuda(Kp.clone(), syrk))
+        f_err = float((Lg.double() - L_ref).abs().max())
+        f_rel = f_err / float(L_ref.abs().max())
+        print(f"cholesky[{syrk}] Np={pad_to} vs its plain version in f64: factor rel err {f_rel:.3e} (tol {FACTOR_TOL:g})")
+        if not f_rel <= FACTOR_TOL:
+            raise AssertionError(f"the factor-only kernel in {syrk} disagrees with its plain version at Np={pad_to}")
+        del L_ref, Lg
+        fresh = lambda: (Kp.clone(),)  # noqa: E731
+        for name, kernel, plain, exact, nbytes, err_n, n in (
+                (f"chol_solve_logdet[{syrk}]", lambda K, s=syrk: cholesky.cholesky_solve_cuda(K, Dp1, s),
+                 lambda K, s=syrk: cholesky.cholesky_solve_split_plain(K, Dp1, s),
+                 lambda K: cholesky.cholesky_solve_plain(K, Dp1), 2 * tri_bytes(pad_to) + 2 * pad_to * 4, err,
+                 launches["chol_solve"][syrk]),
+                (f"cholesky[{syrk}]", lambda K, s=syrk: cholesky.cholesky_cuda(K, s),
+                 lambda K, s=syrk: cholesky.cholesky_split_plain(K, s), torch.linalg.cholesky_ex,
+                 2 * tri_bytes(pad_to), f_err, launches["cholesky"][syrk])):
+            k_ms, p_ms = paired_ms(torch, kernel, plain, setup=fresh)
+            exact_ms = statistics.median(cuda_ms(torch, exact, fresh))
+            b_ms, b_by = split_bound(syrk, pad_to, nbytes)
+            rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "exact_library_ms": exact_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err_n, "launches": n,
+                          **other_ms(torch, kernel, exact, fresh)}
+            print(f"  {name}: kernel {k_ms:.4f} ms (device {rows[name]['device_ms']:.4f}), plain split f32 "
+                  f"{p_ms:.4f} ms, cuSOLVER (the exact function) {exact_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
 def main():
     import torch
 
@@ -3935,6 +4283,9 @@ def main():
     # config #2: both Cholesky modes at Np = 64 and 128, the TRSM on the
     # M = 100 factor, the cross Gram at 100 rows
     sparse_errs, sparse_Lp, sparse_L = check_sparse_kernels(gft, torch, gram, cholesky, trsm, dev)
+    # the split trailing-update modes against their plain versions
+    split_apart = check_split_modes_apart(torch, _build, cholesky, dev)
+    split_errs = check_split_kernels(torch, gram, cholesky, np.random.RandomState(15), dev)
 
     # 4. the training path at full width, through the public entry points
     model = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE),
@@ -4085,6 +4436,11 @@ def main():
     finally:
         torch.distributed.destroy_process_group()
 
+    # 4k. the Cholesky kernels' split-bf16 trailing-update modes through the
+    # public entry points, held to the JAX package's own hardware gates, and
+    # the main path (bench.py's GPR objective and gradient) in "s4"
+    split_out = split_checks(gft, torch, gram, cholesky, model, grads64, dev)
+
     # 5. times on the card, kernel route against plain
     def on_card(ms):
         return f"{ms:.3f} ms"
@@ -4222,6 +4578,10 @@ def main():
     rows4i = slice4i_times(gft, torch, gram, cholesky, trsm, dp_out, serve_out, dev)
     # phase 4j's distributed path
     rows4j = slice4j_times(gft, torch, gram, cholesky, trsm, dist_out["model"], dev)
+    # phase 4k's split modes
+    split_rows = split_times(torch, cholesky, Kp, Dp1, pad_to, split_out["launches"])
+    print(f"split rows' phase 3 max abs errs at the test sides: {split_errs}; one trailing update against its "
+          f"own arithmetic: rel err {split_apart:.3e}")
 
     # each kernel's bound at the shape it was timed at (D = 1 inputs; a map
     # entry counted as 5 flop: the difference, its square, the scale, exp)
@@ -4242,7 +4602,7 @@ def main():
         return {"name": name, "route": "cuda", "source": f"gpflow_slim_tpu_torch/csrc/{source}",
                 "replaces": f"gpflow_slim_tpu/ops/{replaces}", "launches": launches, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-                **other[name], "host_us": (ms - other[name]["device_ms"]) * 1e3}
+                **other[name], "host_us": host_us(ms, other[name]["device_ms"])}
 
     def timed_row(name, source, replaces, launches, err, timed):
         bounds[name] = (timed["bound_ms"], timed["bound_by"])
@@ -4323,6 +4683,10 @@ def main():
                dist_out["launches"]["gram_by_shape"].get((DIST_PANEL, DIST_N), 0)),
               ("cholesky_dist", "chol_solve.cu", "pallas_cholesky.py:716", dist_out["launches"]["cholesky"]),
               ("trsm_dist", "trsm.cu", "pallas_trsm.py:116", dist_out["launches"]["trsm_wide"]))),
+        # library_ms null: no PyTorch call computes the split; exact_library_ms is cuSOLVER's exact function
+        *({"name": name, "route": "cuda", "source": "gpflow_slim_tpu_torch/csrc/chol_solve.cu",
+           "replaces": "gpflow_slim_tpu/ops/pallas_cholesky.py:" + ("857" if name.startswith("chol_solve") else "716"),
+           **r, "host_us": host_us(r["ms"], r["device_ms"])} for name, r in split_rows.items()),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

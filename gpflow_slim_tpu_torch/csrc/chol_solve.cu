@@ -55,8 +55,17 @@
 //    trailing kernel at one block per SM (160 registers) shortened the
 //    visible chain but slowed the trailing update more (H100).
 //
-// Arithmetic: f32 FMA for the panels and the trailing products; no tensor
-// cores and no TF32. The pivots are the exception. The logdet error of an
+// Arithmetic (mode "hi", the default): f32 FMA for the panels and the
+// trailing products; no tensor cores and no TF32. The split modes of the TPU
+// kernel (`syrk` "s3"/"s4", pallas_cholesky.py:320-355, 577-596) run the
+// trailing products off the diagonal tiles on the bf16 tensor cores instead:
+// each f32 operand split into bf16 hi + lo, 3 or 4 products of the halves
+// summed in f32 (trailing_split; with "d", the diagonal tiles keep the f32
+// product). The TPU kernel's "x2" suffix, its two-panel schedule, is the
+// same arithmetic in another order, whose purpose the 256-wide panels serve:
+// it runs as its base mode. Everything else below holds in every mode: the
+// panels, the diagonal blocks and the in-panel updates stay f32 (f64 for the
+// diagonal blocks), and so do the pivots. The logdet error of an
 // f32 factorization is about sum_i (K^-1)_ii dK_ii, so it is set by the
 // rounding of the diagonal entries, which a right-looking schedule
 // re-rounds once per update. The diagonal is therefore kept in a separate
@@ -368,28 +377,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// After an outer panel (columns [p0, p0 + width)): A_IJ -= L_IP L_JP^T over
-// 128 x 128 lower tiles (I >= J, in units of 128) of the tile columns J0
-// .. J0 + ncols - 1 (all when ncols = 0: the tiles then enumerate the lower
-// triangle from J0 by blockIdx.x), rows to Np. Entries of a strictly-upper
-// 64 x 64 block are not written. A diagonal tile subtracts its rows' f64
-// pivot terms, summed in f64 from the A stages as they land.
-__global__ void __launch_bounds__(gfs::kMmThreads, 2)
-    chol_trailing_kernel(float* __restrict__ K, int Np, int p0, int width, int J0, int ncols,
-                         double* __restrict__ dpiv) {
-  __shared__ __align__(16) gfs::MmStage sa[gfs::kMmStages];
-  __shared__ __align__(16) gfs::MmStage sb[gfs::kMmStages];
-  int ti, tj;
-  if (ncols == 0) {
-    gfs::tri_index(blockIdx.x, ti, tj);
-  } else {
-    ti = blockIdx.x;
-    tj = blockIdx.y;
-    if (ti < tj) return;  // uniform over the block
-  }
-  const int I = J0 + ti, J = J0 + tj;
-  const int row0 = I * gfs::kMmTile, col0 = J * gfs::kMmTile;
-  const bool diag = I == J;
+// The exact f32 trailing product of one 128 x 128 tile (row0, col0): A_IJ -=
+// L_IP L_JP^T on mm_run. Entries of a strictly-upper 64 x 64 block are not
+// written. A diagonal tile subtracts its rows' f64 pivot terms, summed in
+// f64 from the A stages as they land.
+__device__ __forceinline__ void trailing_fma(float* __restrict__ K, int Np, int p0, int width, int row0, int col0,
+                                             bool diag, double* __restrict__ dpiv, gfs::MmStage* sa,
+                                             gfs::MmStage* sb, float* ct) {
   double piv = 0.0;  // thread o < 128 of a diagonal tile: sum_t L[row0 + o][p0 + t]^2
   // A_IJ, less the product: entries of a strictly-upper 64 x 64 block are
   // neither read nor written (only a diagonal tile has them). The tile is
@@ -398,8 +392,7 @@ __global__ void __launch_bounds__(gfs::kMmThreads, 2)
   // header says why), and the tile is written back at the end.
   float* const tile = K + static_cast<size_t>(row0) * Np + col0;
   const auto kept = [&](int r, int c) { return !diag || c / kBs <= r / kBs; };
-  extern __shared__ float ct[];  // the running A_IJ, this thread's 64 entries (common.cuh)
-  gfs::mm_tile_to_smem(ct, tile, Np, Np - row0, Np - col0, kept);
+  gfs::mm_tile_to_smem(ct, tile, Np, Np - row0, Np - col0, kept);  // ct: the running A_IJ (common.cuh)
   gfs::cp_async_commit();  // mm_run's first wait covers this group
   const gfs::MmOperand A = {K + static_cast<size_t>(row0) * Np + p0, Np, 1, Np - row0, width};
   const gfs::MmOperand B = {K + static_cast<size_t>(col0) * Np + p0, Np, 1, Np - col0, width};
@@ -424,6 +417,214 @@ __global__ void __launch_bounds__(gfs::kMmThreads, 2)
   gfs::mm_tile_from_smem(ct, tile, Np, Np - row0, Np - col0, kept);
 }
 
+// The split trailing product: a block takes a 128 x kPart part of a
+// 128 x 128 tile (64 columns: two blocks a tile), its 8 warps 4 x 2 of
+// 32 x 32 outputs, each 2 x 4 MMA tiles of 16 x 8 (kSplitMt x kSplitNt),
+// with two accumulators of 32 f32 a thread (hh apart from the small
+// passes); a whole tile would need 128 registers for them alone. Even so
+// the split kernel does not fit the 128 registers of two blocks an SM
+// without spilling (ptxas for sm_90a: 128-136 bytes a thread, the operand
+// splits' temporaries), so it runs one block an SM with ~227 registers.
+// What bounds it on an H100 is not the tensor cores: it runs at ~17-18
+// TFLOP/s of one-pass work alone, "s3" within 5% of "s4"; not forming the
+// lo halves saves 12-14%, and two blocks an SM, spills and all, 17-20%
+// (tools/split_diag.py). The suspects are the 2-stage ring of 16-deep
+// stages, filled by 4-byte copies, at one block an SM, and the A stage
+// that both parts of a tile load (PERF.md): a deeper ring needs dynamic
+// shared memory, and `wgmma` fed by TMA would lift both.
+constexpr int kSplitMt = 2, kSplitNt = 4;
+constexpr int kPart = 2 * 8 * kSplitNt;             // columns of a block's part of the tile
+constexpr int kParts = gfs::kMmTile / kPart;         // blocks a tile
+constexpr int kSplitOut = kSplitMt * kSplitNt * 4;  // outputs a thread
+using SplitAcc = float[kSplitMt][kSplitNt][4];
+
+// Row and column (within the part) of this thread's output e = (mt *
+// kSplitNt + nt) * 4 + i: entry i of the C fragment of MMA tile (mt, nt).
+__device__ __forceinline__ void split_entry(int e, int& r, int& c) {
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const int mt = e / (kSplitNt * 4), nt = (e / 4) % kSplitNt, i = e % 4;
+  r = 32 * (warp & 3) + 16 * mt + g + 8 * (i >> 1);
+  c = kPart / 2 * (warp >> 2) + 8 * nt + 2 * q + (i & 1);
+}
+
+// The running part of the tile in shared memory, as mm_tile_to_smem keeps a
+// whole one: this thread's output e at ct[e * kMmThreads + threadIdx.x].
+template <typename Keep>
+__device__ __forceinline__ void split_tile_to_smem(float* ct, const float* tile, int ld, int rows, int cols,
+                                                   Keep keep) {
+#pragma unroll
+  for (int e = 0; e < kSplitOut; ++e) {
+    int r, c;
+    split_entry(e, r, c);
+    const bool in = r < rows && c < cols && keep(r, c);
+    gfs::cp_async4(&ct[e * gfs::kMmThreads + threadIdx.x], in ? tile + static_cast<size_t>(r) * ld + c : tile, in);
+  }
+}
+
+template <typename Keep>
+__device__ __forceinline__ void split_tile_from_smem(const float* ct, float* tile, int ld, int rows, int cols,
+                                                     Keep keep) {
+#pragma unroll
+  for (int e = 0; e < kSplitOut; ++e) {
+    int r, c;
+    split_entry(e, r, c);
+    if (r < rows && c < cols && keep(r, c)) {
+      tile[static_cast<size_t>(r) * ld + c] = ct[e * gfs::kMmThreads + threadIdx.x];
+    }
+  }
+}
+
+// ct -= x + hh (the small passes first, in f32 on the CUDA cores); then
+// both are 0.
+__device__ __forceinline__ void split_flush(SplitAcc& hh, SplitAcc& x, float* ct) {
+#pragma unroll
+  for (int mt = 0; mt < kSplitMt; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < kSplitNt; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float& c = ct[((mt * kSplitNt + nt) * 4 + i) * gfs::kMmThreads + threadIdx.x];
+        c -= x[mt][nt][i] + hh[mt][nt][i];
+        hh[mt][nt][i] = 0.0f;
+        x[mt][nt][i] = 0.0f;
+      }
+    }
+  }
+}
+
+// The split trailing product of part h of the tile (row0, col0): A_IJ -=
+// hh + hl + lh (+ ll when kPasses is 4) over the panel, each 16 inner
+// indices one MMA step of each pass, the operands split as their fragments
+// are read from the f32 stages. As in trailing_fma, each 64 inner indices
+// are summed from zero and added to the tile in shared memory once; the
+// hh pass and the small ones are summed apart, and each MMA step from zero,
+// added to its accumulator in f32 rounded to nearest, since the tensor
+// core's f32 accumulation may truncate, one way, the small terms that the
+// header's f32 FMA chains lost: on fault l's grid (K + 1e-4 I) the "s4"
+// half-logdet was 7x further off f64 with the steps chained in the tensor
+// core in two accumulators, 15x in one (tools/split_diag.py's "chained"
+// and "one_accumulator" variants, H100). The f64 pivots of a diagonal tile (part 0) are summed
+// from the f32 stages before any split, so they are exact in every mode.
+template <int kPasses>
+__device__ __forceinline__ void trailing_split(float* __restrict__ K, int Np, int p0, int width, int row0, int col0,
+                                               int h, bool diag, double* __restrict__ dpiv, gfs::MmStage* sa,
+                                               gfs::MmStage* sb, float* ct) {
+  const int c0 = col0 + kPart * h;
+  float* const tile = K + static_cast<size_t>(row0) * Np + c0;
+  // the part's columns lie in one 64 x 64 block column of the tile: on a
+  // diagonal tile, its rows above that block are strictly upper
+  const auto kept = [&](int r, int) { return !diag || kPart * h / kBs <= r / kBs; };
+  split_tile_to_smem(ct, tile, Np, Np - row0, Np - c0, kept);
+  gfs::cp_async_commit();  // mm_ring's first wait covers this group
+  const gfs::MmOperand A = {K + static_cast<size_t>(row0) * Np + p0, Np, 1, Np - row0, width};
+  const gfs::MmOperand B = {K + static_cast<size_t>(c0) * Np + p0, Np, 1, min(kPart, Np - c0), width};
+  const bool pivots = diag && h == 0;
+  const int warp = threadIdx.x >> 5, m0 = 32 * (warp & 3), n0 = kPart / 2 * (warp >> 2);
+  double piv = 0.0;
+  SplitAcc hh = {}, x = {};
+  gfs::mm_ring<true, true>(A, B, width, sa, sb, [&](const gfs::MmStage& as, const gfs::MmStage& bs, int s,
+                                                    int stages) {
+    if (pivots && threadIdx.x < gfs::kMmTile) {
+      const int n = min(gfs::kMmBk, width - s * gfs::kMmBk);
+      for (int t = 0; t < n; ++t) {
+        const double v = as[t][threadIdx.x];
+        piv = fma(v, v, piv);
+      }
+    }
+    uint32_t ah[kSplitMt][4], al[kSplitMt][4];
+#pragma unroll
+    for (int mt = 0; mt < kSplitMt; ++mt) gfs::frag_a_split(as, m0 + 16 * mt, ah[mt], al[mt]);
+#pragma unroll
+    for (int nt = 0; nt < kSplitNt; ++nt) {
+      uint32_t bh[2], bl[2];
+      gfs::frag_b_split(bs, n0 + 8 * nt, bh, bl);
+#pragma unroll
+      for (int mt = 0; mt < kSplitMt; ++mt) {
+        float t[4] = {}, u[4] = {};
+        gfs::mma_bf16(t, ah[mt], bh);
+        gfs::mma_bf16(u, ah[mt], bl);
+        gfs::mma_bf16(u, al[mt], bh);
+        if (kPasses == 4) gfs::mma_bf16(u, al[mt], bl);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          hh[mt][nt][i] += t[i];
+          x[mt][nt][i] += u[i];
+        }
+      }
+    }
+    if (((s + 1) * gfs::kMmBk) % kBs == 0 || s + 1 == stages) split_flush(hh, x, ct);
+  });
+  if (pivots && threadIdx.x < gfs::kMmTile && row0 + static_cast<int>(threadIdx.x) < Np) {
+    dpiv[row0 + threadIdx.x] -= piv;
+  }
+  split_tile_from_smem(ct, tile, Np, Np - row0, Np - c0, kept);
+}
+
+// After an outer panel (columns [p0, p0 + width)): A_IJ -= L_IP L_JP^T over
+// 128 x 128 lower tiles (I >= J, in units of 128) of the tile columns J0
+// .. J0 + ncols - 1 (all when ncols = 0: the tiles then enumerate the lower
+// triangle from J0 by blockIdx.x), rows to Np. kPasses 0: exact f32
+// products (trailing_fma), two blocks an SM; 3 or 4: the bf16 split
+// (trailing_split), one block an SM, each tile in kParts parts
+// (blockIdx.z), but for the diagonal tiles when exact_diag (the "d"
+// modes), which part 0 takes whole on trailing_fma.
+template <int kPasses>
+__global__ void __launch_bounds__(gfs::kMmThreads, kPasses == 0 ? 2 : 1)
+    chol_trailing_kernel(float* __restrict__ K, int Np, int p0, int width, int J0, int ncols,
+                         double* __restrict__ dpiv, bool exact_diag) {
+  __shared__ __align__(16) gfs::MmStage sa[gfs::kMmStages];
+  __shared__ __align__(16) gfs::MmStage sb[gfs::kMmStages];
+  extern __shared__ float ct[];  // the running A_IJ, this thread's entries (common.cuh)
+  int ti, tj;
+  if (ncols == 0) {
+    gfs::tri_index(blockIdx.x, ti, tj);
+  } else {
+    ti = blockIdx.x;
+    tj = blockIdx.y;
+    if (ti < tj) return;  // uniform over the block
+  }
+  const int I = J0 + ti, J = J0 + tj;
+  const int row0 = I * gfs::kMmTile, col0 = J * gfs::kMmTile;
+  const bool diag = I == J;
+  if constexpr (kPasses == 0) {
+    trailing_fma(K, Np, p0, width, row0, col0, diag, dpiv, sa, sb, ct);
+  } else {
+    const int h = static_cast<int>(blockIdx.z);
+    if (diag && exact_diag) {  // uniform over the block, as every branch here
+      if (h == 0) trailing_fma(K, Np, p0, width, row0, col0, diag, dpiv, sa, sb, ct);
+    } else if (col0 + kPart * h < Np) {  // a last tile of 64 columns has no parts beyond them
+      trailing_split<kPasses>(K, Np, p0, width, row0, col0, h, diag, dpiv, sa, sb, ct);
+    }
+  }
+}
+
+// One warp: C (16 x 8, row-major) = the split product of A (16 x 16,
+// A[m][k]) and B (8 x 16, B[n][k]) in `passes` passes (1: hh alone; 3, 4 as
+// the trailing update), through the trailing update's stage layout,
+// fragment loads and C map, for a card test of the fragment layout.
+__global__ void split_mma_check_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                                       float* __restrict__ C, int passes) {
+  __shared__ __align__(16) gfs::MmStage sa, sb;
+  for (int e = threadIdx.x; e < gfs::kMmBk * gfs::kMmTile; e += 32) {
+    const int t = e / gfs::kMmTile, o = e % gfs::kMmTile;
+    sa[t][o] = o < 16 ? A[o * 16 + t] : 0.0f;
+    sb[t][o] = o < 8 ? B[o * 16 + t] : 0.0f;
+  }
+  __syncwarp();
+  uint32_t ah[4], al[4], bh[2], bl[2];
+  gfs::frag_a_split(sa, 0, ah, al);
+  gfs::frag_b_split(sb, 0, bh, bl);
+  float hh[4] = {}, x[4] = {};
+  gfs::mma_bf16(hh, ah, bh);
+  if (passes >= 3) {
+    gfs::mma_bf16(x, ah, bl);
+    gfs::mma_bf16(x, al, bh);
+  }
+  if (passes == 4) gfs::mma_bf16(x, al, bl);
+  const int g = threadIdx.x >> 2, q = threadIdx.x & 3;
+  for (int i = 0; i < 4; ++i) C[(g + 8 * (i >> 1)) * 8 + 2 * q + (i & 1)] = x[i] + hh[i];
+}
+
 __global__ void logdet_sum_kernel(const double* __restrict__ partials, int nb,
                                   float* __restrict__ half_logdet) {
   double s = 0.0;
@@ -439,6 +640,18 @@ struct LookAhead {
   cudaStream_t side;
   cudaEvent_t main_done, side_done;
 };
+
+// The trailing kernel's running tile lives in 64 KB of dynamic shared
+// memory, beside its 33 KB ring: two blocks an SM need the most shared
+// memory the SM can give.
+template <int kPasses>
+cudaError_t allow_tile_smem() {
+  cudaError_t err = cudaFuncSetAttribute(chol_trailing_kernel<kPasses>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, gfs::kMmTileSmem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(chol_trailing_kernel<kPasses>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
 
 int look_ahead(LookAhead*& out) {
   constexpr int kMaxDevices = 64;
@@ -456,17 +669,9 @@ int look_ahead(LookAhead*& out) {
     }
     if (err == cudaSuccess) err = cudaEventCreateWithFlags(&made[dev].main_done, cudaEventDisableTiming);
     if (err == cudaSuccess) err = cudaEventCreateWithFlags(&made[dev].side_done, cudaEventDisableTiming);
-    // the trailing kernel's running tile lives in 64 KB of dynamic shared
-    // memory, beside its 33 KB ring: two blocks an SM need the most shared
-    // memory the SM can give
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(chol_trailing_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 gfs::kMmTileSmem);
-    }
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(chol_trailing_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    }
+    if (err == cudaSuccess) err = allow_tile_smem<0>();
+    if (err == cudaSuccess) err = allow_tile_smem<3>();
+    if (err == cudaSuccess) err = allow_tile_smem<4>();
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
@@ -495,9 +700,42 @@ void factor_panel(float* K, int Np, int panel, float* alpha, int P, double* dpiv
   }
 }
 
+// The mode argument of the entry points (ops/cholesky.py `_MODE_CODES`):
+// the split's passes in the low bits (0: exact f32 products, 3 or 4), plus
+// kExactDiag (the "d" modes).
+constexpr int kPassBits = 7, kExactDiag = 8;
+
+bool valid_mode(int mode) {
+  const int passes = mode & kPassBits;
+  if (mode & ~(kPassBits | kExactDiag)) return false;
+  return passes == 0 ? mode == 0 : passes == 3 || passes == 4;
+}
+
+template <int kPasses>
+void launch_trailing(dim3 grid, cudaStream_t s, float* K, int Np, int p0, int J0, int ncols, double* dpiv,
+                     bool exact_diag) {
+  if (kPasses != 0) grid.z = kParts;  // the tile's 128 x kPart parts
+  chol_trailing_kernel<kPasses><<<grid, gfs::kMmThreads, gfs::kMmTileSmem, s>>>(
+      K, Np, p0, kPanel * kBs, J0, ncols, dpiv, exact_diag);
+}
+
+// The trailing update of the panel at column p0 in `mode`, over the tiles
+// `grid` enumerates from tile column J0 (chol_trailing_kernel).
+void trailing(int mode, dim3 grid, cudaStream_t s, float* K, int Np, int p0, int J0, int ncols, double* dpiv) {
+  const bool exact_diag = (mode & kExactDiag) != 0;
+  switch (mode & kPassBits) {
+    case 3:
+      return launch_trailing<3>(grid, s, K, Np, p0, J0, ncols, dpiv, exact_diag);
+    case 4:
+      return launch_trailing<4>(grid, s, K, Np, p0, J0, ncols, dpiv, exact_diag);
+    default:
+      return launch_trailing<0>(grid, s, K, Np, p0, J0, ncols, dpiv, false);
+  }
+}
+
 // The launches of one factorization on stream s. P = 0 (alpha null) skips
 // the solve; partials null skips the logdet.
-int factor(float* K, int Np, float* alpha, int P, double* dpiv, double* partials, cudaStream_t s) {
+int factor(float* K, int Np, float* alpha, int P, double* dpiv, double* partials, int mode, cudaStream_t s) {
   LookAhead* la = nullptr;
   int err = look_ahead(la);
   if (err != 0) return err;
@@ -513,17 +751,15 @@ int factor(float* K, int Np, float* alpha, int P, double* dpiv, double* partials
     const int next_cols = min(tiles_per_panel, tiles - J1);
     // panel p applied to panel p + 1's columns, then panel p + 1 factored on
     // the side stream while panel p is applied to the columns beyond
-    const dim3 next_grid(static_cast<unsigned>(tiles - J1), static_cast<unsigned>(next_cols));
-    chol_trailing_kernel<<<next_grid, gfs::kMmThreads, gfs::kMmTileSmem, s>>>(K, Np, p0, panel_cols, J1,
-                                                                                next_cols, dpiv);
+    trailing(mode, dim3(static_cast<unsigned>(tiles - J1), static_cast<unsigned>(next_cols)), s, K, Np, p0, J1,
+             next_cols, dpiv);
     cudaEventRecord(la->main_done, s);
     cudaStreamWaitEvent(la->side, la->main_done, 0);
     factor_panel(K, Np, p + 1, alpha, P, dpiv, partials, la->side);
     cudaEventRecord(la->side_done, la->side);
     const long long rest = tiles - J1 - next_cols;  // tile columns beyond panel p + 1
     if (rest > 0) {
-      chol_trailing_kernel<<<static_cast<unsigned>(rest * (rest + 1) / 2), gfs::kMmThreads, gfs::kMmTileSmem,
-                             s>>>(K, Np, p0, panel_cols, J1 + next_cols, 0, dpiv);
+      trailing(mode, dim3(static_cast<unsigned>(rest * (rest + 1) / 2)), s, K, Np, p0, J1 + next_cols, 0, dpiv);
     }
     cudaStreamWaitEvent(s, la->side_done, 0);
     const cudaError_t e = cudaGetLastError();
@@ -535,22 +771,47 @@ int factor(float* K, int Np, float* alpha, int P, double* dpiv, double* partials
 }  // namespace
 
 // work: Np / 64 + Np doubles of scratch (the per-block logdet partials,
-// then the f64 pivots).
+// then the f64 pivots). mode: the trailing update's arithmetic (factor()).
 extern "C" int gfs_chol_solve_logdet(float* K, int Np, float* alpha, int P, double* work,
-                                     float* half_logdet, void* stream) {
-  if (Np <= 0 || Np % kBs != 0 || P < 1 || alpha == nullptr) {
+                                     float* half_logdet, int mode, void* stream) {
+  if (Np <= 0 || Np % kBs != 0 || P < 1 || alpha == nullptr || !valid_mode(mode)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = Np / kBs;
-  const int err = factor(K, Np, alpha, P, work + nb, work, s);
+  const int err = factor(K, Np, alpha, P, work + nb, work, mode, s);
   if (err != 0) return err;
   logdet_sum_kernel<<<1, 1, 0, s>>>(work, nb, half_logdet);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Factor only. work: Np doubles of scratch (the f64 pivots).
-extern "C" int gfs_cholesky(float* K, int Np, double* work, void* stream) {
-  if (Np <= 0 || Np % kBs != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return factor(K, Np, nullptr, 0, work, nullptr, static_cast<cudaStream_t>(stream));
+extern "C" int gfs_cholesky(float* K, int Np, double* work, int mode, void* stream) {
+  if (Np <= 0 || Np % kBs != 0 || !valid_mode(mode)) return static_cast<int>(cudaErrorInvalidValue);
+  return factor(K, Np, nullptr, 0, work, nullptr, mode, static_cast<cudaStream_t>(stream));
+}
+
+// One trailing update alone, for measurement: the panel at column p0 (a
+// multiple of 256, with a panel beyond it) applied to every tile column
+// beyond it, in `mode`. dpiv: Np doubles.
+extern "C" int gfs_chol_trailing_update(float* K, int Np, int p0, double* dpiv, int mode, void* stream) {
+  const int panel_cols = kPanel * kBs;
+  if (Np <= 0 || Np % kBs != 0 || p0 < 0 || p0 % panel_cols != 0 || p0 + panel_cols >= Np || !valid_mode(mode)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LookAhead* la = nullptr;
+  const int err = look_ahead(la);  // sets the trailing kernels' shared-memory limit
+  if (err != 0) return err;
+  const long long rest = (Np + gfs::kMmTile - 1) / gfs::kMmTile - (p0 + panel_cols) / gfs::kMmTile;
+  trailing(mode, dim3(static_cast<unsigned>(rest * (rest + 1) / 2)), static_cast<cudaStream_t>(stream), K, Np, p0,
+           (p0 + panel_cols) / gfs::kMmTile, 0, dpiv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fragment check: A (16 x 16), B (8 x 16), C (16 x 8), row-major f32
+// on the card; passes 1, 3 or 4.
+extern "C" int gfs_split_mma_check(const float* A, const float* B, float* C, int passes, void* stream) {
+  if (passes != 1 && passes != 3 && passes != 4) return static_cast<int>(cudaErrorInvalidValue);
+  split_mma_check_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(A, B, C, passes);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -17,10 +17,16 @@
 // (24 TFLOP/s measured, 36% of the peak; 16 x 8 per thread, 0.75 bytes per
 // FMA, measured slower: 17 TFLOP/s at 255 registers and 8 warps per SM).
 // The ring lets the next stage's loads fly while this stage's FMAs run.
+// The same ring feeds the bf16 tensor-core products of the Cholesky's
+// split trailing update (`frag_a_split`, `frag_b_split`, `mma_bf16`): each
+// f32 operand is split into bf16 hi + lo in registers as its fragment is
+// read from the stage, whose 16 inner indices are the MMA's depth.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace gfs {
 
@@ -241,6 +247,32 @@ constexpr int kMmRowRun = kMmTile / (kMmRows / 4), kMmColRun = kMmTile / (kMmCol
 __device__ __forceinline__ int mm_row_index(int i, int ty) { return kMmRowRun * (i >> 2) + 4 * ty + (i & 3); }
 __device__ __forceinline__ int mm_col_index(int j, int tx) { return kMmColRun * (j >> 2) + 4 * tx + (j & 3); }
 
+// Streams inner indices [0, inner) of A and B through the two-stage ring:
+// after stage s of `stages` lands (every thread of the block has waited
+// for it), body(stage_a, stage_b, s, stages) reads it (inner indices
+// s * kMmBk ...); the stage is refilled only after every thread's body has
+// returned. Every thread of the block calls it.
+template <bool kAInnerContig, bool kBInnerContig, typename Body>
+__device__ __forceinline__ void mm_ring(const MmOperand& A, const MmOperand& B, int inner, MmStage* sa,
+                                        MmStage* sb, Body body) {
+  const int stages = (inner + kMmBk - 1) / kMmBk;
+  mm_load_stage<kAInnerContig>(A, 0, sa[0]);
+  mm_load_stage<kBInnerContig>(B, 0, sb[0]);
+  cp_async_commit();
+  for (int s = 0; s < stages; ++s) {
+    const int cur = s % kMmStages;
+    if (s + 1 < stages) {  // the next stage flies while this one is multiplied
+      mm_load_stage<kAInnerContig>(A, (s + 1) * kMmBk, sa[(s + 1) % kMmStages]);
+      mm_load_stage<kBInnerContig>(B, (s + 1) * kMmBk, sb[(s + 1) % kMmStages]);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: stage s has landed
+    __syncthreads();
+    body(sa[cur], sb[cur], s, stages);
+    __syncthreads();  // every thread is done with this stage before it is refilled
+  }
+}
+
 // acc[i][j] -= sum_t A(mm_row_index(i, ty), t) * B(mm_col_index(j, tx), t)
 // over t < inner, one FMA at a time in t.
 // The caller either loads the output tile into acc first (every rounding is
@@ -256,31 +288,20 @@ template <bool kAInnerContig, bool kBInnerContig, typename Hook, typename Done>
 __device__ __forceinline__ void mm_run(MmAcc& acc, const MmOperand& A, const MmOperand& B,
                                        int inner, MmStage* sa, MmStage* sb, Hook hook, Done done) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int stages = (inner + kMmBk - 1) / kMmBk;
-  mm_load_stage<kAInnerContig>(A, 0, sa[0]);
-  mm_load_stage<kBInnerContig>(B, 0, sb[0]);
-  cp_async_commit();
-  for (int s = 0; s < stages; ++s) {
-    const int cur = s % kMmStages;
-    if (s + 1 < stages) {  // the next stage flies while this one is multiplied
-      mm_load_stage<kAInnerContig>(A, (s + 1) * kMmBk, sa[(s + 1) % kMmStages]);
-      mm_load_stage<kBInnerContig>(B, (s + 1) * kMmBk, sb[(s + 1) % kMmStages]);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // all but the newest group: stage s has landed
-    __syncthreads();
-    hook(sa[cur], s * kMmBk);
+  mm_ring<kAInnerContig, kBInnerContig>(A, B, inner, sa, sb, [&](const MmStage& a_s, const MmStage& b_s, int s,
+                                                                 int stages) {
+    hook(a_s, s * kMmBk);
 #pragma unroll
     for (int t = 0; t < kMmBk; ++t) {
       float av[kMmRows], bv[kMmCols];
 #pragma unroll
       for (int q = 0; q < kMmRows / 4; ++q) {
-        const float4 a = *reinterpret_cast<const float4*>(&sa[cur][t][kMmRowRun * q + 4 * ty]);
+        const float4 a = *reinterpret_cast<const float4*>(&a_s[t][kMmRowRun * q + 4 * ty]);
         av[4 * q] = a.x, av[4 * q + 1] = a.y, av[4 * q + 2] = a.z, av[4 * q + 3] = a.w;
       }
 #pragma unroll
       for (int q = 0; q < kMmCols / 4; ++q) {
-        const float4 b = *reinterpret_cast<const float4*>(&sb[cur][t][kMmColRun * q + 4 * tx]);
+        const float4 b = *reinterpret_cast<const float4*>(&b_s[t][kMmColRun * q + 4 * tx]);
         bv[4 * q] = b.x, bv[4 * q + 1] = b.y, bv[4 * q + 2] = b.z, bv[4 * q + 3] = b.w;
       }
 #pragma unroll
@@ -290,7 +311,61 @@ __device__ __forceinline__ void mm_run(MmAcc& acc, const MmOperand& A, const MmO
       }
     }
     done(s, stages);
-    __syncthreads();  // every thread is done with this stage before it is refilled
+  });
+}
+
+// -- the split bf16 product on the tensor cores (chol_solve.cu) ----------------
+//
+// mma.sync m16n8k16, A row-major (16 x 16), B column-major (16 x 8), f32
+// accumulators. In a warp, lane l = 4 g + q (g = l >> 2, q = l & 3) holds:
+//  * A: register r the pair (row g + 8 (r & 1), inner 2q + 8 (r >> 1) and
+//    the next inner index), the lower inner index in the low 16 bits;
+//  * B: register r the pair (inner 2q + 8 r and the next, column g);
+//  * C: entry i at row g + 8 (i >> 1), column 2q + (i & 1).
+// A stage stores an operand as s[t][o] (inner index t, outer o): with its
+// row of kMmLd = 132 floats, the 32 lanes' reads of one register fall in 32
+// distinct banks (132 * 2 = 8 mod 32 per q, + g).
+
+// x0 and x1 (consecutive inner indices) split into hi = bf16(x) and
+// lo = bf16(x - hi), both rounded to nearest even, packed as bf16 pairs.
+// x - hi is exact in f32: hi is x's nearest bf16.
+__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat16 first, __nv_bfloat16 second) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(first)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(second)) << 16);
+}
+
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
+  hi = bf16_pair(h0, h1);
+  lo = bf16_pair(__float2bfloat16_rn(x0 - __bfloat162float(h0)), __float2bfloat16_rn(x1 - __bfloat162float(h1)));
+}
+
+// d += a b over one 16 x 8 x 16 step, bf16 operands, f32 accumulation.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The A fragment of rows m0 .. m0 + 15 (outer indices of the stage) over
+// the stage's 16 inner indices, split.
+__device__ __forceinline__ void frag_a_split(const MmStage& s, int m0, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int o = m0 + g + 8 * (r & 1), t = 2 * q + 8 * (r >> 1);
+    split_pair(s[t][o], s[t + 1][o], hi[r], lo[r]);
+  }
+}
+
+// The B fragment of columns n0 .. n0 + 7 (outer indices of the stage), split.
+__device__ __forceinline__ void frag_b_split(const MmStage& s, int n0, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = 2 * q + 8 * r;
+    split_pair(s[t][n0 + g], s[t + 1][n0 + g], hi[r], lo[r]);
   }
 }
 

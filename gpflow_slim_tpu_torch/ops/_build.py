@@ -38,14 +38,18 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
     # X, N, D, var, noise, kind, pad_to, out, stream
     "gfs_gram_chol_operand": (_P, _I, _I, _P, _P, _I, _I, _P, _P),
-    # K, Np, alpha, P, work, half_logdet, stream
-    "gfs_chol_solve_logdet": (_P, _I, _P, _I, _P, _P, _P),
+    # K, Np, alpha, P, work, half_logdet, mode, stream
+    "gfs_chol_solve_logdet": (_P, _I, _P, _I, _P, _P, _I, _P),
     # X, N, X2, M, D, var, kind, out, stream
     "gfs_gram": (_P, _I, _P, _I, _I, _P, _I, _P, _P),
     # X, N, D, var, kind, out, stream
     "gfs_gram_lower": (_P, _I, _I, _P, _I, _P, _P),
-    # K, Np, work, stream
-    "gfs_cholesky": (_P, _I, _P, _P),
+    # K, Np, work, mode, stream
+    "gfs_cholesky": (_P, _I, _P, _I, _P),
+    # K, Np, p0, dpiv, mode, stream: one trailing update alone (measurement)
+    "gfs_chol_trailing_update": (_P, _I, _I, _P, _I, _P),
+    # A, B, C, passes, stream: the split product's fragment check (a card test)
+    "gfs_split_mma_check": (_P, _P, _P, _I, _P),
     # L, N, ld, trans, lower, X, P, sync, stream
     "gfs_trsm": (_P, _I, _I, _I, _I, _P, _I, _P, _P),
     # L, P, M, ld, batch_stride, trans, lower, B, X, K, sync, stream

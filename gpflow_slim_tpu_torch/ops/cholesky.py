@@ -16,6 +16,31 @@ autograd wrapper declares the overwrite with ``ctx.mark_dirty``; inside a
 ``torch.func`` transform it factors a copy instead (a transform that
 batches the Function cannot return its input as written). The factor-only
 wrapper pads into a buffer of its own and factors that.
+
+``syrk`` picks the arithmetic of the trailing update, by the TPU kernel's
+names (``SYRK_MODES``; ``True``/``False`` stand for ``"s3"``/``"hi"``):
+
+- ``"hi"`` (the default everywhere): exact float32 products;
+- ``"s3"``/``"s4"``: each float32 operand of the trailing product is split
+  into ``hi = bf16(x)`` and ``lo = bf16(x - hi)``, and the product is the
+  float32 sum of hh + hl + lh (+ ll for ``"s4"``), each a product of bf16
+  values (``split_product_plain``); on the card the bf16 tensor cores
+  compute them;
+- a ``"d"`` suffix keeps the diagonal tiles of each trailing update
+  (128 x 128 in the kernel) exact; only the off-diagonal ones take the split;
+- an ``"x2"`` suffix names the TPU kernel's two-panel schedule, the same
+  arithmetic in another order, whose purpose (halving the trailing
+  update's traffic) the kernel's 256-wide panels already serve: ``"s4x2"``
+  runs what ``"s4"`` runs.
+
+In every mode the panels are factored exactly and the diagonal entries
+(the pivots) take exact products, as the kernel's float64 pivots do. Here
+the port's "s3"/"s4" differ from the TPU kernel's, whose update splits the
+whole diagonal block, its diagonal entries included; the plain split
+versions take that form with ``exact_pivots=False``. The plain split
+versions, ``cholesky_split_plain`` and ``cholesky_solve_split_plain``,
+apply each panel's product 64 inner indices at a time, as the kernel adds
+them to its tile; a CPU tensor takes them for a split mode.
 """
 
 from __future__ import annotations
@@ -26,8 +51,16 @@ import torch.nn.functional as F
 from . import _build
 from . import trsm as _trsm
 from ._func import transforms_active, vmap_loop
+from .gram import full_precision
 
 BLOCK = 64  # the kernel's block size; Kp's side must be a multiple of it
+PANEL = 256  # the kernel's outer panel: one trailing update per panel
+TILE = 128  # the trailing update's output tile; "d" keeps its diagonal tiles exact
+SYRK_BASES = ("hi", "s3", "s4", "s3d", "s4d")
+SYRK_MODES = SYRK_BASES + tuple(b + "x2" for b in SYRK_BASES)
+# the mode argument of the C entry points: the split's passes (0 for exact
+# products), + 8 for exact diagonal tiles
+_MODE_CODES = {"hi": 0, "s3": 3, "s4": 4, "s3d": 3 + 8, "s4d": 4 + 8}
 
 
 def _nan_where_failed(L, info):
@@ -43,6 +76,95 @@ def cholesky_plain(K):
     return _nan_where_failed(L, info)
 
 
+def norm_syrk(syrk):
+    """The mode name of ``syrk``: ``True`` is ``"s3"``, ``False`` and
+    ``None`` are ``"hi"`` (``_norm_syrk`` of the JAX package); any other
+    value must be one of ``SYRK_MODES``."""
+    if syrk is True:
+        return "s3"
+    if syrk is False or syrk is None:
+        return "hi"
+    if syrk not in SYRK_MODES:
+        raise ValueError(f"unknown syrk mode {syrk!r}: one of {SYRK_MODES}, True or False")
+    return syrk
+
+
+def syrk_base(syrk):
+    """The arithmetic ``syrk`` runs: its name without the ``"x2"`` suffix."""
+    syrk = norm_syrk(syrk)
+    return syrk[:-2] if syrk.endswith("x2") else syrk
+
+
+def bf16_split(x):
+    """``(hi, lo)`` in ``x``'s dtype: ``hi = bf16(x)``, ``lo = bf16(x -
+    f32(hi))``, both rounded to nearest even (``_bf16_split`` of the JAX
+    package; for a float64 ``x`` the difference is taken in float64)."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.to(torch.float32)).to(torch.bfloat16)
+    return hi.to(x.dtype), lo.to(x.dtype)
+
+
+def split_product_plain(A, B, syrk):
+    """``A B^T`` by the split of ``syrk`` (``"s3"``/``"s4"``, any suffix):
+    the float32 sum hh + hl + lh (+ ll) of products of the bf16 halves of
+    ``A`` and ``B``, each product in float32 with TF32 off (``_dot_nt`` of
+    the JAX package). Returns float32."""
+    base = syrk_base(syrk)
+    if base == "hi":
+        raise ValueError("split_product_plain takes a split mode, not 'hi'")
+    ah, al = (t.float() for t in bf16_split(A))
+    bh, bl = (t.float() for t in bf16_split(B))
+    with full_precision():
+        prod = ah @ bh.mT + ah @ bl.mT + al @ bh.mT
+        if base.startswith("s4"):
+            prod = prod + al @ bl.mT
+    return prod
+
+
+def cholesky_split_plain(K, syrk, panel=PANEL, tile=TILE, chunk=BLOCK, exact_pivots=True):
+    """Plain blocked right-looking factor of ``K`` in the split mode
+    ``syrk``: each ``panel``-wide panel is factored exactly
+    (``cholesky_ex``, ``solve_triangular``), then the trailing matrix C
+    takes the panel's product ``chunk`` inner indices at a time, as the
+    kernel adds each 64 of them to its tile once: ``C - split_product_plain(
+    L_q, L_q)`` in C's dtype, L_q the chunk's columns of the panel's rows
+    below it (with ``chunk`` = ``panel``, the TPU kernel's one update a
+    panel). The diagonal entries (unless ``exact_pivots`` is false, as in
+    the TPU kernel), and with a ``"d"`` mode the diagonal ``tile`` x
+    ``tile`` blocks, take the exact product instead. Reads only the lower
+    triangle of ``K``; returns ``tril(L)``, all NaN where a panel does not
+    factor."""
+    base = syrk_base(syrk)
+    if base == "hi":
+        return cholesky_plain(K)
+    N = K.shape[0]
+    A = torch.tril(K)
+    A = A + torch.tril(A, -1).mT  # symmetric from the lower triangle
+    L = torch.zeros_like(A)
+    t = torch.arange(N, device=K.device) // tile
+    for p0 in range(0, N, panel):
+        p1 = min(p0 + panel, N)
+        Lpp, info = torch.linalg.cholesky_ex(A[p0:p1, p0:p1])
+        if int(info) > 0:
+            return torch.full_like(K, float("nan"))
+        L[p0:p1, p0:p1] = Lpp
+        if p1 == N:
+            break
+        Lr = torch.linalg.solve_triangular(Lpp.mT, A[p1:, p0:p1], upper=True, left=False)
+        L[p1:, p0:p1] = Lr
+        for q0 in range(0, p1 - p0, chunk):
+            Lq = Lr[:, q0:q0 + chunk]
+            with full_precision():
+                exact = Lq @ Lq.mT
+            upd = split_product_plain(Lq, Lq, base).to(A.dtype)
+            if base.endswith("d"):
+                upd = torch.where(t[p1:, None] == t[None, p1:], exact, upd)
+            if exact_pivots:
+                upd.diagonal().copy_(exact.diagonal())
+            A[p1:, p1:] -= upd
+    return torch.tril(L)
+
+
 def _check_square(name, Kp):
     if not Kp.is_cuda or Kp.dtype != torch.float32 or Kp.dim() != 2 or not Kp.is_contiguous():
         raise ValueError(
@@ -54,26 +176,38 @@ def _check_square(name, Kp):
         raise ValueError("Kp must be 16-byte aligned (the kernel reads it as float4)")
 
 
-def cholesky_cuda(Kp):
+def _mode_code(syrk):
+    return _MODE_CODES[syrk_base(syrk)]
+
+
+def _count(fn, syrk):
+    fn.launches += 1
+    fn.by_syrk[syrk_base(syrk)] += 1
+
+
+def cholesky_cuda(Kp, syrk="hi"):
     """Launch the factor-only mode of ``csrc/chol_solve.cu`` on a CUDA
     float32 ``Kp`` (Np, Np), Np a multiple of 64, factored in place: its
     lower triangle becomes L, with the diagonal blocks' upper entries 0;
     strictly-upper entries outside the diagonal blocks keep what they held.
+    ``syrk`` is the trailing update's arithmetic (module docstring).
     Returns ``Kp``."""
     _check_square("cholesky_cuda", Kp)
+    mode = _mode_code(syrk)
     Np = Kp.shape[0]
     work = torch.empty(Np, dtype=torch.float64, device=Kp.device)  # the f64 pivots
     lib = _build.load_library()
-    code = lib.gfs_cholesky(Kp.data_ptr(), Np, work.data_ptr(), _build.stream_of(Kp))
+    code = lib.gfs_cholesky(Kp.data_ptr(), Np, work.data_ptr(), mode, _build.stream_of(Kp))
     _build.check(lib, code, "cholesky")
-    cholesky_cuda.launches += 1
+    _count(cholesky_cuda, syrk)
     return Kp
 
 
 cholesky_cuda.launches = 0
+cholesky_cuda.by_syrk = dict.fromkeys(SYRK_BASES, 0)  # launches by the arithmetic they ran
 
 
-def _factor_padded(K):
+def _factor_padded(K, syrk="hi"):
     """``tril(chol(K))`` through the padded in-place factorization: ``K``
     is copied into a (Np, Np) buffer with a unit-diagonal extension (Np the
     next multiple of 64), the buffer is factored in place, and the result
@@ -84,9 +218,9 @@ def _factor_padded(K):
     Kp = F.pad(K, (0, Np - N, 0, Np - N)).contiguous()
     Kp.diagonal()[N:] = 1.0
     if Kp.device.type == "cpu":  # plain for CPU tensors; launch or raise otherwise
-        Kp.copy_(cholesky_plain(Kp))
+        Kp.copy_(cholesky_split_plain(Kp, syrk))
     else:
-        cholesky_cuda(Kp)
+        cholesky_cuda(Kp, syrk)
     return Kp[:N, :N].tril_()
 
 
@@ -140,11 +274,12 @@ class _Cholesky(torch.autograd.Function):
     factor's transposed view through ``ops.trsm`` (the TRSM kernel on a
     CUDA tensor) and matrix products, in float64 for a float32 factor (the
     JAX package computes the whole VJP with plain XLA ops). ``vmap``: the
-    Function on each matrix of the batch."""
+    Function on each matrix of the batch. ``syrk`` is not differentiable,
+    and the backward does not depend on it (nor does the JAX package's)."""
 
     @staticmethod
-    def forward(K):
-        return _factor_padded(K)
+    def forward(K, syrk):
+        return _factor_padded(K, syrk)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -153,18 +288,19 @@ class _Cholesky(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (L,) = ctx.saved_tensors
-        return _chol_vjp(L, g)
+        return _chol_vjp(L, g), None
 
     @staticmethod
-    def vmap(info, in_dims, K):
-        return vmap_loop(_Cholesky.apply, info, in_dims, K)
+    def vmap(info, in_dims, K, syrk):
+        return vmap_loop(lambda k: _Cholesky.apply(k, syrk), info, in_dims[:1], K)
 
 
-def cholesky(K):
+def cholesky(K, syrk="hi"):
     """Differentiable lower Cholesky factor of ``K`` (N, N), the masked
-    ``tril(L)`` of ``pallas_cholesky.cholesky``. Only the lower triangle of
+    ``tril(L)`` of ``pallas_cholesky.cholesky``, its trailing updates in
+    the arithmetic ``syrk`` (module docstring). Only the lower triangle of
     ``K`` is read; a failed factorization gives NaN."""
-    return _Cholesky.apply(K)
+    return _Cholesky.apply(K, norm_syrk(syrk))
 
 
 def cholesky_solve_plain(Kp, Dp):
@@ -181,15 +317,29 @@ def cholesky_solve_plain(Kp, Dp):
     return Kp, alpha, half_logdet
 
 
-def cholesky_solve_cuda(Kp, Dp):
+def cholesky_solve_split_plain(Kp, Dp, syrk, panel=PANEL, tile=TILE, chunk=BLOCK, exact_pivots=True):
+    """Plain version of the fused kernel in a split mode:
+    ``cholesky_split_plain``, ``solve_triangular``, sum log diag. Reads
+    only the lower triangle of ``Kp``, then overwrites ``Kp`` with the
+    factor. Returns ``(Kp, alpha, half_logdet)`` like the kernel."""
+    L = cholesky_split_plain(Kp, syrk, panel, tile, chunk, exact_pivots)
+    alpha = torch.linalg.solve_triangular(L, Dp, upper=False)
+    half_logdet = torch.sum(torch.log(torch.diagonal(L)))
+    Kp.copy_(L)
+    return Kp, alpha, half_logdet
+
+
+def cholesky_solve_cuda(Kp, Dp, syrk="hi"):
     """Launch ``csrc/chol_solve.cu`` on CUDA float32 tensors.
 
     ``Kp`` (Np, Np), Np a multiple of 64, is factored in place (its lower
     triangle becomes L; strictly-upper entries outside the diagonal blocks
     keep whatever they held). ``Dp`` (Np, P), any P >= 1, is not modified.
+    ``syrk`` as for ``cholesky_cuda``.
     Returns ``(Kp, alpha, half_logdet)``.
     """
     _check_square("cholesky_solve_cuda", Kp)
+    mode = _mode_code(syrk)
     if not Dp.is_cuda or Dp.dtype != torch.float32 or Dp.dim() != 2 or not Dp.is_contiguous():
         raise ValueError(
             f"cholesky_solve_cuda takes a contiguous 2-D CUDA float32 Dp; got {Dp.dim()}-D "
@@ -206,23 +356,27 @@ def cholesky_solve_cuda(Kp, Dp):
     half_logdet = torch.empty((), dtype=torch.float32, device=Kp.device)
     lib = _build.load_library()
     code = lib.gfs_chol_solve_logdet(Kp.data_ptr(), Np, alpha.data_ptr(), P, work.data_ptr(),
-                                     half_logdet.data_ptr(), _build.stream_of(Kp))
+                                     half_logdet.data_ptr(), mode, _build.stream_of(Kp))
     _build.check(lib, code, "chol_solve_logdet")
-    cholesky_solve_cuda.launches += 1
+    _count(cholesky_solve_cuda, syrk)
     return Kp, alpha, half_logdet
 
 
 cholesky_solve_cuda.launches = 0
+cholesky_solve_cuda.by_syrk = dict.fromkeys(SYRK_BASES, 0)
 
 
-def cholesky_solve(Kp, Dp):
+def cholesky_solve(Kp, Dp, syrk="hi"):
     """``(Lp, alpha, half_logdet)`` of the padded system, factoring ``Kp``
-    in place. Plain for CPU tensors; any other tensor goes to the kernel,
-    which launches or raises. Whether the kernels are wanted at all is
-    decided once, by ``ops.linalg.kernels_active``."""
+    in place, its trailing updates in the arithmetic ``syrk``. Plain for
+    CPU tensors; any other tensor goes to the kernel, which launches or
+    raises. Whether the kernels are wanted at all is decided once, by
+    ``ops.linalg.kernels_active``."""
     if Kp.device.type == "cpu":
-        return cholesky_solve_plain(Kp, Dp)
-    return cholesky_solve_cuda(Kp, Dp)
+        if syrk_base(syrk) == "hi":
+            return cholesky_solve_plain(Kp, Dp)
+        return cholesky_solve_split_plain(Kp, Dp, syrk)
+    return cholesky_solve_cuda(Kp, Dp, syrk)
 
 
 class _CholSolveLogdet(torch.autograd.Function):
@@ -230,14 +384,14 @@ class _CholSolveLogdet(torch.autograd.Function):
     (``in_place``) or on a copy of it. Outputs ``(Lp, half_logdet, quad,
     alpha)``; ``Lp`` and ``alpha`` are not differentiable. Backward:
     ``_csl_bwd`` of the JAX package, in torch.linalg (the JAX package also
-    computes it with plain XLA ops, outside any kernel). ``vmap``: the
-    Function on a copy of each system of the batch."""
+    computes it with plain XLA ops, outside any kernel), whatever ``syrk``.
+    ``vmap``: the Function on a copy of each system of the batch."""
 
     @staticmethod
-    def forward(Kp, Dp, in_place):
+    def forward(Kp, Dp, in_place, syrk):
         if not in_place:
             Kp = Kp.clone(memory_format=torch.contiguous_format)
-        Lp, alpha, half_logdet = cholesky_solve(Kp, Dp)
+        Lp, alpha, half_logdet = cholesky_solve(Kp, Dp, syrk)
         return Lp, half_logdet, torch.sum(torch.square(alpha)), alpha
 
     @staticmethod
@@ -249,9 +403,9 @@ class _CholSolveLogdet(torch.autograd.Function):
         ctx.save_for_backward(Lp, alpha)
 
     @staticmethod
-    def vmap(info, in_dims, Kp, Dp, in_place):
-        return vmap_loop(lambda k, d: _CholSolveLogdet.apply(k, d.contiguous(), False), info, in_dims[:2],
-                         Kp, Dp)
+    def vmap(info, in_dims, Kp, Dp, in_place, syrk):
+        return vmap_loop(lambda k, d: _CholSolveLogdet.apply(k, d.contiguous(), False, syrk), info,
+                         in_dims[:2], Kp, Dp)
 
     @staticmethod
     def backward(ctx, _gL, ghl, gq, _galpha):
@@ -275,14 +429,15 @@ class _CholSolveLogdet(torch.autograd.Function):
         Kinv = Linv.T @ Linv
         Kbar = 0.5 * ghl * Kinv - gq * (beta @ beta.T)
         Dbar = 2.0 * gq * beta
-        return Kbar.to(dtype), Dbar.to(dtype), None
+        return Kbar.to(dtype), Dbar.to(dtype), None, None
 
 
-def cholesky_solve_logdet(Kp, Dp):
+def cholesky_solve_logdet(Kp, Dp, syrk="hi"):
     """Differentiable ``(half_logdet, quad)`` = ``(sum log diag chol(K),
-    ||chol(K)^-1 D||_F^2)``. ``Kp`` is the padded operand (unit-diagonal
-    extension) and is overwritten by its factor, except inside a
-    ``torch.func`` transform, which factors a copy; ``Dp`` has zero pad
-    rows. Both scalars are then exact for the leading system."""
-    _, half_logdet, quad, _ = _CholSolveLogdet.apply(Kp, Dp, not transforms_active())
+    ||chol(K)^-1 D||_F^2)``, the factor's trailing updates in the
+    arithmetic ``syrk`` (module docstring). ``Kp`` is the padded operand
+    (unit-diagonal extension) and is overwritten by its factor, except
+    inside a ``torch.func`` transform, which factors a copy; ``Dp`` has
+    zero pad rows. Both scalars are then exact for the leading system."""
+    _, half_logdet, quad, _ = _CholSolveLogdet.apply(Kp, Dp, not transforms_active(), norm_syrk(syrk))
     return half_logdet, quad

@@ -8,12 +8,14 @@ import tests/conftest.py needs)::
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 import gpflow_slim_tpu_torch as gft
-from gpflow_slim_tpu_torch.ops import cholesky, gram, trsm
+from gpflow_slim_tpu_torch.ops import _build, cholesky, gram, trsm
 from gpflow_slim_tpu_torch.ops import linalg as ops_linalg
 
 pytestmark = pytest.mark.cuda
@@ -1141,3 +1143,242 @@ def test_dryrun_multichip_on_the_card(dev):
     finally:
         torch.distributed.destroy_process_group()
     assert set(out) == {"dist_gpr", "dp_svgp", "dist_cg", "grid_gpr", "chains"}
+
+
+# -- the split trailing-update modes (syrk) ------------------------------------
+
+SPLIT_MODES = ("s3", "s4", "s3d", "s4d")
+
+
+# one m16n8k16 product through the split trailing update's stage layout,
+# fragment loads and C map (csrc/chol_solve.cu `gfs_split_mma_check`). On
+# small integers (bf16-exact, lo = 0) every pass count gives A B^T exactly,
+# so a misplaced row, column or inner index fails here before any factor;
+# on general floats it is the split product of `split_product_plain`, to
+# the f32 rounding of 16-term sums (1e-6 relative)
+@pytest.mark.parametrize("passes", [1, 3, 4])
+def test_split_mma_fragment_layout(dev, passes):
+    lib = _build.load_library()
+    rng = np.random.RandomState(passes)
+    for integer in (True, False):
+        if integer:
+            A, B = rng.randint(-8, 9, (16, 16)), rng.randint(-8, 9, (8, 16))
+        else:
+            A, B = rng.randn(16, 16), rng.randn(8, 16)
+        a = torch.tensor(A, dtype=torch.float32, device=dev)
+        b = torch.tensor(B, dtype=torch.float32, device=dev)
+        C = torch.full((16, 8), float("nan"), device=dev)
+        code = lib.gfs_split_mma_check(a.data_ptr(), b.data_ptr(), C.data_ptr(), passes, _build.stream_of(a))
+        _build.check(lib, code, "split_mma_check")
+        torch.cuda.synchronize()
+        got = C.cpu().double()
+        if integer:
+            assert torch.equal(got, torch.tensor(A @ B.T, dtype=torch.float64))
+        else:
+            if passes == 1:
+                want = cholesky.bf16_split(a.cpu())[0].double() @ cholesky.bf16_split(b.cpu())[0].double().T
+            else:
+                want = cholesky.split_product_plain(a.cpu(), b.cpu(), "s3" if passes == 3 else "s4").double()
+            assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+# one trailing update alone (`gfs_chol_trailing_update`, the first panel's)
+# on panel entries x = 2^e (1 + 3 2^-10 + 2^-18), e in {-1, 0}: hi = 2^e, lo
+# = 3 2^(e-10), a remainder 2^(e-18), so every product errs one way in each
+# mode and the modes' updates part by ~6e-6 of the largest entry ("s3"
+# drops ll = 9 2^-20 hh, "s4" the remainder's 2^-17, "d" keeps the diagonal
+# tiles exact), ~40x the float32 rounding of a 256-term sum. Each mode's
+# update, strictly lower entries, within 1e-6 of its own exact reference
+# (f64 sums of the split halves' products), which is more than 3x that
+# from every other mode's; the f64 pivots are the exact sums of squares
+def _structured_update(Np, syrk, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    X = 2.0 ** rng.randint(-1, 1, (Np - 256, 256)) * (1 + 3 * 2.0**-10 + 2.0**-18)
+    C = rng.randint(-64, 65, (Np - 256, Np - 256)).astype(np.float64)
+    K = np.zeros((Np, Np))
+    K[256:, :256], K[256:, 256:] = X, C
+    Kd = torch.tensor(K, dtype=torch.float32, device=dev)
+    dpiv = torch.zeros(Np, dtype=torch.float64, device=dev)
+    lib = _build.load_library()
+    code = lib.gfs_chol_trailing_update(Kd.data_ptr(), Np, 0, dpiv.data_ptr(), cholesky._mode_code(syrk),
+                                        _build.stream_of(Kd))
+    _build.check(lib, code, "chol_trailing_update")
+    torch.cuda.synchronize()
+    X, C = torch.tensor(X), torch.tensor(C)
+    refs = {}
+    for m in ("hi",) + SPLIT_MODES:
+        exact = X @ X.T
+        if m == "hi":
+            P = exact
+        else:
+            h, lo = cholesky.bf16_split(X)
+            P = h @ h.T + h @ lo.T + lo @ h.T + (lo @ lo.T if m.startswith("s4") else 0)
+            if m.endswith("d"):
+                t = torch.arange(256, Np) // cholesky.TILE
+                P = torch.where(t[:, None] == t[None, :], exact, P)
+        refs[m] = C - P
+    lower = torch.tril(torch.ones(Np - 256, Np - 256, dtype=torch.bool), -1)
+    got = Kd[256:, 256:].cpu().double()[lower]
+    return got, {m: r[lower] for m, r in refs.items()}, dpiv.cpu(), -(X**2).sum(1)
+
+
+@pytest.mark.parametrize("syrk", SPLIT_MODES)
+@pytest.mark.parametrize("Np", [704, 768])
+def test_split_trailing_update_is_its_own_mode(dev, syrk, Np):
+    got, refs, dpiv, piv = _structured_update(Np, syrk, dev)
+    own = _rel(got, refs[syrk])
+    assert own <= 1e-6
+    assert min(_rel(r, refs[syrk]) for m, r in refs.items() if m != syrk) > 3 * 1e-6
+    assert torch.equal(dpiv[:256], torch.zeros(256, dtype=torch.float64))
+    assert float((dpiv[256:] - piv).abs().max()) <= 1e-13 * float(piv.abs().max())
+
+
+def _split_system(N, Np, P, dev):
+    Kp = gram.gram_chol_operand_cuda("matern52", _xs(N, 1, dev), 1.0, 0.5, Np)
+    Dp = torch.zeros(Np, P, device=dev)
+    Dp[:N] = torch.tensor(np.random.RandomState(P).randn(N, P), dtype=torch.float32, device=dev)
+    return Kp, Dp
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max()) / float(b.double().abs().max())
+
+
+# a last 256-wide panel of 64 (320) and of 192 columns (448), and larger
+# sides (2112 = 16.5 tiles: a last tile of 64 columns, which has no second
+# 64-column half). Each mode's kernel against its plain split version in
+# f32 on the same input (L 1e-4 relative max-norm, half-logdet 1e-5, alpha
+# 1e-4: the "hi" kernel's gates against f64, test_chol_kernel_matches_plain),
+# both within the JAX package's hardware gate on a split factor against
+# f64 (Frobenius 5e-4, tests/test_tpu_compiled.py), and not equal to "hi",
+# but for a "d" mode at 320, whose one trailing tile is diagonal: exact
+@pytest.mark.parametrize("syrk", SPLIT_MODES)
+@pytest.mark.parametrize("Np", [320, 448, 2048, 2112])
+def test_split_kernel_matches_split_plain(dev, syrk, Np):
+    N = Np - 7
+    Kp, _ = _split_system(N, Np, 1, dev)
+    L64 = cholesky.cholesky_plain(torch.tril(Kp).double())
+    Lw = cholesky.cholesky_split_plain(Kp, syrk)
+    Lg = torch.tril(cholesky.cholesky_cuda(Kp.clone(), syrk))
+    Lhi = torch.tril(cholesky.cholesky_cuda(Kp.clone()))
+    torch.cuda.synchronize()
+    assert _rel(Lg, Lw) <= 1e-4
+    for L in (Lg, Lw):
+        assert float(torch.linalg.norm(L.double() - L64) / torch.linalg.norm(L64)) < 5e-4
+    assert torch.equal(Lg, Lhi) == (syrk.endswith("d") and Np == 320)  # the split ran where it should
+
+    def half_logdet(L):
+        return torch.log(torch.diagonal(L).double()).sum()
+
+    assert abs(float(half_logdet(Lg) - half_logdet(Lw))) <= 1e-5 * abs(float(half_logdet(Lw)))
+    for P in (1, 7):
+        _, Dp = _split_system(N, Np, P, dev)
+        D0 = Dp.clone()
+        _, a_w, h_w = cholesky.cholesky_solve_split_plain(Kp.clone(), Dp, syrk)
+        Lf, a_g, h_g = cholesky.cholesky_solve_cuda(Kp.clone(), Dp, syrk)
+        torch.cuda.synchronize()
+        assert abs(float(h_g) - float(h_w)) <= 1e-5 * abs(float(h_w))
+        assert _rel(a_g, a_w) <= 1e-4
+        assert _rel(torch.tril(Lf), Lw) <= 1e-4
+        assert bool((a_g[N:] == 0).all())
+        assert torch.equal(Dp, D0)
+
+
+# one 256-wide panel or less: no trailing update, so every mode is "hi"
+# bit for bit, factor and fused alike
+@pytest.mark.parametrize("Np", [64, 128])
+def test_split_modes_without_a_trailing_update_equal_hi(dev, Np):
+    Kp, Dp = _split_system(Np - 5, Np, 3, dev)
+    # the factor's lower triangle: the operand leaves the strictly-upper
+    # entries outside the diagonal blocks unspecified (they may be NaN)
+    L_hi = torch.tril(cholesky.cholesky_cuda(Kp.clone()))
+    _, a_hi, h_hi = cholesky.cholesky_solve_cuda(Kp.clone(), Dp)
+    for syrk in cholesky.SYRK_MODES:
+        assert torch.equal(torch.tril(cholesky.cholesky_cuda(Kp.clone(), syrk)), L_hi), syrk
+        L, a, h = cholesky.cholesky_solve_cuda(Kp.clone(), Dp, syrk)
+        assert torch.equal(torch.tril(L), L_hi) and torch.equal(a, a_hi) and torch.equal(h, h_hi), syrk
+
+
+# a unit-diagonal pad (N = 700 in Np = 768, the pad rows in the last panel,
+# under two split trailing updates): the pad block of L stays the identity
+# and L's pad rows 0 left of it, exactly, so the pad's logdet terms are log
+# 1 and alpha's pad rows 0
+@pytest.mark.parametrize("syrk", SPLIT_MODES)
+def test_split_pad_invariants(dev, syrk):
+    N, Np = 700, 768
+    Kp, Dp = _split_system(N, Np, 2, dev)
+    L = cholesky.cholesky_cuda(Kp.clone(), syrk)
+    Lf, alpha, hld = cholesky.cholesky_solve_cuda(Kp.clone(), Dp, syrk)
+    torch.cuda.synchronize()
+    eye = torch.eye(Np - N, device=dev)
+    for F in (L, Lf):
+        assert torch.equal(torch.tril(F[N:, N:]), eye)
+        assert bool((F[N:, :N] == 0).all())
+    assert bool((alpha[N:] == 0).all())
+    assert bool(torch.isfinite(hld))
+
+
+# as test_chol_kernel_nan_on_non_positive_pivot, in each split mode
+@pytest.mark.parametrize("syrk", SPLIT_MODES)
+@pytest.mark.parametrize("bad", [None, 150, 300])
+def test_split_kernel_nan_on_non_positive_pivot(dev, syrk, bad):
+    if bad is None:
+        Kp = gram.gram_chol_operand_cuda("rbf", _xs(100, 1, dev), 1.0, -5.0, 128)
+    else:
+        Kp = gram.gram_chol_operand_cuda("rbf", _xs(400, 1, dev), 1.0, 0.5, 448)
+        Kp[bad, bad] = -10.0
+    Np = Kp.shape[0]
+    L = cholesky.cholesky_cuda(Kp.clone(), syrk)
+    _, alpha, hld = cholesky.cholesky_solve_cuda(Kp, torch.ones(Np, 1, device=dev), syrk)
+    torch.cuda.synchronize()
+    assert torch.isnan(hld)
+    first = 0 if bad is None else bad
+    assert bool(torch.isnan(L[first, first]))
+    assert bool(torch.isfinite(torch.tril(L[:first, :first])).all())
+
+
+def _trailing_launches(fn):
+    # launches of each chol_trailing_kernel<passes> in one call of fn, the
+    # most over three profiled calls (the profiler may lose events)
+    best = {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.events():
+            m = re.search(r"chol_trailing_kernel<(\d+)>", e.name)
+            if m and e.device_type == torch.autograd.DeviceType.CUDA:
+                seen[m[1]] = seen.get(m[1], 0) + 1
+        best = {k: max(best.get(k, 0), seen.get(k, 0)) for k in set(best) | set(seen)}
+    return best
+
+
+# the hand path of each mode launches the trailing kernel of its
+# arithmetic, and no other, once for the next panel's columns and once for
+# the columns beyond after each panel but the last: 2112 = 8 full panels
+# and one of 64 columns, 17 tile columns, so 8 + 7 launches
+@pytest.mark.parametrize("syrk", ["hi"] + list(SPLIT_MODES))
+def test_split_trailing_kernel_launches_by_profiler(dev, syrk):
+    Kp, Dp = _split_system(2100, 2112, 1, dev)
+    want = {"0" if syrk == "hi" else syrk[1]: 15}
+    assert _trailing_launches(lambda: cholesky.cholesky_cuda(Kp.clone(), syrk)) == want
+    assert _trailing_launches(lambda: cholesky.cholesky_solve_cuda(Kp.clone(), Dp, syrk)) == want
+    before = dict(cholesky.cholesky_cuda.by_syrk)
+    cholesky.cholesky(Kp[:2100, :2100], syrk=syrk)
+    assert cholesky.cholesky_cuda.by_syrk[syrk] == before[syrk] + 1
+
+
+def test_split_wrappers_raise_instead_of_falling_back(dev):
+    Kp, Dp = _split_system(100, 128, 1, dev)
+    with pytest.raises(ValueError, match="syrk"):
+        cholesky.cholesky_cuda(Kp.clone(), "s5")
+    with pytest.raises(ValueError, match="float32"):
+        cholesky.cholesky_solve_cuda(Kp.double(), Dp.double(), "s4")
+    lib = _build.load_library()
+    work = torch.empty(128, dtype=torch.float64, device=dev)
+    # no such pass count, an unknown bit, the exact-diagonal bit on "hi"
+    for bad in (1, 5, 3 | 16, 4 | 32, 3 | 64, 8):
+        code = lib.gfs_cholesky(Kp.data_ptr(), 128, work.data_ptr(), bad, _build.stream_of(Kp))
+        assert code != 0, bad

@@ -645,7 +645,7 @@ def test_library_path_keyed_by_sources():
         "gram_operand.cu", "chol_solve.cu", "gram.cu", "trsm.cu", "batched_trsm.cu"}
     assert set(_build._ENTRIES) == {"gfs_gram_chol_operand", "gfs_chol_solve_logdet", "gfs_gram",
                                     "gfs_gram_lower", "gfs_cholesky", "gfs_trsm",
-                                    "gfs_batched_trsm"}
+                                    "gfs_batched_trsm", "gfs_chol_trailing_update", "gfs_split_mma_check"}
 
 
 def _imported_modules(path):

@@ -12,7 +12,10 @@ input: each one's half-logdet and its relative error; the error of the
 log pivots summed over each 256-wide panel (its sign says whether it is a
 bias); and each factor's backward error E = L L^T - K (largest entry, on
 the diagonal, and tr(K^-1 E) / 2, the first-order logdet error it
-carries).
+carries). Then, for the split trailing-update modes ("s3", "s4", "s3d",
+"s4d"), the half-logdet's relative error of both kernel modes beside "hi"'s
+and cuSOLVER's (tools/split_diag.py runs this on variants of the kernel
+that sum the split's products otherwise).
 
 The card's name and power limit come first. Needs a CUDA device.
 """
@@ -65,6 +68,14 @@ def main():
             print(f"  {name}: backward error max |L L^T - K| {float(E.abs().max()):.3e}, on the diagonal "
                   f"{float(E.diagonal().abs().max()):.3e}, tr(K^-1 E) / 2 "
                   f"{0.5 * float(torch.trace(torch.cholesky_solve(E, L64))):+.4e}")
+        zero = torch.zeros(len(Kj), 1, device=dev)
+        for syrk in ("s3", "s4", "s3d", "s4d"):
+            L_s = torch.diagonal(cholesky.cholesky_cuda(Kj.clone(), syrk)).double()
+            h_s = float(cholesky.cholesky_solve_cuda(Kj.clone(), zero, syrk)[2])
+            print(f"  syrk={syrk}: half_logdet rel err factor-only / fused "
+                  f"{abs(float(torch.log(L_s).sum()) - ref) / abs(ref):.2e} / {abs(h_s - ref) / abs(ref):.2e} "
+                  f"(hi {abs(float(e_k.sum())) / abs(ref):.2e} / {abs(float(h_fused) - ref) / abs(ref):.2e}, "
+                  f"cuSOLVER {abs(float(e_l.sum())) / abs(ref):.2e})", flush=True)
     return 0
 
 

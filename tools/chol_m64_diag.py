@@ -47,8 +47,8 @@ def main():
     # factor-only kernel does
     factors = {
         "hand": hand,
-        "cuSOLVER f32": lambda Kp: Kp.copy_(torch.linalg.cholesky(torch.tril(Kp))),
-        "f64 rounded": lambda Kp: Kp.copy_(torch.linalg.cholesky(torch.tril(Kp).double()).float()),
+        "cuSOLVER f32": lambda Kp, syrk="hi": Kp.copy_(torch.linalg.cholesky(torch.tril(Kp))),
+        "f64 rounded": lambda Kp, syrk="hi": Kp.copy_(torch.linalg.cholesky(torch.tril(Kp).double()).float()),
     }
     m32 = cs.lvm_model(gft, torch, "BayesianGPLVM", torch.float32, dev)
     opt = torch.optim.Adam([t for t in m32.parameters() if t.requires_grad], lr=cs.LVM_LR / 2)

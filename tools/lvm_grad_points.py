@@ -41,7 +41,7 @@ def main():
     dev = torch.device("cuda")
     print(cs.card_line())
 
-    def cusolver_into(Kp):
+    def cusolver_into(Kp, syrk="hi"):
         Kp.copy_(torch.linalg.cholesky(torch.tril(Kp)))
 
     for which in ("BayesianGPLVM", "GPLVM"):

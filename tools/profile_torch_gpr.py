@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's exact-GPR paths on one NVIDIA GPU.
 
-    python3 tools/profile_torch_gpr.py
+    python3 tools/profile_torch_gpr.py [--chol]
 
 On chip_smoke.py's data and model (N=10000, D=1, RBF lengthscale 0.1,
 float32) it runs, on the kernel route and on the use_kernels=False route,
@@ -17,6 +17,14 @@ each:
 - the device idle share, 1 - busy / wall, and within the device span;
 - the ten device activities with the most time, per evaluation (and, on
   request, the host operators with the most self CPU time).
+
+With ``--chol`` it prints only the Cholesky trailing update's rate in
+each arithmetic ("hi", "s3", "s4"; tools/split_diag.py runs it on variants
+of the kernel), at Np = 10048: in place (the trailing kernels' summed device
+time within one fused factorization, by the profiler, over the trailing
+updates' lower-triangle flop) and alone (one trailing update, the first
+panel's over the 9792 columns beyond it, launched by itself through
+``gfs_chol_trailing_update``, median of 5 by CUDA events).
 
 The card's name and power limit come first. Needs a CUDA device.
 """
@@ -60,6 +68,44 @@ def chol_split(dev, Np):
     print(f"  cholesky: trailing updates {t_ms:.3f} ms/iter ({trailing_flop(Np) / t_ms / 1e9:.1f} TFLOP/s "
           f"on the lower-triangle flop of Np={Np}), device time with no trailing update running "
           f"{visible:.3f} ms/iter")
+
+
+def trailing_rates(Np=10048):
+    """The trailing update's TFLOP/s by arithmetic, in place and alone (the
+    module docstring)."""
+    from chip_smoke import cuda_ms
+    from gpflow_slim_tpu_torch.ops import _build, cholesky, gram
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    one = torch.tensor(1.0, device=dev)
+    Kp = gram.gram_chol_operand_cuda("rbf", torch.rand(Np, 1, generator=g, device=dev) / LENGTHSCALE, one, one, Np)
+    D = torch.randn(Np, 1, generator=g, device=dev)
+    lib = _build.load_library()
+    dpiv = torch.zeros(Np, dtype=torch.float64, device=dev)
+    alone_flop = 2 * 256 * (Np - 256) * (Np - 255) // 2
+    for syrk in ("hi", "s3", "s4"):
+        fused = lambda: cholesky.cholesky_solve_cuda(Kp.clone(), D, syrk)  # noqa: E731
+        for _ in range(2):
+            fused()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(ITERS):
+                fused()
+            torch.cuda.synchronize()
+        trailing = [e for e in prof.events() if e.device_type == DeviceType.CUDA and "chol_trailing" in e.name]
+        t_in = sum(e.time_range.end - e.time_range.start for e in trailing) / 1e3 / ITERS
+        K = Kp.clone()
+        mode = cholesky._mode_code(syrk)
+
+        def alone():
+            _build.check(lib, lib.gfs_chol_trailing_update(K.data_ptr(), Np, 0, dpiv.data_ptr(), mode,
+                                                           _build.stream_of(K)), "chol_trailing_update")
+
+        t_alone = statistics.median(cuda_ms(torch, alone))
+        print(f"trailing update, syrk={syrk}, Np={Np}: in place {t_in:.3f} ms a factorization in "
+              f"{len(trailing) // ITERS} launches ({trailing_flop(Np) / t_in / 1e9:.1f} TFLOP/s); alone "
+              f"(the first panel's) {t_alone:.4f} ms ({alone_flop / t_alone / 1e9:.1f} TFLOP/s)", flush=True)
 
 
 def report(label, fn, host_top=0, Np=None, watch=None):
@@ -121,6 +167,10 @@ def main():
     if not torch.cuda.is_available():
         print("profile_torch_gpr: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if "--chol" in sys.argv:
+        print(card_line())
+        trailing_rates()
+        return 0
     X, Y = bench_data()
     model = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE),
                            device="cuda", dtype=torch.float32)

@@ -8,7 +8,8 @@ ROOT is the checkout whose gpflow_slim_tpu_torch (and kernels, built into
 its own build/) is measured; by default the one this file is in. The timing
 methods are this file's chip_smoke.py's. ``--gram`` measures the cross
 Gram alone, ``--chol`` both Cholesky modes alone at Np = 1024, 2048 and
-10048, ``--lower`` the lower-tile Gram alone (``lower_gram``) and the VGP's
+10048, in the trailing-update arithmetic "hi" and, where the checkout has
+it, the split modes "s3" and "s4", ``--lower`` the lower-tile Gram alone (``lower_gram``) and the VGP's
 ELBO + gradient on the kernel route. It prints:
 
 - for Np = 64 .. 10048 (RBF operands of lengthscale 0.1 and unit noise)
@@ -122,16 +123,25 @@ def lower_gram(tag, gram, g, one, dev):
 def chol_modes(tag, cholesky, gram, g, one, dev):
     """Both Cholesky modes at Np = 1024, 2048 and 10048 (RBF operands of
     lengthscale 0.1 and unit noise; the fused mode with one right-hand
-    side): one call between CUDA events, median of REPS, a fresh copy of
-    the operand each call."""
+    side), in each trailing-update arithmetic the checkout has ("hi",
+    and "s3" and "s4" where ``syrk`` exists): one call between CUDA events
+    and one call queued behind a spin (device), medians of REPS, a fresh
+    copy of the operand each call."""
+    modes = ("hi", "s3", "s4") if hasattr(cholesky, "SYRK_MODES") else ("hi",)
     for n in (1024, 2048, 10048):
         xs = torch.rand(n, 1, generator=g, device=dev) / 0.1
         Kp = gram.gram_chol_operand_cuda("rbf", xs, one, one, n)
         D = torch.randn(n, 1, generator=g, device=dev)
         fresh = lambda: (Kp.clone(),)  # noqa: E731
-        fac = statistics.median(cs.cuda_ms(torch, cholesky.cholesky_cuda, fresh))
-        fused = statistics.median(cs.cuda_ms(torch, lambda K: cholesky.cholesky_solve_cuda(K, D), fresh))
-        print(f"{tag} Np={n}: cholesky_cuda {fac:.4f} ms, cholesky_solve_cuda {fused:.4f} ms", flush=True)
+        for syrk in modes:
+            extra = () if syrk == "hi" else (syrk,)
+            fac, fused = (lambda K: cholesky.cholesky_cuda(K, *extra)), (
+                lambda K: cholesky.cholesky_solve_cuda(K, D, *extra))
+            t = {name: (statistics.median(cs.cuda_ms(torch, fn, fresh)),
+                        statistics.median(cs.cuda_ms(torch, fn, fresh, queued=True)))
+                 for name, fn in (("cholesky_cuda", fac), ("cholesky_solve_cuda", fused))}
+            print(f"{tag} Np={n} syrk={syrk}: " + ", ".join(
+                f"{name} {ms:.4f} ms (device {dms:.4f})" for name, (ms, dms) in t.items()), flush=True)
 
 
 def main():
