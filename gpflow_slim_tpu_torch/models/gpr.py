@@ -18,6 +18,7 @@ import torch
 
 from ..likelihoods import Gaussian
 from ..ops import linalg
+from ..utils.trace import named_scope
 from .model import GPModel, as_tensor_like
 
 
@@ -39,24 +40,26 @@ class GPR(GPModel):
 
     def build_likelihood(self):
         """log p(Y | theta) = MVN(Y; m(X), K + noise I), summed over columns."""
-        N = self.X.shape[0]
-        d = self.Y - self.mean_function(self.X)
-        noise = torch.squeeze(self.likelihood.variance.value)
-        half_logdet, quad = linalg.gpr_chol_terms(self.kern, self.X, noise, d)
-        num_col = d.shape[1] if d.dim() > 1 else 1
-        return (
-            -0.5 * N * num_col * math.log(2.0 * math.pi)
-            - num_col * half_logdet
-            - 0.5 * quad
-        )
+        with named_scope("gfs.gpr.likelihood"):
+            N = self.X.shape[0]
+            d = self.Y - self.mean_function(self.X)
+            noise = torch.squeeze(self.likelihood.variance.value)
+            half_logdet, quad = linalg.gpr_chol_terms(self.kern, self.X, noise, d)
+            num_col = d.shape[1] if d.dim() > 1 else 1
+            return (
+                -0.5 * N * num_col * math.log(2.0 * math.pi)
+                - num_col * half_logdet
+                - 0.5 * quad
+            )
 
     def posterior(self):
         """Precompute (L, alpha) once for O(N N*) serving predictions."""
         from .posterior import GPRPosterior
 
-        L = self._K_chol()
-        err = self.Y - self.mean_function(self.X)
-        alpha = linalg.solve_upper(L.T, linalg.solve_lower(L, err))
+        with named_scope("gfs.gpr.posterior"):
+            L = self._K_chol()
+            err = self.Y - self.mean_function(self.X)
+            alpha = linalg.solve_upper(L.T, linalg.solve_lower(L, err))
         return GPRPosterior(self.kern, self.likelihood, self.mean_function,
                             self.X, L, alpha, self.num_latent)
 

@@ -17,6 +17,7 @@ from .. import features as features_mod
 from ..conditionals import base_conditional_with_lm
 from ..ops import linalg
 from ..params import Module
+from ..utils.trace import named_scope
 from .model import as_tensor_like
 
 
@@ -35,17 +36,18 @@ class GPRPosterior(Module):
         self.num_latent = int(num_latent)
 
     def predict_f(self, Xnew, full_cov=False):
-        Xnew = as_tensor_like(Xnew, self.X)
-        Kx = self.kern.K(self.X, Xnew)  # (N, N*)
-        fmean = Kx.T @ self.alpha + self.mean_function(Xnew)
-        A = linalg.solve_lower(self.L, Kx)
-        if full_cov:
-            fvar = self.kern.K(Xnew) - A.T @ A
-            fvar = fvar[None, :, :].expand(self.num_latent, -1, -1)
-        else:
-            fvar = self.kern.Kdiag(Xnew) - torch.sum(torch.square(A), dim=0)
-            fvar = fvar[:, None].expand(-1, self.num_latent)
-        return fmean, fvar
+        with named_scope("gfs.posterior.predict_f"):
+            Xnew = as_tensor_like(Xnew, self.X)
+            Kx = self.kern.K(self.X, Xnew)  # (N, N*)
+            fmean = Kx.T @ self.alpha + self.mean_function(Xnew)
+            A = linalg.solve_lower(self.L, Kx)
+            if full_cov:
+                fvar = self.kern.K(Xnew) - A.T @ A
+                fvar = fvar[None, :, :].expand(self.num_latent, -1, -1)
+            else:
+                fvar = self.kern.Kdiag(Xnew) - torch.sum(torch.square(A), dim=0)
+                fvar = fvar[:, None].expand(-1, self.num_latent)
+            return fmean, fvar
 
     def predict_y(self, Xnew):
         m, v = self.predict_f(Xnew)

@@ -48,6 +48,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.trace import named_scope
 from . import _build
 from . import trsm as _trsm
 from ._func import transforms_active, vmap_loop
@@ -279,7 +280,8 @@ class _Cholesky(torch.autograd.Function):
 
     @staticmethod
     def forward(K, syrk):
-        return _factor_padded(K, syrk)
+        with named_scope("gfs.cholesky.fwd"):
+            return _factor_padded(K, syrk)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -288,7 +290,8 @@ class _Cholesky(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (L,) = ctx.saved_tensors
-        return _chol_vjp(L, g), None
+        with named_scope("gfs.cholesky.bwd"):
+            return _chol_vjp(L, g), None
 
     @staticmethod
     def vmap(info, in_dims, K, syrk):
@@ -389,10 +392,11 @@ class _CholSolveLogdet(torch.autograd.Function):
 
     @staticmethod
     def forward(Kp, Dp, in_place, syrk):
-        if not in_place:
-            Kp = Kp.clone(memory_format=torch.contiguous_format)
-        Lp, alpha, half_logdet = cholesky_solve(Kp, Dp, syrk)
-        return Lp, half_logdet, torch.sum(torch.square(alpha)), alpha
+        with named_scope("gfs.chol_solve_logdet.fwd"):
+            if not in_place:
+                Kp = Kp.clone(memory_format=torch.contiguous_format)
+            Lp, alpha, half_logdet = cholesky_solve(Kp, Dp, syrk)
+            return Lp, half_logdet, torch.sum(torch.square(alpha)), alpha
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -421,15 +425,16 @@ class _CholSolveLogdet(torch.autograd.Function):
         # this f64 backward of the same f32 factor; H100, 700 W).
         Lp, alpha = ctx.saved_tensors
         dtype = Lp.dtype
-        Lp, alpha = Lp.double(), alpha.double()
-        ghl, gq = ghl.double(), gq.double()
-        beta = torch.linalg.solve_triangular(Lp.mT, alpha, upper=True)
-        eye = torch.eye(Lp.shape[0], dtype=Lp.dtype, device=Lp.device)
-        Linv = torch.linalg.solve_triangular(Lp, eye, upper=False)
-        Kinv = Linv.T @ Linv
-        Kbar = 0.5 * ghl * Kinv - gq * (beta @ beta.T)
-        Dbar = 2.0 * gq * beta
-        return Kbar.to(dtype), Dbar.to(dtype), None, None
+        with named_scope("gfs.chol_solve_logdet.bwd"):
+            Lp, alpha = Lp.double(), alpha.double()
+            ghl, gq = ghl.double(), gq.double()
+            beta = torch.linalg.solve_triangular(Lp.mT, alpha, upper=True)
+            eye = torch.eye(Lp.shape[0], dtype=Lp.dtype, device=Lp.device)
+            Linv = torch.linalg.solve_triangular(Lp, eye, upper=False)
+            Kinv = Linv.T @ Linv
+            Kbar = 0.5 * ghl * Kinv - gq * (beta @ beta.T)
+            Dbar = 2.0 * gq * beta
+            return Kbar.to(dtype), Dbar.to(dtype), None, None
 
 
 def cholesky_solve_logdet(Kp, Dp, syrk="hi"):

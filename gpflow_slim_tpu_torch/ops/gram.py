@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from ..utils.trace import named_scope
 from . import _build
 from ._func import vmap_loop
 
@@ -264,7 +265,8 @@ class _Gram(torch.autograd.Function):
 
     @staticmethod
     def forward(kind, Xs, X2s, variance):
-        return _gram_forward(kind, Xs, X2s, variance)
+        with named_scope("gfs.gram.fwd"):
+            return _gram_forward(kind, Xs, X2s, variance)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -273,7 +275,8 @@ class _Gram(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (None, *_gram_vjp(ctx.kind, g, *ctx.saved_tensors, needs=ctx.needs_input_grad[1:]))
+        with named_scope("gfs.gram.bwd"):
+            return (None, *_gram_vjp(ctx.kind, g, *ctx.saved_tensors, needs=ctx.needs_input_grad[1:]))
 
     @staticmethod
     def vmap(info, in_dims, kind, Xs, X2s, variance):
@@ -289,7 +292,8 @@ class _GramLower(torch.autograd.Function):
 
     @staticmethod
     def forward(kind, Xs, variance):
-        return _gram_lower_forward(kind, Xs, variance)
+        with named_scope("gfs.gram_lower.fwd"):
+            return _gram_lower_forward(kind, Xs, variance)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -300,7 +304,8 @@ class _GramLower(torch.autograd.Function):
     def backward(ctx, g):
         Xs, variance = ctx.saved_tensors
         needs = ctx.needs_input_grad
-        return (None, *_gram_vjp(ctx.kind, g, Xs, None, variance, needs=(needs[1], False, needs[2])))
+        with named_scope("gfs.gram_lower.bwd"):
+            return (None, *_gram_vjp(ctx.kind, g, Xs, None, variance, needs=(needs[1], False, needs[2])))
 
     @staticmethod
     def vmap(info, in_dims, kind, Xs, variance):
@@ -386,7 +391,8 @@ class _GramCholOperand(torch.autograd.Function):
 
     @staticmethod
     def forward(kind, Xs, variance, noise, pad_to):
-        return _operand(kind, Xs, variance, noise, pad_to)
+        with named_scope("gfs.gram_operand.fwd"):
+            return _operand(kind, Xs, variance, noise, pad_to)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -397,11 +403,12 @@ class _GramCholOperand(torch.autograd.Function):
     def backward(ctx, g):
         Xs, variance, noise = ctx.saved_tensors
         N = Xs.shape[0]
-        g = g[:N, :N].double()
         needs = ctx.needs_input_grad
-        ga, gv = _gram_vjp(ctx.kind, g, Xs.double(), None, variance.double(), needs=(needs[1], False, needs[2]))
-        gn = torch.sum(torch.diagonal(g)).reshape(noise.shape) if needs[3] else None
-        return None, *(None if t is None else t.to(Xs.dtype) for t in (ga, gv, gn)), None
+        with named_scope("gfs.gram_operand.bwd"):
+            g = g[:N, :N].double()
+            ga, gv = _gram_vjp(ctx.kind, g, Xs.double(), None, variance.double(), needs=(needs[1], False, needs[2]))
+            gn = torch.sum(torch.diagonal(g)).reshape(noise.shape) if needs[3] else None
+            return None, *(None if t is None else t.to(Xs.dtype) for t in (ga, gv, gn)), None
 
     @staticmethod
     def vmap(info, in_dims, kind, Xs, variance, noise, pad_to):

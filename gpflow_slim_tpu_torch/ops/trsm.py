@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.trace import named_scope
 from . import _build
 from ._func import vmap_loop
 
@@ -197,7 +198,8 @@ class _Trsm(torch.autograd.Function):
 
     @staticmethod
     def forward(T, B, lower):
-        return _solve(T, B, lower)
+        with named_scope("gfs.trsm.fwd"):
+            return _solve(T, B, lower)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -207,9 +209,10 @@ class _Trsm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         T, X = ctx.saved_tensors
-        gB = _Trsm.apply(T.mT, g.contiguous(), not ctx.lower)
-        dT = -(gB @ X.mT)
-        return (dT.tril() if ctx.lower else dT.triu()), gB, None
+        with named_scope("gfs.trsm.bwd"):
+            gB = _Trsm.apply(T.mT, g.contiguous(), not ctx.lower)
+            dT = -(gB @ X.mT)
+            return (dT.tril() if ctx.lower else dT.triu()), gB, None
 
     @staticmethod
     def vmap(info, in_dims, T, B, lower):

@@ -15,6 +15,7 @@ from typing import Callable
 import torch
 
 from ..params import trainable_leaves
+from ..utils.trace import named_scope
 
 
 LINE_SEARCH_EVALS = 25  # evaluations a line search of fit_lbfgs may take (torch's max_ls)
@@ -57,7 +58,8 @@ def make_step_fn(model, optimizer_factory: Callable, loss_fn: Callable | None = 
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(model)
         loss.backward()
-        opt.step()
+        with named_scope("gfs.step.update"):
+            opt.step()
         return loss.detach()
 
     return step_fn, opt

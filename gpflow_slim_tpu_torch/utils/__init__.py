@@ -1,12 +1,14 @@
-"""Checkpoints, metrics logging and debugging helpers (counterpart of
+"""Checkpoints, metrics logging, program spans and debugging helpers (counterpart of
 ``gpflow_slim_tpu.utils``)."""
 
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from .logging import MetricsLogger
-from .misc import check_determinism, debug_nans, named_scope, print_summary
+from . import trace
+from .misc import check_determinism, debug_nans, print_summary
+from .trace import named_scope, traced
 
 __all__ = [
     "save_checkpoint", "load_checkpoint", "latest_checkpoint",
-    "MetricsLogger", "named_scope", "debug_nans", "check_determinism",
-    "print_summary",
+    "MetricsLogger", "named_scope", "traced", "trace", "debug_nans",
+    "check_determinism", "print_summary",
 ]

@@ -11,13 +11,7 @@ import torch
 
 from ..params import Param, all_leaves
 
-__all__ = ["named_scope", "debug_nans", "check_determinism", "print_summary"]
-
-
-def named_scope(name: str):
-    """A named range in ``torch.profiler``'s trace (``jax.named_scope``'s
-    role): ``with named_scope("gram"): ...``."""
-    return torch.profiler.record_function(name)
+__all__ = ["debug_nans", "check_determinism", "print_summary"]
 
 
 @contextlib.contextmanager

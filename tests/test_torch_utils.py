@@ -8,6 +8,7 @@ tensors and plain numbers; a resumed Adam run equals an uninterrupted one
 bit for bit.
 """
 
+import contextlib
 import json
 import os
 
@@ -266,10 +267,12 @@ def test_debug_nans_and_named_scope():
     assert not torch.is_anomaly_enabled()
     with utils.debug_nans(False):
         assert not torch.is_anomaly_enabled()
-    with torch.profiler.profile() as prof:
-        with utils.named_scope("gram_panel"):
-            torch.ones(3) @ torch.ones(3)
-    assert any(e.name == "gram_panel" for e in prof.events())
+    # spans are recorded while the program's tracing is on, and only then
+    for on in (False, True):
+        with utils.trace.traced() if on else contextlib.nullcontext(), torch.profiler.profile() as prof:
+            with utils.named_scope("gram_panel"):
+                torch.ones(3) @ torch.ones(3)
+        assert any(e.name == "gram_panel" for e in prof.events()) == on
 
 
 def test_inv_probit_matches_jax():
