@@ -261,6 +261,10 @@ HLD_TOL = 1e-5      # relative
 ALPHA_TOL = 1e-3    # relative, max-norm
 OBJECTIVE_TOL = 1e-5  # relative to the f64 oracle (bench.py's gate)
 GRAD_TOL = 1e-3     # relative to the f64 plain path
+# the f64 VJP's kernels against their plain version on the same f32 factor:
+# both f64, sums in another order, so this share of the largest entry on top
+# of the kernels' one rounding to f32
+VJP_TOL = 1e-10
 # the factor-only Cholesky against f64: the factor's max-norm relative
 # error, and its half-logdet (from its diagonal) relative, the gate the
 # fused kernel meets with the same f64 pivots
@@ -314,7 +318,8 @@ ZERO_GRAD_REL = 1e-8  # a gradient zero in exact arithmetic, against the largest
 OUR_KERNELS = ("gram_cross_kernel", "gram_lower_kernel", "gram_chol_operand_kernel", "pivot_init_kernel",
                "chol_diag_kernel", "chol_panel_kernel", "chol_inner_update_kernel", "chol_trailing_kernel",
                "logdet_sum_kernel", "trsm_thin_kernel", "trsm_group_kernel", "trsm_update_kernel",
-               "batched_trsm_kernel")
+               "batched_trsm_kernel", "kinv_diag_kernel", "kinv_left_kernel", "kinv_right_kernel", "kinv_beta_kernel",
+               "kinv_beta_sum_kernel", "kinv_kbar_kernel")
 PROFILES = 3  # profiled calls of a launch check
 LEAD_IN_CYCLES = 1_000_000  # ~0.5 ms spin at the start of each launch-check profile
 LIBRARY_SOLVES = ("trsm", "trsv", "potrf", "potrs", "potri", "getrf", "syrk", "cholesky", "cusolver", "magma")
@@ -404,6 +409,7 @@ SPLIT_SIDES = (320, 448, 2048, 2112)
 SPLIT_APART_SIDES, SPLIT_APART_TOL = (704, 768), 1e-6
 # the card's peaks for the bound of each kernel (vendor figures, H100 SXM)
 F32_FLOPS = 67e12   # float32 without tensor cores
+F64_TC_FLOPS = 67e12  # float64 on the tensor cores
 BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense: the split modes' trailing products
 HBM_BYTES = 3.35e12  # bytes per second
 
@@ -4173,6 +4179,37 @@ def split_times(torch, cholesky, Kp, Dp1, pad_to, launches):
     return rows
 
 
+def check_csl_vjp(torch, cholesky, chol_inverse, Kp, Dp1):
+    """The f64 VJP's kernels (``csl_vjp_cuda``) against their plain
+    version on the same inputs at the main path's side: the factor and
+    alpha of bench.py's operand ``Kp`` and data ``Dp1``, and the
+    objective's cotangents (``ghl`` 1, ``gq`` 1/2). K-bar and D-bar within
+    VJP_TOL of the largest entry on top of one f32 rounding, K-bar equal to
+    its transpose, its pad block exactly 1/2 ghl I and its pad rows 0
+    against the data (beta is 0 there). Returns the inputs and K-bar's max
+    abs error."""
+    Lp, alpha, _ = cholesky.cholesky_solve_cuda(Kp.clone(), Dp1)
+    dev = Lp.device
+    args = (Lp, alpha, torch.tensor(1.0, device=dev), torch.tensor(0.5, device=dev))
+    Kbar, Dbar = chol_inverse.csl_vjp_cuda(*args)
+    Kw, Dw = chol_inverse.csl_vjp_plain(*(t.double() for t in args))
+    errs = {}
+    for what, got, want in (("Kbar", Kbar, Kw), ("Dbar", Dbar, Dw)):
+        over = float(((got.double() - want).abs() - 2.0 ** -24 * want.abs()).max())
+        errs[what] = (float((got.double() - want).abs().max()), over / float(want.abs().max()))
+    sym = torch.equal(Kbar, Kbar.T)
+    pad = torch.equal(Kbar[N:, N:], torch.full((), 0.5, device=dev) * torch.eye(Kbar.shape[0] - N, device=dev))
+    pad_rows = bool((Kbar[N:, :N] == 0).all()) and bool((Dbar[N:] == 0).all())
+    print(f"csl_vjp kernels vs plain f64 at Np={Kbar.shape[0]}: " + ", ".join(
+        f"{w} max abs err {a:.3e}, beyond one f32 rounding {r:.3e} of the largest entry" for w, (a, r) in errs.items())
+          + f" (tol {VJP_TOL:g}); Kbar equals Kbar.T: {sym}; pad block exactly 1/2 ghl I: {pad}; "
+          f"pad rows 0: {pad_rows}")
+    if not (max(r for _, r in errs.values()) <= VJP_TOL and sym and pad and pad_rows):
+        raise AssertionError("the f64 VJP's kernels disagree with their plain version")
+    del Kbar, Dbar, Kw, Dw
+    return args, errs["Kbar"][0]
+
+
 def main():
     import torch
 
@@ -4181,7 +4218,7 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     import gpflow_slim_tpu_torch as gft
-    from gpflow_slim_tpu_torch.ops import _build, cholesky, gram, trsm
+    from gpflow_slim_tpu_torch.ops import _build, chol_inverse, cholesky, gram, trsm
 
     pkg_dir = os.path.dirname(os.path.abspath(gft.__file__))
     if os.path.dirname(pkg_dir) != HERE:
@@ -4292,6 +4329,7 @@ def main():
                            device="cuda", dtype=torch.float32)
     gram.gram_chol_operand_cuda.launches = 0
     cholesky.cholesky_solve_cuda.launches = 0
+    chol_inverse.csl_vjp_cuda.launches = 0
     with torch.no_grad():
         val = float(model.objective())
     n_opnd, n_chol = gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches
@@ -4310,7 +4348,10 @@ def main():
         raise AssertionError(f"objective off the f64 oracle by {rel:.3e}")
 
     model.zero_grad(set_to_none=True)
+    n_vjp = chol_inverse.csl_vjp_cuda.launches
     model.objective().backward()
+    if chol_inverse.csl_vjp_cuda.launches != n_vjp + 1:
+        raise AssertionError("the gradient did not run the f64 VJP kernels (csrc/chol_inverse.cu) once")
     grads32 = {n: float(p.unconstrained.grad) for n, p in gft.params.parameters(model)}
     m64 = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE),
                          device="cuda", dtype=torch.float64)
@@ -4335,8 +4376,12 @@ def main():
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError("5 Adam steps did not lower the loss")
     n_opnd, n_chol = gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches
+    n_vjp = chol_inverse.csl_vjp_cuda.launches
     print(f"launches over the main path (objective, gradient, 5 steps): "
-          f"operand {n_opnd}, chol_solve {n_chol}")
+          f"operand {n_opnd}, chol_solve {n_chol}, csl_vjp {n_vjp}")
+    Dp1 = torch.zeros(pad_to, 1, dtype=torch.float32, device=dev)
+    Dp1[:N] = torch.tensor(Y, device=dev)
+    vjp_args, vjp_err = check_csl_vjp(torch, cholesky, chol_inverse, Kp, Dp1)
 
     # 4b. the serving path at full width, through the public entry points
     serve_kernels = {"gram": gram.gram_cuda, "gram_lower": gram.gram_lower_cuda,
@@ -4445,16 +4490,25 @@ def main():
     def on_card(ms):
         return f"{ms:.3f} ms"
 
-    Dp1 = torch.zeros(pad_to, 1, dtype=torch.float32, device=dev)
-    Dp1[:N] = torch.tensor(Y, device=dev)
     opnd = lambda: gram.gram_chol_operand_cuda("rbf", Xs, var, noise, pad_to)  # noqa: E731
     opnd_ms, opnd_plain_ms = paired_ms(
         torch, opnd, lambda: gram.gram_chol_operand_plain("rbf", Xs, var, noise, pad_to))
     chol = lambda K: cholesky.cholesky_solve_cuda(K, Dp1)  # noqa: E731
     chol_ms, chol_plain_ms = paired_ms(
         torch, chol, lambda K: cholesky.cholesky_solve_plain(K, Dp1), setup=lambda: (Kp.clone(),))
+    vjp = lambda: chol_inverse.csl_vjp_cuda(*vjp_args)  # noqa: E731
+    vjp_ms, vjp_plain_ms = paired_ms(torch, vjp, lambda: chol_inverse.csl_vjp_plain(*vjp_args))
+    L64, eye64 = torch.tril(vjp_args[0]).double(), torch.eye(pad_to, dtype=torch.float64, device=dev)
+
+    def vjp_library():  # the cuBLAS pair the kernels replace: the solve against I, the full product
+        Linv = torch.linalg.solve_triangular(L64, eye64, upper=False)
+        return Linv.T @ Linv
+
+    vjp_lib_ms = statistics.median(cuda_ms(torch, vjp_library))
     other = {"gram_chol_operand": other_ms(torch, opnd),
-             "chol_solve_logdet": other_ms(torch, chol, setup=lambda: (Kp.clone(),))}
+             "chol_solve_logdet": other_ms(torch, chol, setup=lambda: (Kp.clone(),)),
+             "csl_vjp": other_ms(torch, vjp, vjp_library)}
+    del L64, eye64
 
     def objective():
         with torch.no_grad():
@@ -4478,6 +4532,8 @@ def main():
     print(f"times at N={N} (median of {2 * REPS} by CUDA events) on {card}:")
     print(f"  gram_chol_operand: kernel {on_card(opnd_ms)}, plain f32 {on_card(opnd_plain_ms)}")
     print(f"  chol_solve_logdet: kernel {on_card(chol_ms)}, plain f32 {on_card(chol_plain_ms)}")
+    print(f"  csl_vjp (f64): kernels {on_card(vjp_ms)} (device {other['csl_vjp']['device_ms']:.4f}), plain f64 "
+          f"{on_card(vjp_plain_ms)}, cuBLAS solve against I + full product {on_card(vjp_lib_ms)}")
     print(f"  objective: kernels {on_card(obj_ms)}, use_kernels=False {on_card(obj_plain_ms)}")
     print(f"  objective+grad: kernels {on_card(og_ms)}, use_kernels=False {on_card(og_plain_ms)}; "
           f"peak memory {peak_gb:.2f} GB (the backwards differ: float64 _csl_bwd on the "
@@ -4594,6 +4650,8 @@ def main():
         "cholesky": bound(pad_to ** 3 / 3, 2 * tri_bytes(pad_to)),
         "trsm": bound(N * N * NQ, tri_bytes(N) + 2 * N * NQ * 4),
         "trsm_thin": bound(N * N, tri_bytes(N) + 2 * N * 4),
+        # f64 on the tensor cores: the inverse's Np^3 / 3 and the lower half of W^T W's Np^3 / 3
+        "csl_vjp": (2 * pad_to ** 3 / 3 / F64_TC_FLOPS * 1e3, "operations"),
     }
     print(card)
 
@@ -4616,6 +4674,9 @@ def main():
             opnd_plain_ms, None),
         row("chol_solve_logdet", "chol_solve.cu", "pallas_cholesky.py:857", n_chol, chol_err, chol_ms,
             chol_plain_ms, None),
+        # replaces no TPU kernel: its counterpart, _csl_bwd, is XLA ops
+        row("csl_vjp", "chol_inverse.cu", "pallas_cholesky.py:913", n_vjp, vjp_err, vjp_ms, vjp_plain_ms,
+            vjp_lib_ms),
         row("gram", "gram.cu", "pallas_gram.py:95", serve_launches["gram"], serve_errs["gram"], gram_ms,
             gram_plain_ms, None),
         row("gram_lower", "gram.cu", "pallas_gram.py:173", serve_launches["gram_lower"],

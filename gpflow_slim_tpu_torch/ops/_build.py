@@ -54,6 +54,8 @@ _ENTRIES = {
     "gfs_trsm": (_P, _I, _I, _I, _I, _P, _I, _P, _P),
     # L, P, M, ld, batch_stride, trans, lower, B, X, K, sync, stream
     "gfs_batched_trsm": (_P, _I, _I, _I, _L, _I, _I, _P, _P, _I, _P, _P),
+    # L, Np, alpha, P, ghl, gq, W, beta, kbar, dbar, stream
+    "gfs_csl_vjp": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
 }
 
 

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from ..utils.trace import named_scope
 from . import _build
+from . import chol_inverse as _inverse
 from . import trsm as _trsm
 from ._func import transforms_active, vmap_loop
 from .gram import full_precision
@@ -386,8 +387,9 @@ class _CholSolveLogdet(torch.autograd.Function):
     """Forward: the fused factor/solve/logdet, in place on ``Kp``
     (``in_place``) or on a copy of it. Outputs ``(Lp, half_logdet, quad,
     alpha)``; ``Lp`` and ``alpha`` are not differentiable. Backward:
-    ``_csl_bwd`` of the JAX package, in torch.linalg (the JAX package also
-    computes it with plain XLA ops, outside any kernel), whatever ``syrk``.
+    ``_csl_bwd`` of the JAX package (plain XLA ops there), whatever
+    ``syrk``: ``ops.chol_inverse.csl_vjp``, the kernels of
+    ``csrc/chol_inverse.cu`` on a CUDA tensor, torch.linalg on a CPU one.
     ``vmap``: the Function on a copy of each system of the batch."""
 
     @staticmethod
@@ -414,27 +416,11 @@ class _CholSolveLogdet(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _gL, ghl, gq, _galpha):
         # d(half_logdet)/dK = K^-1 / 2; quad = D^T K^-1 D, so dquad/dK =
-        # -beta beta^T and dquad/dD = 2 beta with beta = K^-1 D = L^-T alpha.
-        # The full symmetric K-bar: the operand's VJP reads all of it, and a
-        # lower-only K-bar would double the off-diagonal gradient. The solves
-        # read only the lower triangle of Lp.
-        #
-        # It runs in float64 for float32 inputs: the variance gradient is
-        # about (N - noise tr K^-1) / 2, a difference of two ~N terms, and an
-        # f32 K^-1 put it 1e-2 off the f64 path at N = 10000 (2.7e-5 with
-        # this f64 backward of the same f32 factor; H100, 700 W).
+        # -beta beta^T and dquad/dD = 2 beta with beta = K^-1 D = L^-T alpha:
+        # ops.chol_inverse, in float64, the full symmetric K-bar
         Lp, alpha = ctx.saved_tensors
-        dtype = Lp.dtype
         with named_scope("gfs.chol_solve_logdet.bwd"):
-            Lp, alpha = Lp.double(), alpha.double()
-            ghl, gq = ghl.double(), gq.double()
-            beta = torch.linalg.solve_triangular(Lp.mT, alpha, upper=True)
-            eye = torch.eye(Lp.shape[0], dtype=Lp.dtype, device=Lp.device)
-            Linv = torch.linalg.solve_triangular(Lp, eye, upper=False)
-            Kinv = Linv.T @ Linv
-            Kbar = 0.5 * ghl * Kinv - gq * (beta @ beta.T)
-            Dbar = 2.0 * gq * beta
-            return Kbar.to(dtype), Dbar.to(dtype), None, None
+            return (*_inverse.csl_vjp(Lp, alpha, ghl, gq), None, None)
 
 
 def cholesky_solve_logdet(Kp, Dp, syrk="hi"):

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import gpflow_slim_tpu_torch as gft
-from gpflow_slim_tpu_torch.ops import _build, cholesky, gram, trsm
+from gpflow_slim_tpu_torch.ops import _build, chol_inverse, cholesky, gram, trsm
 from gpflow_slim_tpu_torch.ops import linalg as ops_linalg
 
 pytestmark = pytest.mark.cuda
@@ -153,6 +153,91 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         cholesky.cholesky_solve_cuda(torch.zeros(100, 100, device=dev), torch.zeros(100, 1, device=dev))
     with pytest.raises(ValueError, match="at least one column"):
         cholesky.cholesky_solve_cuda(torch.zeros(64, 64, device=dev), torch.zeros(64, 0, device=dev))
+    L, a, g = torch.eye(64, device=dev), torch.zeros(64, 1, device=dev), torch.zeros((), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        chol_inverse.csl_vjp_cuda(L.double(), a, g, g)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        chol_inverse.csl_vjp_cuda(torch.eye(100, device=dev), torch.zeros(100, 1, device=dev), g, g)
+    with pytest.raises(ValueError, match="at least one column"):
+        chol_inverse.csl_vjp_cuda(L, torch.zeros(64, 0, device=dev), g, g)
+
+
+def _csl_system(Np, P, dev):
+    """A factored padded system of side Np (Np - 37 rows of data, at least
+    one) through the kernels: ``(Lp, alpha, N)``."""
+    N = max(Np - 37, 1)
+    Kp = gram.gram_chol_operand_cuda("rbf", _xs(N, 1, dev), 1.0, 0.5, Np)
+    Dp = torch.zeros(Np, P, device=dev)
+    Dp[:N] = torch.tensor(np.random.RandomState(3).randn(N, P), dtype=torch.float32, device=dev)
+    Lp, alpha, _ = cholesky.cholesky_solve_cuda(Kp, Dp)
+    return Lp, alpha, N
+
+
+# Np = 64: no doubling level; 128: one; 1088 (17 blocks): levels whose last
+# pair has a short or no second half; 2048 and 10048: the cells' sides
+@pytest.mark.parametrize("Np,P", [(64, 1), (128, 3), (1088, 1), (2048, 1), (10048, 1)])
+def test_csl_vjp_kernel_matches_plain(dev, Np, P):
+    Lp, alpha, N = _csl_system(Np, P, dev)
+    ghl, gq = torch.tensor(0.7, device=dev), torch.tensor(-1.3, device=dev)
+    before = chol_inverse.csl_vjp_cuda.launches
+    Kbar, Dbar = chol_inverse.csl_vjp_cuda(Lp, alpha, ghl, gq)
+    torch.cuda.synchronize()
+    assert chol_inverse.csl_vjp_cuda.launches == before + 1
+    Kw, Dw = chol_inverse.csl_vjp_plain(Lp.double(), alpha.double(), ghl.double(), gq.double())
+    # both in f64 from the same f32 factor, in another order of sums: 1e-10
+    # of the largest entry, on top of the kernel's one rounding to f32
+    for got, want in ((Kbar, Kw), (Dbar, Dw)):
+        err = (got.double() - want).abs() - 2.0 ** -24 * want.abs()
+        assert float(err.max()) <= 1e-10 * float(want.abs().max())
+    assert torch.equal(Kbar, Kbar.T)
+    # the pad: beta is 0 there and W the identity, so Kbar's pad block is
+    # 1/2 ghl I and its pad rows are 0 against the data, exactly
+    half = torch.full((), 0.35, device=dev)
+    assert torch.equal(Kbar[N:, N:], half * torch.eye(Np - N, device=dev))
+    assert bool((Kbar[N:, :N] == 0).all()) and bool((Dbar[N:] == 0).all())
+
+
+def test_csl_vjp_kernel_runs_once_a_backward(dev):
+    Lp, alpha, N = _csl_system(1088, 2, dev)
+    Kp = gram.gram_chol_operand_cuda("rbf", _xs(N, 1, dev), 1.0, 0.5, 1088).requires_grad_()
+    Dp = torch.zeros(1088, 2, device=dev)
+    Dp[:N] = torch.tensor(np.random.RandomState(3).randn(N, 2), dtype=torch.float32, device=dev)
+    Dp.requires_grad_()
+    before = chol_inverse.csl_vjp_cuda.launches
+    hl, q = cholesky.cholesky_solve_logdet(Kp.clone(), Dp)
+    (0.7 * hl - 1.3 * q).backward()
+    assert chol_inverse.csl_vjp_cuda.launches == before + 1
+    Kw, Dw = chol_inverse.csl_vjp_plain(Lp.double(), alpha.double(), torch.tensor(0.7).double(),
+                                        torch.tensor(-1.3).double())
+    assert float((Kp.grad.double() - Kw).abs().max()) <= 1e-6 * float(Kw.abs().max())
+    assert float((Dp.grad.double() - Dw).abs().max()) <= 1e-6 * float(Dw.abs().max())
+    # under torch.func: grad of each system of a batch, through the
+    # kernels' Function (one launch a system)
+    before = chol_inverse.csl_vjp_cuda.launches
+    Ks = torch.stack([Kp.detach(), Kp.detach()])
+    gK = torch.func.vmap(torch.func.grad(lambda k: cholesky.cholesky_solve_logdet(k, Dp.detach())[0]))(Ks)
+    assert chol_inverse.csl_vjp_cuda.launches == before + 2
+    Kh, _ = chol_inverse.csl_vjp_plain(Lp.double(), alpha.double(), torch.tensor(1.0).double(),
+                                       torch.tensor(0.0).double())
+    for g in gK:
+        assert float((g.double() - Kh).abs().max()) <= 1e-6 * float(Kh.abs().max())
+
+
+def test_csl_vjp_backward_launches_no_library_product(dev):
+    # the N = 10000 fit's backward of the fused factor: the kinv kernels
+    # alone, no cuBLAS GEMM or GEMV and no TRSM (the solve against I)
+    Lp, alpha, N = _csl_system(10048, 1, dev)
+    Kp = gram.gram_chol_operand_cuda("rbf", _xs(N, 1, dev), 1.0, 0.5, 10048).requires_grad_()
+    hl, q = cholesky.cholesky_solve_logdet(Kp.clone(), alpha)
+    loss = 0.5 * hl + q
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert {"kinv_diag_kernel", "kinv_left_kernel", "kinv_kbar_kernel"} <= {
+        m.group(0) for n in names for m in [re.search(r"kinv_\w+_kernel", n)] if m}
+    assert not [n for n in names if re.search("gemm|gemv|trsm", n, re.IGNORECASE)], names
 
 
 @pytest.mark.parametrize("P", [1, 11])

@@ -21,7 +21,7 @@ import gpflow_slim_tpu as gfs
 from gpflow_slim_tpu.ops import linalg as jax_linalg
 from gpflow_slim_tpu.ops import pallas_cholesky, pallas_gram, pallas_trsm
 from gpflow_slim_tpu_torch import config, likelihoods, quadrature, transforms
-from gpflow_slim_tpu_torch.ops import _build, cholesky, gram, linalg, trsm
+from gpflow_slim_tpu_torch.ops import _build, chol_inverse, cholesky, gram, linalg, trsm
 
 torch.set_num_threads(2)
 
@@ -150,6 +150,63 @@ def test_cholesky_solve_logdet_backward_runs_in_f64_for_f32():
     # the f64 backward of the f32 factor, then one rounding to f32
     np.testing.assert_allclose(K32.grad.numpy(), np.asarray(Kbar), rtol=1e-6, atol=1e-9)
     np.testing.assert_allclose(D32.grad.numpy(), np.asarray(Dbar), rtol=1e-6, atol=1e-9)
+
+
+# the plain version of the fused factor's VJP kernels (ops.chol_inverse):
+# N = 1 and 200 padded to 64 and 256, 64 unpadded, 1000 padded to 1024
+@pytest.mark.parametrize("check", ["jax", "finite_difference", "vmap"])
+@pytest.mark.parametrize("N", [1, 64, 200, 1000])
+def test_csl_vjp_plain(N, check):
+    pad_to, P = N + (-N) % 64, 2
+    Kp, Dp = _spd_operand(N, pad_to, P, seed=N)
+    Lp, alpha, _ = cholesky.cholesky_solve_plain(_t(Kp), _t(Dp))
+    g1, g2 = 0.7, -1.3
+    Kbar, Dbar = chol_inverse.csl_vjp_plain(Lp, alpha, _t(g1), _t(g2))
+    assert torch.equal(Kbar[N:, N:], 0.35 * torch.eye(pad_to - N, dtype=torch.float64))  # beta is 0 in the pad
+    if check == "jax":
+        # _csl_bwd on the same f64 residuals: the same formula on both sides
+        Kj, Dj = pallas_cholesky._csl_bwd(64, "hi", (jnp.asarray(Lp.numpy()), jnp.asarray(alpha.numpy())),
+                                          (g1, g2))
+        np.testing.assert_allclose(Kbar.numpy(), np.asarray(Kj), rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(Dbar.numpy(), np.asarray(Dj), rtol=1e-9, atol=1e-12)
+    elif check == "finite_difference":
+        # the directional derivative of g1 half_logdet + g2 quad along a
+        # symmetric E (spectral norm ~1, so the third derivative stays small)
+        # and an F, both zero in the pad, by central differences at 1e-5:
+        # truncation ~1e-10 x the third derivative, rounding ~1e-16 |f| / 1e-5
+        rng = np.random.RandomState(N + 1)
+        A = rng.randn(N, N)
+        E = np.zeros((pad_to, pad_to))
+        E[:N, :N] = (A + A.T) / (2 * np.sqrt(N))
+        F = np.zeros((pad_to, P))
+        F[:N] = rng.randn(N, P)
+
+        def f(eps):
+            _, a, hl = cholesky.cholesky_solve_plain(_t(Kp + eps * E), _t(Dp + eps * F))
+            return g1 * float(hl) + g2 * float(torch.sum(torch.square(a)))
+
+        fd = (f(1e-5) - f(-1e-5)) / 2e-5
+        want = float(torch.sum(Kbar * _t(E)) + torch.sum(Dbar * _t(F)))
+        assert abs(fd - want) <= 1e-6 * max(1.0, abs(want))
+    else:
+        # through torch.func.vmap, as a batched backward calls it: each
+        # entry as the unbatched call gives it (a second factor 2 Lp)
+        Ls, As = torch.stack([Lp, 2.0 * Lp]), torch.stack([alpha, alpha])
+        Kb, Db = torch.func.vmap(chol_inverse.csl_vjp, in_dims=(0, 0, None, None))(Ls, As, _t(g1), _t(g2))
+        for i in range(2):
+            Kw, Dw = chol_inverse.csl_vjp_plain(Ls[i], As[i], _t(g1), _t(g2))
+            np.testing.assert_allclose(Kb[i].numpy(), Kw.numpy(), rtol=1e-10, atol=1e-13)
+            np.testing.assert_allclose(Db[i].numpy(), Dw.numpy(), rtol=1e-10, atol=1e-13)
+
+
+def test_csl_vjp_wrapper_refuses_cpu_tensors():
+    L, a, g = torch.eye(64), torch.zeros(64, 1), torch.zeros(())
+    with pytest.raises(ValueError, match="CUDA float32"):
+        chol_inverse.csl_vjp_cuda(L, a, g, g)
+    before = chol_inverse.csl_vjp_cuda.launches
+    Kbar, Dbar = chol_inverse.csl_vjp(L, a, g + 1.0, g)
+    assert chol_inverse.csl_vjp_cuda.launches == before  # a CPU tensor takes the plain version
+    assert torch.equal(Kbar, 0.5 * torch.eye(64)) and Dbar.dtype == torch.float32
 
 
 @pytest.mark.parametrize("kind", ["rbf", "matern52"])
@@ -642,10 +699,11 @@ def test_library_path_keyed_by_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libgfs_kernels_")
     assert {f.name for f in _build.CSRC.glob("*.cu")} == {
-        "gram_operand.cu", "chol_solve.cu", "gram.cu", "trsm.cu", "batched_trsm.cu"}
+        "gram_operand.cu", "chol_solve.cu", "gram.cu", "trsm.cu", "batched_trsm.cu", "chol_inverse.cu"}
     assert set(_build._ENTRIES) == {"gfs_gram_chol_operand", "gfs_chol_solve_logdet", "gfs_gram",
                                     "gfs_gram_lower", "gfs_cholesky", "gfs_trsm",
-                                    "gfs_batched_trsm", "gfs_chol_trailing_update", "gfs_split_mma_check"}
+                                    "gfs_batched_trsm", "gfs_chol_trailing_update", "gfs_split_mma_check",
+                                    "gfs_csl_vjp"}
 
 
 def _imported_modules(path):

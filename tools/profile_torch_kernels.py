@@ -2,7 +2,7 @@
 """Device time of the port's kernels, each run alone on one NVIDIA GPU, for
 one checkout of the repository; the tool to compare two commits on one card.
 
-    python3 tools/profile_torch_kernels.py [ROOT] [--gram | --chol | --lower]
+    python3 tools/profile_torch_kernels.py [ROOT] [--gram | --chol | --lower | --kinv]
 
 ROOT is the checkout whose gpflow_slim_tpu_torch (and kernels, built into
 its own build/) is measured; by default the one this file is in. The timing
@@ -10,7 +10,8 @@ methods are this file's chip_smoke.py's. ``--gram`` measures the cross
 Gram alone, ``--chol`` both Cholesky modes alone at Np = 1024, 2048 and
 10048, in the trailing-update arithmetic "hi" and, where the checkout has
 it, the split modes "s3" and "s4", ``--lower`` the lower-tile Gram alone (``lower_gram``) and the VGP's
-ELBO + gradient on the kernel route. It prints:
+ELBO + gradient on the kernel route, ``--kinv`` the fused Cholesky's f64 VJP alone (``csl_vjp``). It
+prints:
 
 - for Np = 64 .. 10048 (RBF operands of lengthscale 0.1 and unit noise)
   the CUDA-event time of ``cholesky_cuda`` and the mean device time and
@@ -144,8 +145,52 @@ def chol_modes(tag, cholesky, gram, g, one, dev):
                 f"{name} {ms:.4f} ms (device {dms:.4f})" for name, (ms, dms) in t.items()), flush=True)
 
 
+def csl_vjp(tag, cholesky, gram, g, one, dev):
+    """The fused Cholesky's f64 VJP at Np = 1024, 2048 and 10048 (RBF
+    operands of lengthscale 0.1 and unit noise, one right-hand side), by
+    one call between CUDA events and one call queued behind a spin
+    (device), medians of REPS: the kernels of csrc/chol_inverse.cu where
+    the checkout has them, the plain version (torch.linalg in f64, the
+    path before them), and its cuBLAS pair alone (the solve against I and
+    the full product, from an f64 copy of the factor made beforehand);
+    beside the bound 2 Np^3 / 3 at 67 TFLOP/s (f64 tensor cores) and the
+    kernels' device time each by the profiler."""
+    inverse = getattr(cholesky, "_inverse", None)  # ops.chol_inverse, where the checkout has it
+    ghl, gq = torch.tensor(0.5, device=dev), torch.tensor(-0.5, device=dev)
+    for n in (1024, 2048, 10048):
+        xs = torch.rand(n - 48, 1, generator=g, device=dev) / 0.1
+        Kp = gram.gram_chol_operand_cuda("rbf", xs, one, one, n)
+        D = torch.zeros(n, 1, device=dev)
+        D[:n - 48] = torch.randn(n - 48, 1, generator=g, device=dev)
+        Lp, alpha, _ = cholesky.cholesky_solve_cuda(Kp, D)
+        bound = 2 * n ** 3 / 3 / cs.F64_TC_FLOPS * 1e3
+        t = {}
+        if inverse is not None:
+            kern = lambda: inverse.csl_vjp_cuda(Lp, alpha, ghl, gq)  # noqa: E731
+            t["kernels"] = (statistics.median(cs.cuda_ms(torch, kern)),
+                            statistics.median(cs.cuda_ms(torch, kern, queued=True)))
+            by = {k: v for k, v in per_kernel_us(kern).items() if k.startswith("kinv")}
+            fn = lambda: inverse.csl_vjp_plain(Lp, alpha, ghl, gq)  # noqa: E731
+            t["plain"] = (statistics.median(cs.cuda_ms(torch, fn)),
+                          statistics.median(cs.cuda_ms(torch, fn, queued=True)))
+        L64 = torch.tril(Lp).double()
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+
+        def pair():
+            Linv = torch.linalg.solve_triangular(L64, eye, upper=False)
+            return Linv.T @ Linv
+
+        t["cublas_pair"] = (statistics.median(cs.cuda_ms(torch, pair)),
+                            statistics.median(cs.cuda_ms(torch, pair, queued=True)))
+        rate = (f", {2 * n ** 3 / 3 / t['kernels'][1] / 1e9:.1f} TFLOP/s of the 2 Np^3 / 3 (device); "
+                f"per kernel (us, launches) {by}") if "kernels" in t else ""
+        print(f"{tag} csl_vjp Np={n} (bound {bound:.4f} ms): " + ", ".join(
+            f"{name} {ms:.4f} ms (device {dms:.4f})" for name, (ms, dms) in t.items()) + rate, flush=True)
+        del L64, eye
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a not in ("--gram", "--chol", "--lower")]
+    args = [a for a in sys.argv[1:] if a not in ("--gram", "--chol", "--lower", "--kinv")]
     root = os.path.abspath(args[0]) if args else REPO
     if not torch.cuda.is_available():
         print("profile_torch_kernels: no CUDA device; nothing was run", file=sys.stderr)
@@ -167,6 +212,9 @@ def main():
         return 0
     if "--lower" in sys.argv:
         lower_gram(tag, gram, g, one, dev)
+        return 0
+    if "--kinv" in sys.argv:
+        csl_vjp(tag, cholesky, gram, g, one, dev)
         return 0
     for n in (64, 256, 1024, 4096, 10048):
         xs = torch.rand(n, 1, generator=g, device=dev) / 0.1
