@@ -3246,6 +3246,132 @@ def nkn_checks(gft, torch, gram, cholesky, trsm, dev):
     return launches
 
 
+NKN_N = 4000  # the published NKN's gate against its f64 composite (~45 N^2 arrays), beside the phase's models
+NKN_ROWS = 1000  # the f64 plain versions' row blocks at N (the VJP's whole block holds ~90 N^2 numbers, 70 GB)
+NKN_VJP_TOL = 1e-5  # of each group's largest gradient: float32 entries, summed in float64 past a warp
+
+
+def nkn_published_kernel(gft):
+    """The paper's time-series network (ops.nkn.NET) at port_bench's
+    gpr-nkn8-d1 starting values, NKNLinear's default weights."""
+    k, nk = gft.kernels, gft.kernels_nkn
+    prims = [k.Linear(1, variance=2.0), k.Linear(1, variance=4.0), k.Periodic(1, period=0.25, variance=3.0),
+             k.Periodic(1, period=0.1, variance=3.0, lengthscales=0.5), k.RBF(1, variance=3.0, lengthscales=0.05),
+             k.RBF(1, variance=3.0, lengthscales=0.3), k.RationalQuadratic(1, variance=3.0, lengthscales=0.1, alpha=0.5),
+             k.RationalQuadratic(1, variance=3.0, lengthscales=0.5, alpha=2.0)]
+    return nk.NKN(1, prims, [nk.NKNLinear(8, 8), nk.NKNProduct(8, 2), nk.NKNLinear(4, 4), nk.NKNProduct(4, 2),
+                             nk.NKNLinear(2, 1)])
+
+
+def nkn_published_gpr(gft, torch, n, dev, dtype):
+    """A GPR on the published NKN over bench.py's first n points, noise 0.1."""
+    X, Y = bench_data()
+    m = gft.models.GPR(X[:n], Y[:n], kern=nkn_published_kernel(gft), device=dev, dtype=dtype)
+    with torch.no_grad():
+        p = m.likelihood.variance
+        p.unconstrained.copy_(p.transform.backward(torch.tensor(0.1, dtype=torch.float64)))
+    return m
+
+
+def nkn_theta_groups(nkn, D):
+    """(name, slice) of ``theta`` (ops.nkn's layout): each primitive's slot,
+    then each Linear layer's weights."""
+    S = nkn.slot(D)
+    groups, at = [(f"primitive {k}", slice(k * S, (k + 1) * S)) for k in range(nkn.PRIMS)], nkn.PRIMS * S
+    for j, (_, i, o) in enumerate(layer for layer in nkn.NET if layer[0] == "linear"):
+        groups.append((f"W{j + 1}", slice(at, at + i * o)))
+        at += i * o
+    return groups
+
+
+def nkn_operand_checks(gft, torch, dev):
+    """Phase 4h: a GPR on the published NKN at N = NKN_N, float32 on the
+    kernel route: the NKN operand and its VJP launch once each an objective
+    + gradient, the value and every gradient within twice the
+    use_kernels=False route's error + 1e-5 / 1e-3 of the f64 plain path.
+    Then at the main path's size, N = 10000 padded to 10048 (the cell
+    nkn-n10k-train's): a float32 objective + gradient launches each kernel
+    once (the rows' launches); the forward kernel against its plain version
+    in f64 (lower triangle, 2e-6 of the largest entry; the pad exactly the
+    identity's) and the VJP against its plain version in f64 on a symmetric
+    cotangent, each primitive's slot, each weight matrix and the noise
+    within NKN_VJP_TOL of its own largest gradient (both plain versions by
+    row blocks of NKN_ROWS). Then phase 5's rows of both, timed against
+    their plain versions (the forward in f32, the VJP in f64 by row
+    blocks). Returns the rows."""
+    from gpflow_slim_tpu_torch.ops import nkn
+
+    def launched(m):
+        before = (nkn.nkn_operand_cuda.launches, nkn.nkn_vjp_cuda.launches)
+        out = value_and_grads(gft, m, True, jitter=VGP_JITTER)
+        launches = (nkn.nkn_operand_cuda.launches - before[0], nkn.nkn_vjp_cuda.launches - before[1])
+        if launches != (1, 1):
+            raise AssertionError(f"published NKN at N={m.X.shape[0]}: NKN operand and VJP launches {launches}, "
+                                 "want one each")
+        return out, launches
+
+    m32 = nkn_published_gpr(gft, torch, NKN_N, dev, torch.float32)
+    m64 = nkn_published_gpr(gft, torch, NKN_N, dev, torch.float64)
+    m64.load_state_dict(m32.state_dict())
+    k32, _ = launched(m32)
+    gate_against_f64(f"published NKN GPR objective (N={NKN_N})", k32, value_and_grads(gft, m32, False, jitter=VGP_JITTER),
+                     value_and_grads(gft, m64, False, jitter=VGP_JITTER))
+    del m32, m64, k32
+    torch.cuda.empty_cache()
+
+    m = nkn_published_gpr(gft, torch, N, dev, torch.float32)
+    _, launches = launched(m)
+    Xd = m.X
+    pad_to = N + (-N) % 64
+    with torch.no_grad():
+        theta = m.kern._theta(1, Xd).contiguous()
+        noise = m.likelihood.variance.value.reshape(())
+    kinds = m.kern._operand_kinds(Xd)
+    del m
+    fwd = lambda: nkn.nkn_operand_cuda(Xd, theta, noise, kinds, pad_to)  # noqa: E731
+    got = fwd()
+    X64, th64 = Xd.double(), theta.double()
+    fwd_err = scale = 0.0
+    for r in range(0, N, NKN_ROWS):
+        want = nkn.nkn_gram_plain(X64[r:r + NKN_ROWS], th64, kinds, X64)
+        i = torch.arange(want.shape[0], device=dev)
+        want[i, i + r] += noise.double()
+        low = torch.ones_like(want, dtype=torch.bool).tril_(r)
+        fwd_err = max(fwd_err, float((got[r:r + len(i), :N].double() - want)[low].abs().max()))
+        scale = max(scale, float(want.abs().max()))
+    pad_ok = torch.equal(got[N:, :N], torch.zeros_like(got[N:, :N])) and \
+        torch.equal(torch.tril(got[N:, N:]), torch.eye(pad_to - N, device=dev))
+    del got, want, low
+    G = torch.randn(pad_to, pad_to, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    G = G + G.T
+    vjp = lambda: nkn.nkn_vjp_cuda(G, Xd, theta, kinds)  # noqa: E731
+    gt, gn = vjp()
+    wt, wn = nkn.nkn_vjp_plain(G, Xd, theta, kinds, rows=NKN_ROWS)
+    vjp_err = float(torch.cat([gt - wt, (gn - wn)[None]]).abs().max())
+    rel = {name: float((gt[sl] - wt[sl]).abs().max()) / float(wt[sl].abs().max())
+           for name, sl in nkn_theta_groups(nkn, 1)}
+    rel["noise"] = abs(float(gn - wn)) / abs(float(wn))
+    print(f"NKN operand vs plain f64 at N={N}, pad_to={pad_to}: max abs err {fwd_err:.3e} (of {scale:.3f}), pad "
+          f"exact {pad_ok}; VJP: max abs err {vjp_err:.3e}, of each group's largest gradient: "
+          + ", ".join(f"{name} {r:.2e}" for name, r in rel.items()) + f" (tol {NKN_VJP_TOL:g})")
+    if not (fwd_err <= 2e-6 * scale and pad_ok and max(rel.values()) <= NKN_VJP_TOL):
+        raise AssertionError(f"NKN operand kernels disagree with their plain versions: {fwd_err}, {pad_ok}, {rel}")
+    tri = N * (N + 1) // 2
+    rows = {}
+    for name, kernel, plain, err, (flop, nbytes) in (
+            ("nkn_operand", fwd, lambda: nkn.nkn_operand_plain(Xd, theta, noise, kinds, pad_to), fwd_err,
+             (170 * tri, tri_bytes(pad_to) + N * 4)),
+            ("nkn_vjp", vjp, lambda: nkn.nkn_vjp_plain(G, Xd, theta, kinds, rows=NKN_ROWS), vjp_err,
+             (546 * tri, tri_bytes(N) + N * 4))):
+        k_ms, p_ms = paired_ms(torch, kernel, plain)
+        b_ms, b_by = bound(flop, nbytes)
+        rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                      "max_abs_err": err, "launches": launches[name == "nkn_vjp"], **other_ms(torch, kernel)}
+    del G
+    torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 4h, fault m on the card; phase 4i: config #3 from disk, resume, serving from a checkpoint ----
 
 def cg_func_check(gft, torch, gram, cholesky, trsm, cg_model, dev):
@@ -4458,6 +4584,7 @@ def main():
     exact_vs_cg(gft, torch, dev)
     lvm_launches, lvm_models = lvm_checks(gft, torch, gram, cholesky, trsm, dev)
     nkn_launches = nkn_checks(gft, torch, gram, cholesky, trsm, dev)
+    nkn_rows = nkn_operand_checks(gft, torch, dev)
     # fault m on the card: batched_value_and_grad over config #5's streaming model
     cg_func_check(gft, torch, gram, cholesky, trsm, cg_model, dev)
 
@@ -4744,6 +4871,9 @@ def main():
                dist_out["launches"]["gram_by_shape"].get((DIST_PANEL, DIST_N), 0)),
               ("cholesky_dist", "chol_solve.cu", "pallas_cholesky.py:716", dist_out["launches"]["cholesky"]),
               ("trsm_dist", "trsm.cu", "pallas_trsm.py:116", dist_out["launches"]["trsm_wide"]))),
+        # no TPU kernel: the JAX package forms an NKN's Gram from its primitives' Grams with XLA ops
+        *({**timed_row(name, "nkn_operand.cu", "pallas_gram.py", r["launches"], r["max_abs_err"], r),
+           "replaces": "gpflow_slim_tpu/kernels_nkn.py:88 (XLA ops, no TPU kernel)"} for name, r in nkn_rows.items()),
         # library_ms null: no PyTorch call computes the split; exact_library_ms is cuSOLVER's exact function
         *({"name": name, "route": "cuda", "source": "gpflow_slim_tpu_torch/csrc/chol_solve.cu",
            "replaces": "gpflow_slim_tpu/ops/pallas_cholesky.py:" + ("857" if name.startswith("chol_solve") else "716"),

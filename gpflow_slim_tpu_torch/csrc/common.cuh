@@ -44,27 +44,53 @@ __device__ __forceinline__ void tri_index(long long t, int& bi, int& bj) {
 // Stationary map kinds; ops/gram.py holds the same table (KINDS).
 enum Kind { kRbf = 0, kMatern12 = 1, kMatern32 = 2, kMatern52 = 3, kExponential = 4, kCosine = 5 };
 
-// The map of `_apply_map` (GPflow-1.x constants: exponential is
-// var * exp(-r / 2), and r = sqrt(d^2 + 1e-12)).
-__device__ __forceinline__ float apply_map(int kind, float var, float d2) {
-  if (kind == kRbf) return var * expf(-0.5f * d2);
+// The map at unit variance, f(d2), and its slope df/dd2 (ops/gram.py's
+// `_unit_map_and_slope`; GPflow-1.x constants: exponential is exp(-r / 2),
+// and r = sqrt(d^2 + 1e-12)).
+__device__ __forceinline__ void unit_map_slope(int kind, float d2, float& f, float& s) {
+  if (kind == kRbf) {
+    f = expf(-0.5f * d2);
+    s = -0.5f * f;
+    return;
+  }
   const float r = sqrtf(d2 + 1e-12f);
+  const float s3 = 1.7320508075688772f, s5 = 2.2360679774997896f;
   switch (kind) {
     case kMatern12:
-      return var * expf(-r);
+      f = expf(-r);
+      s = -0.5f * f / r;
+      return;
     case kMatern32: {
-      const float s3 = 1.7320508075688772f;
-      return var * (1.0f + s3 * r) * expf(-s3 * r);
+      const float e = expf(-s3 * r);
+      f = (1.0f + s3 * r) * e;
+      s = -1.5f * e;
+      return;
     }
     case kMatern52: {
-      const float s5 = 2.2360679774997896f;
-      return var * (1.0f + s5 * r + (5.0f / 3.0f) * d2) * expf(-s5 * r);
+      const float e = expf(-s5 * r);
+      f = (1.0f + s5 * r + (5.0f / 3.0f) * d2) * e;
+      s = -(5.0f / 6.0f) * e * (1.0f + s5 * d2 / r);
+      return;
     }
     case kExponential:
-      return var * expf(-0.5f * r);
-    default:  // kCosine
-      return var * cosf(r);
+      f = expf(-0.5f * r);
+      s = -0.25f * f / r;
+      return;
+    default: {  // kCosine
+      float sn;
+      sincosf(r, &sn, &f);
+      s = -0.5f * sn / r;
+      return;
+    }
   }
+}
+
+// The map of `_apply_map`: var f(d2) (the slope is left to the compiler to
+// drop).
+__device__ __forceinline__ float apply_map(int kind, float var, float d2) {
+  float f, s;
+  unit_map_slope(kind, d2, f, s);
+  return var * f;
 }
 
 // -- tiles of the triangular solves (trsm.cu, batched_trsm.cu) -------------

@@ -1,3 +1,3 @@
-from . import blocked, chol_inverse, cholesky, gram, iterative, linalg, trsm
+from . import blocked, chol_inverse, cholesky, gram, iterative, linalg, nkn, trsm
 
-__all__ = ["blocked", "chol_inverse", "cholesky", "gram", "iterative", "linalg", "trsm"]
+__all__ = ["blocked", "chol_inverse", "cholesky", "gram", "iterative", "linalg", "nkn", "trsm"]

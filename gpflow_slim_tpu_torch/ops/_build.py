@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C entry points: name -> argument types (each returns a cudaError_t as int)
+# C entry points: name -> argument types (each returns an int: a cudaError_t, but where noted)
 _ENTRIES = {
     # X, N, D, var, noise, kind, pad_to, out, stream
     "gfs_gram_chol_operand": (_P, _I, _I, _P, _P, _I, _I, _P, _P),
@@ -56,6 +56,14 @@ _ENTRIES = {
     "gfs_batched_trsm": (_P, _I, _I, _I, _L, _I, _I, _P, _P, _I, _P, _P),
     # L, Np, alpha, P, ghl, gq, W, beta, kbar, dbar, stream
     "gfs_csl_vjp": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
+    # X, N, D, theta, n_theta, kinds (host), noise, pad_to, out, stream
+    "gfs_nkn_operand": (_P, _I, _I, _P, _I, _P, _P, _I, _P, _P),
+    # N, D: the float64 scratch nkn_vjp needs (a count, not an error code)
+    "gfs_nkn_vjp_scratch": (_I, _I),
+    # X, N, D, theta, n_theta, kinds (host), g, ldg, partial, n_partial, out, stream
+    "gfs_nkn_vjp": (_P, _I, _I, _P, _I, _P, _P, _L, _P, _L, _P, _P),
+    # out (host ints), n: the NKN kernels' kind numbers and layer widths (a count, not an error code)
+    "gfs_nkn_layout": (_P, _I),
 }
 
 

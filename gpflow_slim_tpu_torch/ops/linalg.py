@@ -12,11 +12,11 @@ refined on float64 residuals. The route is decided here and nowhere else, by
 every N and every right-hand-side width:
 
 - the exact-GPR objective (``gpr_chol_terms``): for a kernel with a fused
-  map, the one-pass operand (``ops.gram``) feeding the fused
-  factor/solve/logdet (``ops.cholesky``); for any other kernel (a ``Sum``,
-  a ``Periodic``, ...) ``kern.K_lower(X) + noise * I`` copied into a
-  padded system (``pad_system``) and the same fused kernel
-  (``chol_logdet_quad``);
+  operand (a fused map, ``ops.gram``; the paper's NKN, ``ops.nkn``), the
+  one-pass operand feeding the fused factor/solve/logdet
+  (``ops.cholesky``); for any other kernel (a ``Sum``, a ``Periodic``,
+  ...) ``kern.K_lower(X)`` copied into a padded system (``pad_system``),
+  the noise added to the copy's diagonal, and the same fused kernel;
 - factors and solves: the factor-only Cholesky (``ops.cholesky``) and the
   wide TRSM (``ops.trsm``), also under ``robust_cholesky``;
 - the batched solves: the batched TRSM (``ops.trsm``).
@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from .. import config
 from . import cholesky as _chol
 from . import trsm as _trsm
+from ._func import transforms_active
 
 
 def kernels_active(t: torch.Tensor) -> bool:
@@ -74,26 +75,44 @@ def chol_logdet_quad(K, D):
     return half_logdet, torch.sum(torch.square(alpha))
 
 
+def _add_to_diagonal(K, noise, n):
+    """``K`` with ``noise`` added to its first ``n`` diagonal entries: in
+    place (no N x N eye, no second N x N sum), as ``GPR._K_chol`` adds it,
+    except inside a ``torch.func`` transform, where K and the noise may be
+    batched apart and the sum is formed out of place."""
+    if transforms_active():
+        d = torch.diagonal(K)
+        return torch.diagonal_scatter(K, torch.cat([d[:n] + noise, d[n:]]))
+    K.diagonal()[:n].add_(noise)
+    return K
+
+
 def gpr_chol_terms(kern, X, noise, D):
     """``(half_logdet, quad)`` for ``K = kern.K(X) + noise * I``, the
     exact-GPR marginal-likelihood core.
 
-    On the kernel route, and when the kernel has a fused map
-    (``_gram_kind``), the whole N^2 pipeline is two kernels: the lower-tile
-    operand ``kern.gram_chol_operand`` and the fused factor/solve/logdet.
-    Any other kernel forms ``kern.K_lower(X) + noise * I`` and goes through
-    ``chol_logdet_quad``, on the kernel route the same fused kernel.
+    On the kernel route, a kernel with a fused operand (its
+    ``gram_chol_operand`` returns one: a fused map, the paper's NKN) takes
+    the whole N^2 pipeline in two kernels, the operand and the fused
+    factor/solve/logdet. Any other kernel forms ``kern.K_lower(X)``; on the
+    kernel route its padded copy (``pad_system``) takes the noise on its
+    diagonal and goes through the same fused kernel, elsewhere K takes it
+    and goes through the plain composite (``chol_logdet_quad``). Where
+    ``K_lower``'s output is a tensor autograd saved, the in-place add
+    raises in the backward: no kernel of the package gives one.
     """
     if D.dim() == 1:
         D = D[:, None]
     N = X.shape[0]
-    if kernels_active(X) and getattr(kern, "_gram_kind", None) is not None:
+    if kernels_active(X):
         Np = N + (-N) % _chol.BLOCK
-        Kp = kern.gram_chol_operand(X, noise, Np)
-        Dp = F.pad(D.to(Kp.dtype), (0, 0, 0, Np - N))
-        return _chol.cholesky_solve_logdet(Kp, Dp)
-    K = kern.K_lower(X) + noise * torch.eye(N, dtype=X.dtype, device=X.device)
-    return chol_logdet_quad(K, D)
+        operand = getattr(kern, "gram_chol_operand", None)
+        Kp = operand(X, noise, Np) if operand is not None else None
+        if Kp is not None:
+            return _chol.cholesky_solve_logdet(Kp, F.pad(D.to(Kp.dtype), (0, 0, 0, Np - N)))
+        Kp, Dp = pad_system(kern.K_lower(X), D)
+        return _chol.cholesky_solve_logdet(_add_to_diagonal(Kp, noise, N), Dp)
+    return chol_logdet_quad(_add_to_diagonal(kern.K_lower(X), noise, N), D)
 
 
 def cholesky(K):

@@ -9,11 +9,12 @@ them on; then each is a ``torch.profiler.record_function``.
 Spans, and what each holds:
 
 - ``gfs.gram.fwd``/``.bwd``, ``gfs.gram_lower.fwd``/``.bwd``,
-  ``gfs.gram_operand.fwd``/``.bwd``, ``gfs.cholesky.fwd``/``.bwd``,
-  ``gfs.chol_solve_logdet.fwd``/``.bwd``, ``gfs.trsm.fwd``/``.bwd``: the
-  forward and the backward of each autograd Function of ``ops.gram``,
-  ``ops.cholesky`` and ``ops.trsm`` (the cross Gram, the lower-tile Gram,
-  the Cholesky operand, the factor-only Cholesky, the fused
+  ``gfs.gram_operand.fwd``/``.bwd``, ``gfs.nkn_operand.fwd``/``.bwd``,
+  ``gfs.cholesky.fwd``/``.bwd``, ``gfs.chol_solve_logdet.fwd``/``.bwd``,
+  ``gfs.trsm.fwd``/``.bwd``: the forward and the backward of each autograd
+  Function of ``ops.gram``, ``ops.nkn``, ``ops.cholesky`` and ``ops.trsm``
+  (the cross Gram, the lower-tile Gram, the Cholesky operand, the NKN's
+  Cholesky operand, the factor-only Cholesky, the fused
   factor/solve/logdet, the TRSM). A backward runs on autograd's device
   thread for CUDA tensors, so its span lies on that thread; ``_Trsm``'s
   backward nests a ``gfs.trsm.fwd``.

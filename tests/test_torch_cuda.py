@@ -15,7 +15,7 @@ import pytest
 import torch
 
 import gpflow_slim_tpu_torch as gft
-from gpflow_slim_tpu_torch.ops import _build, chol_inverse, cholesky, gram, trsm
+from gpflow_slim_tpu_torch.ops import _build, chol_inverse, cholesky, gram, nkn, trsm
 from gpflow_slim_tpu_torch.ops import linalg as ops_linalg
 
 pytestmark = pytest.mark.cuda
@@ -1467,3 +1467,134 @@ def test_split_wrappers_raise_instead_of_falling_back(dev):
     for bad in (1, 5, 3 | 16, 4 | 32, 3 | 64, 8):
         code = lib.gfs_cholesky(Kp.data_ptr(), 128, work.data_ptr(), bad, _build.stream_of(Kp))
         assert code != 0, bad
+
+
+# -- the paper's NKN on the one-pass operand (csrc/nkn_operand.cu) -------------
+
+NKN_KINDS = {1: (7, 7, 8, 8, 0, 0, 6, 6), 2: (1, 2, 3, 4, 5, 8, 6, 7)}  # D = 2: every kind of primitive
+
+
+def _nkn_theta(D, kinds, seed, dev):
+    # a point of the operand's parameter vector (ops.nkn's layout)
+    rng = np.random.RandomState(seed)
+    th = np.zeros(nkn.theta_size(D), np.float32)
+    S = nkn.slot(D)
+    for k, kind in enumerate(kinds):
+        th[k * S] = rng.uniform(0.5, 3.0)
+        th[k * S + 1:k * S + 1 + D] = rng.uniform(0.5, 5.0, D)
+        if kind == nkn.PERIODIC:
+            th[k * S + 1 + D:k * S + 1 + 2 * D] = rng.uniform(3.0, 30.0, D)
+        if kind == nkn.RQ:
+            th[k * S + 1 + D] = rng.uniform(0.3, 3.0)
+    th[8 * S:] = rng.uniform(0.2, 1.0, th.size - 8 * S) / 4
+    return torch.tensor(th, device=dev)
+
+
+# N = 10000 (the cell's size), 1003 and 2100 (not multiples of the forward's
+# 8-row bands, pads of whole pad bands, three 1024-column sweeps), 1, D = 2
+@pytest.mark.parametrize("N,D,pad_to", [(10000, 1, 10048), (1003, 1, 1024), (2100, 2, 2112), (1, 1, 64),
+                                        (130, 2, 192)])
+def test_nkn_operand_kernel_matches_plain(dev, N, D, pad_to):
+    X = _xs(N, D, dev, seed=N) * 0.2
+    kinds = NKN_KINDS[D]
+    th = _nkn_theta(D, kinds, N + D, dev)
+    got = nkn.nkn_operand_cuda(X, th, torch.tensor(0.3, device=dev), kinds, pad_to)
+    assert nkn.nkn_operand_cuda.launches > 0
+    want = nkn.nkn_gram_plain(X.double(), th.double(), kinds)
+    want.diagonal().add_(0.3)
+    # float32 rounding of ~150 operations an entry: 2e-6 of the largest entry
+    scale = float(want.abs().max())
+    low = torch.ones(N, N, dtype=torch.bool, device=dev).tril_()
+    assert float((got[:N, :N].double() - want)[low].abs().max()) <= 2e-6 * scale
+    del want, low
+    # the pad: zeros below the diagonal, ones on it, exactly
+    assert torch.equal(got[N:, :N], torch.zeros_like(got[N:, :N]))
+    assert torch.equal(torch.tril(got[N:, N:]), torch.eye(pad_to - N, device=dev))
+
+
+@pytest.mark.parametrize("D", [1, 2])
+def test_nkn_vjp_kernel_matches_f64_autograd(dev, D):
+    # N = 2048: the kernel's gradient of <G, K_NKN + noise I> by every
+    # parameter and the noise against float64 autograd through the plain
+    # composite, for a symmetric G read on and below the diagonal
+    N = 2048
+    X = _xs(N, D, dev, seed=7) * 0.2
+    kinds = NKN_KINDS[D]
+    th = _nkn_theta(D, kinds, 8 + D, dev)
+    G = torch.randn(N, N, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    G = G + G.T
+    gt, gn = nkn.nkn_vjp_cuda(G, X, th, kinds)
+    assert gt.dtype == torch.float64
+    th64 = th.double().requires_grad_()
+    noise = torch.tensor(0.3, dtype=torch.float64, device=dev, requires_grad=True)
+    K = nkn.nkn_gram_plain(X.double(), th64, kinds) + noise * torch.eye(N, dtype=torch.float64, device=dev)
+    wt, wn = torch.autograd.grad(K, [th64, noise], G.double())
+    # float32 entries, summed in float64 past a warp: 1e-5 of the largest
+    # gradient (measured ~5e-7)
+    scale = float(wt.abs().max())
+    assert float((gt - wt).abs().max()) <= 1e-5 * scale
+    assert abs(float(gn) - float(wn)) <= 1e-5 * abs(float(wn))
+
+
+def _nkn_gpr(N, dev, dtype, published=True):
+    rng = np.random.RandomState(4)
+    X = rng.uniform(0, 1, (N, 1)).astype(np.float32)
+    Y = (np.sin(12 * X) + 0.5 * X + 0.1 * rng.randn(N, 1)).astype(np.float32)
+    k, nk = gft.kernels, gft.kernels_nkn
+    if published:
+        prims = [k.Linear(1, variance=2.0), k.Linear(1, variance=4.0), k.Periodic(1, period=0.25, variance=3.0),
+                 k.Periodic(1, period=0.1, variance=3.0, lengthscales=0.5), k.RBF(1, variance=3.0, lengthscales=0.05),
+                 k.RBF(1, variance=3.0, lengthscales=0.3),
+                 k.RationalQuadratic(1, variance=3.0, lengthscales=0.1, alpha=0.5),
+                 k.RationalQuadratic(1, variance=3.0, lengthscales=0.5, alpha=2.0)]
+        layers = [nk.NKNLinear(8, 8), nk.NKNProduct(8, 2), nk.NKNLinear(4, 4), nk.NKNProduct(4, 2), nk.NKNLinear(2, 1)]
+    else:  # example 06's network: not covered
+        prims = [k.RBF(1, lengthscales=0.5), k.Periodic(1, period=0.7), k.Linear(1), k.Matern32(1)]
+        layers = [nk.NKNLinear(4, 4), nk.NKNProduct(4, 2), nk.NKNLinear(2, 1)]
+    m = gft.models.GPR(X, Y, kern=nk.NKN(1, prims, layers), device=dev, dtype=dtype)
+    with torch.no_grad():
+        p = m.likelihood.variance
+        p.unconstrained.copy_(p.transform.backward(torch.tensor(0.1, dtype=torch.float64)))
+    return m
+
+
+@pytest.mark.parametrize("published", [True, False])
+def test_nkn_gpr_route_and_gradients_on_the_card(dev, published, monkeypatch):
+    # N = 3000: the published network takes the NKN operand and its VJP (one
+    # launch each) into the fused factor; example 06's network takes the
+    # composite route (no NKN launch, the padded fused factor). Both: the
+    # value within 1e-5 and every gradient within 1e-3 of float64's, and no
+    # library factorization or solve
+    m32 = _nkn_gpr(3000, dev, torch.float32, published)
+    before = (nkn.nkn_operand_cuda.launches, nkn.nkn_vjp_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    with monkeypatch.context() as mp:
+        _no_library_linalg(mp)
+        loss = m32.objective()
+        loss.backward()
+    after = (nkn.nkn_operand_cuda.launches, nkn.nkn_vjp_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    assert after == (before[0] + published, before[1] + published, before[2] + 1), (before, after)
+    m64 = _nkn_gpr(3000, dev, torch.float64, published)
+    m64.load_state_dict(m32.state_dict())
+    loss64 = m64.objective()
+    loss64.backward()
+    assert abs(loss.item() - loss64.item()) <= 1e-5 * abs(loss64.item())
+    g64 = dict(gft.params.parameters(m64))
+    for n, p in gft.params.parameters(m32):
+        want = g64[n].unconstrained.grad
+        err = float((p.unconstrained.grad.double() - want).abs().max())
+        assert err <= 1e-3 * float(want.abs().max()) + 1e-6, n
+
+
+def test_nkn_gpr_at_n10000_keeps_no_gram_for_the_backward(dev):
+    # the acceptance gate: one objective and backward of the published
+    # network at N = 10000 peaks under 10 GB above the model (the composite
+    # route keeps ~23 GB of N x N arrays)
+    m = _nkn_gpr(10000, dev, torch.float32)
+    m.objective().backward()  # builds and loads the kernels
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    m.zero_grad(set_to_none=True)
+    m.objective().backward()
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < 10e9

@@ -9,6 +9,10 @@ tests/test_utils_deep.py) where they apply; and the weight carrier:
 by their tree path with W transposed, and gives the same objective.
 """
 
+import importlib.util
+import json
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +30,8 @@ from gpflow_slim_tpu.kernels_nkn import NKNProduct as JProduct
 from gpflow_slim_tpu.params import parameters as jax_parameters
 from gpflow_slim_tpu_torch.kernels_deep import DeepKernel, mlp_warp
 from gpflow_slim_tpu_torch.kernels_nkn import NKN, NKNLinear, NKNProduct
+from gpflow_slim_tpu_torch.ops import linalg as port_linalg
+from gpflow_slim_tpu_torch.ops import nkn as nkn_ops
 
 torch.set_num_threads(2)
 
@@ -236,3 +242,257 @@ def test_port_name_maps_jax_names():
     assert gft.interop.port_name("kern.warp_params[0]['b']") == "kern.warp.layers.0.bias"
     assert gft.interop.port_name("kern.layers[2].weights") == "kern.layers.2.weights"
     assert gft.interop.port_name("kern.primitives[0].lengthscales") == "kern.primitives.0.lengthscales"
+
+
+# -- the paper's time-series network on the one-pass operand (ops.nkn) --------
+
+REF = Path(__file__).resolve().parents[1] / "port_bench" / "reference" / "gpr-nkn8-d1.py"
+CONFIG = json.loads((REF.parents[1] / "configs" / "gpr-nkn8-d1.json").read_text())
+# the program's leaves -> the reference's (port_bench/loops/nkn_fit.py's map)
+PUBLISHED_LEAVES = {f"kern.primitives.{i}.{attr}": f"{p['name']}.{key}"
+                    for i, p in enumerate(CONFIG["primitives"])
+                    for key, attr in (("variance", "variance"), ("lengthscale", "lengthscales"), ("period", "period"),
+                                      ("alpha", "alpha")) if key in p}
+PUBLISHED_LEAVES.update({f"kern.layers.{i}.weights": f"layer{i}.weights" for i in (0, 2, 4)})
+PUBLISHED_LEAVES["likelihood.variance"] = "noise_variance"
+
+
+def _reference():
+    spec = importlib.util.spec_from_file_location("reference_gpr_nkn8_d1", REF)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _published(D, ard=False, bias=False, layers=None, prims=None):
+    """The configuration's network (ARD: a lengthscale, period or variance
+    for each of the D inputs)."""
+    k = gft.kernels
+
+    def w(x):
+        return np.full(D, x) * (1 + 0.3 * np.arange(D)) if ard else x
+
+    made = []
+    for p in CONFIG["primitives"]:
+        if p["kind"] == "Linear":
+            made.append(k.Linear(D, variance=w(p["variance"])))
+        elif p["kind"] == "Periodic":
+            made.append(k.Periodic(D, period=w(p["period"]), variance=p["variance"], lengthscales=w(p["lengthscale"])))
+        elif p["kind"] == "RBF":
+            made.append(k.RBF(D, variance=p["variance"], lengthscales=w(p["lengthscale"])))
+        else:
+            made.append(k.RationalQuadratic(D, variance=p["variance"], lengthscales=w(p["lengthscale"]),
+                                            alpha=p["alpha"]))
+    if prims is not None:
+        made = prims(made)
+    layers = layers or [NKNLinear(8, 8, use_bias=bias), NKNProduct(8, 2), NKNLinear(4, 4), NKNProduct(4, 2),
+                        NKNLinear(2, 1)]
+    return NKN(D, made, layers)
+
+
+def _published_gpr(D, N, seed, ard=False, dtype=torch.float64):
+    """A GPR on the published network with every leaf moved to a seeded
+    random value, and the configuration's data."""
+    ref = _reference()
+    X, Y = ref.data(CONFIG, N, seed)
+    if D == 2:
+        X = np.concatenate([X, np.random.RandomState(seed + 5).uniform(0, 1, (N, 1)).astype(np.float32)], axis=1)
+    m = gft.models.GPR(X, Y, kern=_published(D, ard), device="cpu", dtype=dtype)
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for _, t in gft.params.trainable_leaves(m):
+            t.add_(torch.tensor(0.3 * rng.randn(*t.shape), dtype=t.dtype))
+    return ref, m, X, Y
+
+
+@pytest.mark.parametrize("D,ard,N", [(1, False, 150), (2, False, 64), (2, True, 97)])
+def test_published_nkn_gpr_matches_the_plain_reference(D, ard, N, route):
+    """The objective and the gradient of each of the 22 leaves against
+    port_bench's plain reference, in float64, on both routes (the kernel
+    route on the CPU runs the operand's plain version and its closed-form
+    VJP). Tolerance 1e-9 relative: the two compute the same float64
+    numbers in other orders (d as a difference in both; Cholesky in the
+    program's blocks), which leaves ~1e-12; the float32 composite misses by
+    ~1e-4 (its Gram's rounding through the factor's VJP)."""
+    ref, m, X, Y = _published_gpr(D, N, seed=11 + D + N, ard=ard)
+    loss = m.objective()
+    loss.backward()
+    leaves = dict(gft.params.trainable_leaves(m))
+    assert set(leaves) == set(PUBLISHED_LEAVES) and len(leaves) == 22
+    assert sum(t.numel() for t in leaves.values()) == (111 if ard else 101)  # ARD: 10 more, one a dimension
+    u = {PUBLISHED_LEAVES[n]: t.detach().clone().requires_grad_() for n, t in leaves.items()}
+    want = ref.objective(torch.tensor(X, dtype=torch.float64), torch.tensor(Y, dtype=torch.float64), u, CONFIG)
+    grads = dict(zip(u, torch.autograd.grad(want, list(u.values()))))
+    np.testing.assert_allclose(loss.item(), want.item(), rtol=1e-9)
+    for n, t in leaves.items():
+        g = grads[PUBLISHED_LEAVES[n]]
+        np.testing.assert_allclose(t.grad.numpy(), g.numpy(), rtol=1e-9, atol=1e-9 * float(g.abs().max()), err_msg=n)
+
+
+def test_published_nkn_float32_misses_the_reference_tolerance():
+    """What the tolerance above tells apart: the same GPR in float32 on the
+    stock route is ~1e-5-1e-3 off float64 in some leaf's gradient."""
+    ref, m32, X, Y = _published_gpr(1, 150, seed=162, dtype=torch.float32)
+    _, m64, _, _ = _published_gpr(1, 150, seed=162)
+    for m in (m32, m64):
+        m.objective().backward()
+    g32, g64 = dict(gft.params.trainable_leaves(m32)), dict(gft.params.trainable_leaves(m64))
+    worst = max(float((g32[n].grad.double() - g64[n].grad).abs().max() / g64[n].grad.abs().max()) for n in g64)
+    assert worst > 1e-6
+
+
+@pytest.mark.parametrize("D", [1, 2])
+def test_operand_plain_is_the_composite_plus_noise(D):
+    """``nkn_operand_plain``: the composite's Gram + noise I in the leading
+    block (the same float64 numbers to 1e-12), the pad exactly the
+    identity."""
+    _, m, _, _ = _published_gpr(D, 45, seed=3)
+    X = m.X
+    kinds = m.kern._operand_kinds(X)
+    assert kinds is not None
+    theta = m.kern._theta(D, X)
+    with torch.no_grad():
+        Kp = nkn_ops.nkn_operand_plain(X, theta, torch.tensor(0.37, dtype=torch.float64), kinds, 64)
+        want = m.kern.K(X) + 0.37 * torch.eye(45, dtype=torch.float64)
+    np.testing.assert_allclose(Kp[:45, :45].numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+    assert torch.equal(Kp[45:, :], torch.eye(64, dtype=torch.float64)[45:, :])
+    assert torch.equal(Kp[:45, 45:], torch.zeros(45, 19, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("D", [1, 2])
+def test_vjp_plain_matches_autograd_of_the_composite(D):
+    """``nkn_vjp_plain``'s closed form (the kernel's arithmetic in float64
+    torch) against autograd through the composite K + noise I, for a
+    symmetric cotangent and for a general one (the plain VJP reads the whole
+    block), each gradient to 1e-10 of its largest entry; the lower triangle
+    read with the off-diagonal doubled, as the kernel reads it, equals it
+    for the symmetric one."""
+    _, m, _, _ = _published_gpr(D, 40, seed=8, ard=D == 2)
+    X = m.X
+    kinds = m.kern._operand_kinds(X)
+    theta = m.kern._theta(D, X).detach().requires_grad_()
+    noise = torch.tensor(0.2, dtype=torch.float64, requires_grad=True)
+    rng = np.random.RandomState(4)
+    A = torch.tensor(rng.randn(40, 40))
+    for g in (A + A.T, A):
+        K = nkn_ops.nkn_gram_plain(X, theta, kinds) + noise * torch.eye(40, dtype=torch.float64)
+        want = torch.autograd.grad(K, [theta, noise], g)
+        got = nkn_ops.nkn_vjp_plain(g, X, theta.detach(), kinds)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-10 * float(b.abs().max()))
+    S = A + A.T
+    lower = torch.tril(S) + torch.tril(S, -1)
+    got = nkn_ops.nkn_vjp_plain(S, X, theta.detach(), kinds)
+    half = nkn_ops.nkn_vjp_plain(lower, X, theta.detach(), kinds)
+    for a, b in zip(got, half):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-10 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("D,rows", [(1, 7), (2, 16), (1, 50)])
+def test_plain_versions_by_row_blocks(D, rows):
+    """``nkn_vjp_plain`` taken ``rows`` rows at a time (a last block short
+    of it, or one block) equals it on the whole block to 1e-12 of each
+    gradient's largest entry, for a general cotangent; ``nkn_gram_plain``'s
+    cross Gram of a row block is that block of the square Gram."""
+    _, m, _, _ = _published_gpr(D, 50, seed=21 + D, ard=D == 2)
+    X = m.X
+    kinds = m.kern._operand_kinds(X)
+    with torch.no_grad():
+        theta = m.kern._theta(D, X)
+    g = torch.tensor(np.random.RandomState(5).randn(50, 50))
+    whole = nkn_ops.nkn_vjp_plain(g, X, theta, kinds)
+    blocked = nkn_ops.nkn_vjp_plain(g, X, theta, kinds, rows=rows)
+    for a, b in zip(blocked, whole):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-12 * float(b.abs().max()))
+    K = nkn_ops.nkn_gram_plain(X, theta, kinds)
+    np.testing.assert_allclose(nkn_ops.nkn_gram_plain(X[10:10 + rows], theta, kinds, X).numpy(),
+                               K[10:10 + rows].numpy(), rtol=1e-13, atol=1e-13)
+
+
+def test_layout_names_the_network():
+    """``layout()``, what ``gfs_nkn_layout`` must report: the primitives,
+    the three kinds past ``ops.gram``'s stationary maps, and the Linear
+    layers' (in, out) of ``NET`` in order; ``theta_size`` counts the
+    primitives' slots and those layers' weights."""
+    assert nkn_ops.layout() == (8, 6, 7, 8, 8, 8, 4, 4, 2, 1)
+    assert [nkn_ops.theta_size(D) for D in (1, 2)] == [8 * 3 + 64 + 16 + 2, 8 * 5 + 64 + 16 + 2]
+
+
+UNCOVERED = {
+    "example06": lambda: _nkn(gft, NKNLinear, NKNProduct, NKN),
+    "bias": lambda: _published(1, bias=True),
+    "polynomial": lambda: _published(1, prims=lambda ps: [gft.kernels.Polynomial(1)] + ps[1:]),
+    "white": lambda: _published(1, prims=lambda ps: ps[:7] + [gft.kernels.White(1, variance=0.1)]),
+    "active_dims": lambda: _published(1, prims=lambda ps: [gft.kernels.RBF(2, active_dims=[1])] + ps[1:]),
+}
+
+
+@pytest.mark.parametrize("kind", list(UNCOVERED))
+def test_uncovered_networks_keep_the_composite_route(kind, monkeypatch):
+    """A network the operand does not cover (example 06's 4-primitive one, a
+    biased layer, a Polynomial or White primitive, a primitive on other
+    columns) gives no operand, and its GPR's objective on the forced kernel
+    route equals the stock route's."""
+    kern = UNCOVERED[kind]()
+    X = np.random.RandomState(0).uniform(0, 1, (30, 2 if kind == "active_dims" else 1))
+    Y = np.sin(6 * X[:, :1])
+    m = gft.models.GPR(X, Y, kern=kern, device="cpu", dtype=torch.float64)
+    assert kern.gram_chol_operand(m.X, 0.1, 64) is None
+    stock = m.objective().item()
+    monkeypatch.setattr(port_linalg, "kernels_active", lambda t: True)
+    np.testing.assert_allclose(m.objective().item(), stock, rtol=1e-12)
+
+
+def test_operand_takes_no_x_that_needs_a_gradient_nor_d3():
+    k = _published(1)
+    assert k.gram_chol_operand(torch.zeros(5, 1, dtype=torch.float64, requires_grad=True), 0.1, 64) is None
+    k3 = _published(3)
+    assert k3.gram_chol_operand(torch.zeros(5, 3, dtype=torch.float64), 0.1, 64) is None
+    assert k.gram_chol_operand(torch.zeros(5, 1, dtype=torch.float64), 0.1, 64) is not None
+
+
+class _Objective(torch.nn.Module):
+    """``model.objective()`` as a module call, for ``functional_call``."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self):
+        return self.model.objective()
+
+
+def test_published_nkn_objective_under_func_grad(monkeypatch):
+    """``torch.func.grad`` of the objective through ``functional_call`` on
+    the forced kernel route (the Function's forward and closed-form
+    backward under a transform) equals autograd's, to 1e-12."""
+    _, m, _, _ = _published_gpr(1, 50, seed=21)
+    monkeypatch.setattr(port_linalg, "kernels_active", lambda t: True)
+    params = {f"model.{n}.unconstrained": p.unconstrained.detach() for n, p in gft.params.parameters(m)}
+    got = torch.func.grad(lambda ps: torch.func.functional_call(_Objective(m), ps, ()))(params)
+    m.objective().backward()
+    for n, p in gft.params.parameters(m):
+        np.testing.assert_allclose(got[f"model.{n}.unconstrained"].numpy(), p.unconstrained.grad.numpy(), rtol=1e-12,
+                                   atol=1e-15, err_msg=n)
+
+
+def test_operand_under_vmap_is_a_loop():
+    """``vmap`` of the operand over a batch of parameter vectors (the
+    Function's rule: the Function on each entry) equals the calls one by
+    one, and so do their gradients."""
+    _, m, _, _ = _published_gpr(1, 30, seed=5)
+    X = m.X
+    kinds = m.kern._operand_kinds(X)
+    theta = m.kern._theta(1, X).detach()
+    thetas = torch.stack([theta, theta * 1.1])
+    noise = torch.tensor(0.2, dtype=torch.float64)
+
+    def f(t):
+        return nkn_ops.nkn_chol_operand(X, t, noise, kinds, 32)
+
+    got = torch.func.vmap(f)(thetas)
+    assert torch.equal(got, torch.stack([f(t) for t in thetas]))
+    grads = torch.func.vmap(torch.func.grad(lambda t: f(t).tril().square().sum()))(thetas)
+    for t, g in zip(thetas, grads):
+        np.testing.assert_allclose(g.numpy(), torch.func.grad(lambda t: f(t).tril().square().sum())(t).numpy(),
+                                   rtol=1e-12)

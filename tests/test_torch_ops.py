@@ -699,11 +699,13 @@ def test_library_path_keyed_by_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libgfs_kernels_")
     assert {f.name for f in _build.CSRC.glob("*.cu")} == {
-        "gram_operand.cu", "chol_solve.cu", "gram.cu", "trsm.cu", "batched_trsm.cu", "chol_inverse.cu"}
+        "gram_operand.cu", "chol_solve.cu", "gram.cu", "trsm.cu", "batched_trsm.cu", "chol_inverse.cu",
+        "nkn_operand.cu"}
     assert set(_build._ENTRIES) == {"gfs_gram_chol_operand", "gfs_chol_solve_logdet", "gfs_gram",
                                     "gfs_gram_lower", "gfs_cholesky", "gfs_trsm",
                                     "gfs_batched_trsm", "gfs_chol_trailing_update", "gfs_split_mma_check",
-                                    "gfs_csl_vjp"}
+                                    "gfs_csl_vjp", "gfs_nkn_operand", "gfs_nkn_vjp_scratch", "gfs_nkn_vjp",
+                                    "gfs_nkn_layout"}
 
 
 def _imported_modules(path):

@@ -3,7 +3,8 @@
 Off, a span is one shared no-op and the profiler sees none of the port's
 names; on, each of the 16 spans of the GPR training and serving paths is
 recorded, a backward's span holds the spans it calls, and the results are
-bitwise those of a run with tracing off, also under ``torch.func``. The
+bitwise those of a run with tracing off, also under ``torch.func``; so are
+the NKN operand's two spans on a GPR over the paper's network. The
 kernel route is forced on the CPU (``ops.linalg.kernels_active``), so the
 autograd Functions run through their plain versions. The card test runs
 with ``python -m pytest --noconftest -q tests/test_torch_trace.py`` on a
@@ -180,3 +181,63 @@ def test_host_syncs_count_syncs_inside_program_spans():
         Twice.apply(x.clone().requires_grad_()).sum().backward()
         assert trace.host_syncs == base + 2
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def _nkn_model(N=40, device="cpu", dtype=torch.float64):
+    """A GPR on the paper's time-series NKN (ops.nkn.NET), whose objective
+    takes the one-pass NKN operand on the kernel route."""
+    from gpflow_slim_tpu_torch.kernels_nkn import NKN, NKNLinear, NKNProduct
+
+    k = gft.kernels
+    prims = [k.Linear(1, variance=2.0), k.Linear(1, variance=4.0), k.Periodic(1, period=0.25, variance=3.0),
+             k.Periodic(1, period=0.1, variance=3.0, lengthscales=0.5), k.RBF(1, variance=3.0, lengthscales=0.05),
+             k.RBF(1, variance=3.0, lengthscales=0.3),
+             k.RationalQuadratic(1, variance=3.0, lengthscales=0.1, alpha=0.5),
+             k.RationalQuadratic(1, variance=3.0, lengthscales=0.5, alpha=2.0)]
+    kern = NKN(1, prims, [NKNLinear(8, 8), NKNProduct(8, 2), NKNLinear(4, 4), NKNProduct(4, 2), NKNLinear(2, 1)])
+    rng = np.random.RandomState(1)
+    X = rng.uniform(0, 1, (N, 1))
+    Y = np.sin(12 * X) + 0.1 * rng.randn(N, 1)
+    return gft.models.GPR(X, Y, kern=kern, device=device, dtype=dtype)
+
+
+def _nkn_steps(model):
+    step_fn, opt = make_step_fn(model, lambda ps: torch.optim.Adam(ps, lr=0.01))
+    losses = [step_fn() for _ in range(2)]
+    return [*losses, *(p.grad.clone() for g in opt.param_groups for p in g["params"])]
+
+
+def test_nkn_operand_spans(kernel_route):
+    """The NKN operand's two spans: recorded when traced, the backward's on
+    its own; off, no span of the port's is recorded; the results are
+    bitwise those of a run with tracing off; no host sync counted."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        off = _nkn_steps(_nkn_model())
+    assert not [n for n in _names(prof) if n.startswith("gfs.")]
+    before = trace.host_syncs
+    with traced(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        on = _nkn_steps(_nkn_model())
+    assert trace.host_syncs == before
+    names = _names(prof)
+    assert names.count("gfs.nkn_operand.fwd") == 2 and names.count("gfs.nkn_operand.bwd") == 2
+    assert "gfs.gram_operand.fwd" not in names and "gfs.chol_solve_logdet.bwd" in names
+    assert len(on) == len(off) and all(torch.equal(a, b) for a, b in zip(on, off))
+
+
+@pytest.mark.cuda
+def test_nkn_operand_spans_sync_nothing_on_the_card():
+    """On the card, float32, the kernel route: the NKN operand's spans hold
+    its launches, and host_syncs reads 0 inside them over two Adam steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    model = _nkn_model(N=300, device="cuda", dtype=torch.float32)
+    _nkn_steps(model)  # builds and loads the kernels outside the count
+    with traced():
+        base = trace.host_syncs
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _nkn_steps(model)
+            torch.cuda.synchronize()
+        assert trace.host_syncs == base
+    names = _names(prof)
+    assert "gfs.nkn_operand.fwd" in names and "gfs.nkn_operand.bwd" in names
+    assert any("nkn_operand_kernel" in n for n in names) and any("nkn_vjp_kernel" in n for n in names)

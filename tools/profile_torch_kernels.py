@@ -2,7 +2,7 @@
 """Device time of the port's kernels, each run alone on one NVIDIA GPU, for
 one checkout of the repository; the tool to compare two commits on one card.
 
-    python3 tools/profile_torch_kernels.py [ROOT] [--gram | --chol | --lower | --kinv]
+    python3 tools/profile_torch_kernels.py [ROOT] [--gram | --chol | --lower | --kinv | --nkn]
 
 ROOT is the checkout whose gpflow_slim_tpu_torch (and kernels, built into
 its own build/) is measured; by default the one this file is in. The timing
@@ -10,8 +10,8 @@ methods are this file's chip_smoke.py's. ``--gram`` measures the cross
 Gram alone, ``--chol`` both Cholesky modes alone at Np = 1024, 2048 and
 10048, in the trailing-update arithmetic "hi" and, where the checkout has
 it, the split modes "s3" and "s4", ``--lower`` the lower-tile Gram alone (``lower_gram``) and the VGP's
-ELBO + gradient on the kernel route, ``--kinv`` the fused Cholesky's f64 VJP alone (``csl_vjp``). It
-prints:
+ELBO + gradient on the kernel route, ``--kinv`` the fused Cholesky's f64 VJP alone (``csl_vjp``), ``--nkn``
+the NKN operand and its VJP alone (``nkn_operand``). It prints:
 
 - for Np = 64 .. 10048 (RBF operands of lengthscale 0.1 and unit noise)
   the CUDA-event time of ``cholesky_cuda`` and the mean device time and
@@ -189,8 +189,50 @@ def csl_vjp(tag, cholesky, gram, g, one, dev):
         del L64, eye
 
 
+def nkn_operand(tag, g, dev):
+    """The NKN operand of csrc/nkn_operand.cu (the paper's time-series
+    network, D = 1, chip_smoke.py's ``nkn_published_kernel``) and its VJP alone, at N = 10000 padded to
+    10048 and N = 2048: by the kernels line's three methods and the
+    profiler, against the plain versions (the forward in float32 and the
+    closed-form VJP in float64, torch on the card), beside the bounds: the
+    operand's lower triangle written (forward), the cotangent's lower
+    triangle read (VJP), at 3.35 TB/s, and each side's multiply-adds at
+    67 TFLOP/s (f32; port_bench/metrics/nkn_train.operand_roofline.py's
+    count)."""
+    try:
+        from gpflow_slim_tpu_torch.ops import nkn
+    except ImportError:
+        print(f"{tag}: no ops.nkn, no NKN operand", flush=True)
+        return
+    import gpflow_slim_tpu_torch as gft
+
+    kern = cs.nkn_published_kernel(gft).to(dev)
+    noise = torch.tensor(0.1, device=dev)
+    for n, pad in ((10000, 10048), (2048, 2048)):
+        X = torch.rand(n, 1, generator=g, device=dev)
+        with torch.no_grad():
+            theta = kern._theta(1, X).float().contiguous()
+        kinds = kern._operand_kinds(X)
+        G = torch.randn(pad, pad, generator=g, device=dev)
+        G = G + G.T
+        tri_n, tri_pad = n * (n + 1) // 2, pad * (pad + 1) // 2
+        fwd_bound = max(tri_n * 170 / cs.F32_FLOPS, tri_pad * 4 / cs.HBM_BYTES) * 1e3  # 82 MACs, 6 multiplies
+        vjp_bound = max(tri_n * 546 / cs.F32_FLOPS, tri_n * 4 / cs.HBM_BYTES) * 1e3  # 264 MACs, 18 multiplies
+        fwd = lambda: nkn.nkn_operand_cuda(X, theta, noise, kinds, pad)  # noqa: E731
+        vjp = lambda: nkn.nkn_vjp_cuda(G, X, theta, kinds)  # noqa: E731
+        for name, fn, plain, b in (("nkn_operand", fwd, lambda: nkn.nkn_operand_plain(X, theta, noise, kinds, pad),
+                                    fwd_bound),
+                                   ("nkn_vjp", vjp, lambda: nkn.nkn_vjp_plain(G, X, theta, kinds), vjp_bound)):
+            plain_ms = statistics.median(cs.cuda_ms(torch, plain, reps=3))
+            text, _ = three(fn)
+            print(f"{tag} {name} N={n} pad_to={pad} (bound {b:.4f} ms): {text}; plain {plain_ms:.4f} ms",
+                  flush=True)
+        del G
+        torch.cuda.empty_cache()
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a not in ("--gram", "--chol", "--lower", "--kinv")]
+    args = [a for a in sys.argv[1:] if a not in ("--gram", "--chol", "--lower", "--kinv", "--nkn")]
     root = os.path.abspath(args[0]) if args else REPO
     if not torch.cuda.is_available():
         print("profile_torch_kernels: no CUDA device; nothing was run", file=sys.stderr)
@@ -215,6 +257,9 @@ def main():
         return 0
     if "--kinv" in sys.argv:
         csl_vjp(tag, cholesky, gram, g, one, dev)
+        return 0
+    if "--nkn" in sys.argv:
+        nkn_operand(tag, g, dev)
         return 0
     for n in (64, 256, 1024, 4096, 10048):
         xs = torch.rand(n, 1, generator=g, device=dev) / 0.1
