@@ -265,6 +265,10 @@ GRAD_TOL = 1e-3     # relative to the f64 plain path
 # both f64, sums in another order, so this share of the largest entry on top
 # of the kernels' one rounding to f32
 VJP_TOL = 1e-10
+# the operand's VJP kernel against its plain version: both f64, d^2 by
+# differences against the expansion, so this share of each leaf's largest
+# entry on top of its one rounding to f32
+OPND_VJP_TOL = 1e-9
 # the factor-only Cholesky against f64: the factor's max-norm relative
 # error, and its half-logdet (from its diagonal) relative, the gate the
 # fused kernel meets with the same f64 pivots
@@ -319,7 +323,7 @@ OUR_KERNELS = ("gram_cross_kernel", "gram_lower_kernel", "gram_chol_operand_kern
                "chol_diag_kernel", "chol_panel_kernel", "chol_inner_update_kernel", "chol_trailing_kernel",
                "logdet_sum_kernel", "trsm_thin_kernel", "trsm_group_kernel", "trsm_update_kernel",
                "batched_trsm_kernel", "kinv_diag_kernel", "kinv_left_kernel", "kinv_right_kernel", "kinv_beta_kernel",
-               "kinv_beta_sum_kernel", "kinv_kbar_kernel")
+               "kinv_beta_sum_kernel", "kinv_kbar_kernel", "gram_operand_vjp_kernel", "gram_operand_vjp_reduce_kernel")
 PROFILES = 3  # profiled calls of a launch check
 LEAD_IN_CYCLES = 1_000_000  # ~0.5 ms spin at the start of each launch-check profile
 LIBRARY_SOLVES = ("trsm", "trsv", "potrf", "potrs", "potri", "getrf", "syrk", "cholesky", "cusolver", "magma")
@@ -410,6 +414,8 @@ SPLIT_APART_SIDES, SPLIT_APART_TOL = (704, 768), 1e-6
 # the card's peaks for the bound of each kernel (vendor figures, H100 SXM)
 F32_FLOPS = 67e12   # float32 without tensor cores
 F64_TC_FLOPS = 67e12  # float64 on the tensor cores
+F64_FLOPS = 33.5e12  # float64 without tensor cores
+OPND_VJP_FLOP = 60   # float64 operations a lower pair of the operand's VJP: d^2, one exp, the multiply-adds
 BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense: the split modes' trailing products
 HBM_BYTES = 3.35e12  # bytes per second
 
@@ -4336,6 +4342,38 @@ def check_csl_vjp(torch, cholesky, chol_inverse, Kp, Dp1):
     return args, errs["Kbar"][0]
 
 
+def opnd_vjp_bound(N):
+    """(ms, what bounds it) of the operand's VJP at N: the N x N float32
+    cotangent read once, or OPND_VJP_FLOP float64 operations a lower pair
+    on the CUDA cores."""
+    return max((N * N * 4 / HBM_BYTES * 1e3, "bytes"),
+               (N * (N + 1) / 2 * OPND_VJP_FLOP / F64_FLOPS * 1e3, "operations"))
+
+
+def check_opnd_vjp(torch, gram, Xs, Kbar, pad_to):
+    """The operand's VJP kernel (``gram_operand_vjp_cuda``) against its
+    plain version on the same inputs at the main path's operand: bench.py's
+    scaled inputs and a K-bar of the fused factor's VJP as the cotangent
+    (its pad block nonzero), RBF, unit variance. Each leaf within
+    OPND_VJP_TOL of its largest entry on top of one f32 rounding, and two
+    runs the same bits. Returns the inputs and the largest abs error."""
+    var = torch.tensor(1.0, device=Xs.device)
+    got = gram.gram_operand_vjp_cuda("rbf", Kbar, Xs, var)
+    again = gram.gram_operand_vjp_cuda("rbf", Kbar, Xs, var)
+    want = gram.gram_operand_vjp_plain("rbf", Kbar, Xs, var)
+    errs = {}
+    for what, g, w in zip(("gXs", "gvar", "gnoise"), got, want):
+        over = float(((g.double() - w).abs() - 2.0 ** -24 * w.abs()).max())
+        errs[what] = (float((g.double() - w).abs().max()), over / float(w.abs().max()))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"operand VJP kernel vs plain f64 at N={Xs.shape[0]}, Np={pad_to}: " + ", ".join(
+        f"{w} max abs err {a:.3e}, beyond one f32 rounding {r:.3e} of the largest entry" for w, (a, r) in errs.items())
+          + f" (tol {OPND_VJP_TOL:g}); two runs bit for bit: {same}")
+    if not (max(r for _, r in errs.values()) <= OPND_VJP_TOL and same):
+        raise AssertionError("the operand's VJP kernel disagrees with its plain version")
+    return (Kbar, Xs, var), max(a for a, _ in errs.values())
+
+
 def main():
     import torch
 
@@ -4456,6 +4494,7 @@ def main():
     gram.gram_chol_operand_cuda.launches = 0
     cholesky.cholesky_solve_cuda.launches = 0
     chol_inverse.csl_vjp_cuda.launches = 0
+    gram.gram_operand_vjp_cuda.launches = 0
     with torch.no_grad():
         val = float(model.objective())
     n_opnd, n_chol = gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches
@@ -4475,9 +4514,12 @@ def main():
 
     model.zero_grad(set_to_none=True)
     n_vjp = chol_inverse.csl_vjp_cuda.launches
+    n_opnd_vjp = gram.gram_operand_vjp_cuda.launches
     model.objective().backward()
     if chol_inverse.csl_vjp_cuda.launches != n_vjp + 1:
         raise AssertionError("the gradient did not run the f64 VJP kernels (csrc/chol_inverse.cu) once")
+    if gram.gram_operand_vjp_cuda.launches != n_opnd_vjp + 1:
+        raise AssertionError("the gradient did not run the operand's VJP kernel (csrc/gram_operand.cu) once")
     grads32 = {n: float(p.unconstrained.grad) for n, p in gft.params.parameters(model)}
     m64 = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE),
                          device="cuda", dtype=torch.float64)
@@ -4502,12 +4544,13 @@ def main():
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError("5 Adam steps did not lower the loss")
     n_opnd, n_chol = gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches
-    n_vjp = chol_inverse.csl_vjp_cuda.launches
+    n_vjp, n_opnd_vjp = chol_inverse.csl_vjp_cuda.launches, gram.gram_operand_vjp_cuda.launches
     print(f"launches over the main path (objective, gradient, 5 steps): "
-          f"operand {n_opnd}, chol_solve {n_chol}, csl_vjp {n_vjp}")
+          f"operand {n_opnd}, chol_solve {n_chol}, csl_vjp {n_vjp}, gram_operand_vjp {n_opnd_vjp}")
     Dp1 = torch.zeros(pad_to, 1, dtype=torch.float32, device=dev)
     Dp1[:N] = torch.tensor(Y, device=dev)
     vjp_args, vjp_err = check_csl_vjp(torch, cholesky, chol_inverse, Kp, Dp1)
+    opnd_vjp_args, opnd_vjp_err = check_opnd_vjp(torch, gram, Xs, chol_inverse.csl_vjp_cuda(*vjp_args)[0], pad_to)
 
     # 4b. the serving path at full width, through the public entry points
     serve_kernels = {"gram": gram.gram_cuda, "gram_lower": gram.gram_lower_cuda,
@@ -4632,9 +4675,13 @@ def main():
         return Linv.T @ Linv
 
     vjp_lib_ms = statistics.median(cuda_ms(torch, vjp_library))
+    opnd_vjp = lambda: gram.gram_operand_vjp_cuda("rbf", *opnd_vjp_args)  # noqa: E731
+    opnd_vjp_ms, opnd_vjp_plain_ms = paired_ms(torch, opnd_vjp,
+                                               lambda: gram.gram_operand_vjp_plain("rbf", *opnd_vjp_args))
     other = {"gram_chol_operand": other_ms(torch, opnd),
              "chol_solve_logdet": other_ms(torch, chol, setup=lambda: (Kp.clone(),)),
-             "csl_vjp": other_ms(torch, vjp, vjp_library)}
+             "csl_vjp": other_ms(torch, vjp, vjp_library),
+             "gram_operand_vjp": other_ms(torch, opnd_vjp)}
     del L64, eye64
 
     def objective():
@@ -4661,6 +4708,9 @@ def main():
     print(f"  chol_solve_logdet: kernel {on_card(chol_ms)}, plain f32 {on_card(chol_plain_ms)}")
     print(f"  csl_vjp (f64): kernels {on_card(vjp_ms)} (device {other['csl_vjp']['device_ms']:.4f}), plain f64 "
           f"{on_card(vjp_plain_ms)}, cuBLAS solve against I + full product {on_card(vjp_lib_ms)}")
+    print(f"  gram_operand_vjp (f64): kernel {on_card(opnd_vjp_ms)} (device "
+          f"{other['gram_operand_vjp']['device_ms']:.4f}), plain f64 {on_card(opnd_vjp_plain_ms)}, "
+          f"bound {opnd_vjp_bound(N)[0]:.4f} ms")
     print(f"  objective: kernels {on_card(obj_ms)}, use_kernels=False {on_card(obj_plain_ms)}")
     print(f"  objective+grad: kernels {on_card(og_ms)}, use_kernels=False {on_card(og_plain_ms)}; "
           f"peak memory {peak_gb:.2f} GB (the backwards differ: float64 _csl_bwd on the "
@@ -4779,6 +4829,7 @@ def main():
         "trsm_thin": bound(N * N, tri_bytes(N) + 2 * N * 4),
         # f64 on the tensor cores: the inverse's Np^3 / 3 and the lower half of W^T W's Np^3 / 3
         "csl_vjp": (2 * pad_to ** 3 / 3 / F64_TC_FLOPS * 1e3, "operations"),
+        "gram_operand_vjp": opnd_vjp_bound(N),
     }
     print(card)
 
@@ -4804,6 +4855,9 @@ def main():
         # replaces no TPU kernel: its counterpart, _csl_bwd, is XLA ops
         row("csl_vjp", "chol_inverse.cu", "pallas_cholesky.py:913", n_vjp, vjp_err, vjp_ms, vjp_plain_ms,
             vjp_lib_ms),
+        # replaces no TPU kernel: its counterpart, _opnd_bwd, is XLA ops
+        row("gram_operand_vjp", "gram_operand.cu", "pallas_gram.py:363", n_opnd_vjp, opnd_vjp_err, opnd_vjp_ms,
+            opnd_vjp_plain_ms, None),
         row("gram", "gram.cu", "pallas_gram.py:95", serve_launches["gram"], serve_errs["gram"], gram_ms,
             gram_plain_ms, None),
         row("gram_lower", "gram.cu", "pallas_gram.py:173", serve_launches["gram_lower"],

@@ -44,42 +44,54 @@ __device__ __forceinline__ void tri_index(long long t, int& bi, int& bj) {
 // Stationary map kinds; ops/gram.py holds the same table (KINDS).
 enum Kind { kRbf = 0, kMatern12 = 1, kMatern32 = 2, kMatern52 = 3, kExponential = 4, kCosine = 5 };
 
+// The single- and double-precision functions of the maps: the float ones
+// are the functions the float kernels have always called.
+__device__ __forceinline__ float map_exp(float x) { return expf(x); }
+__device__ __forceinline__ double map_exp(double x) { return exp(x); }
+__device__ __forceinline__ float map_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double map_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ void map_sincos(float x, float* s, float* c) { sincosf(x, s, c); }
+__device__ __forceinline__ void map_sincos(double x, double* s, double* c) { sincos(x, s, c); }
+
 // The map at unit variance, f(d2), and its slope df/dd2 (ops/gram.py's
 // `_unit_map_and_slope`; GPflow-1.x constants: exponential is exp(-r / 2),
-// and r = sqrt(d^2 + 1e-12)).
-__device__ __forceinline__ void unit_map_slope(int kind, float d2, float& f, float& s) {
+// and r = sqrt(d^2 + 1e-12)), in float (the forward kernels) or double (the
+// operand's VJP). Each constant is written once and rounded to T; the float
+// ones round to the same floats as their float literals did.
+template <typename T>
+__device__ __forceinline__ void unit_map_slope(int kind, T d2, T& f, T& s) {
   if (kind == kRbf) {
-    f = expf(-0.5f * d2);
-    s = -0.5f * f;
+    f = map_exp(T(-0.5) * d2);
+    s = T(-0.5) * f;
     return;
   }
-  const float r = sqrtf(d2 + 1e-12f);
-  const float s3 = 1.7320508075688772f, s5 = 2.2360679774997896f;
+  const T r = map_sqrt(d2 + T(1e-12));
+  const T s3 = T(1.7320508075688772), s5 = T(2.2360679774997896);
   switch (kind) {
     case kMatern12:
-      f = expf(-r);
-      s = -0.5f * f / r;
+      f = map_exp(-r);
+      s = T(-0.5) * f / r;
       return;
     case kMatern32: {
-      const float e = expf(-s3 * r);
-      f = (1.0f + s3 * r) * e;
-      s = -1.5f * e;
+      const T e = map_exp(-s3 * r);
+      f = (T(1) + s3 * r) * e;
+      s = T(-1.5) * e;
       return;
     }
     case kMatern52: {
-      const float e = expf(-s5 * r);
-      f = (1.0f + s5 * r + (5.0f / 3.0f) * d2) * e;
-      s = -(5.0f / 6.0f) * e * (1.0f + s5 * d2 / r);
+      const T e = map_exp(-s5 * r);
+      f = (T(1) + s5 * r + (T(5) / T(3)) * d2) * e;
+      s = -(T(5) / T(6)) * e * (T(1) + s5 * d2 / r);
       return;
     }
     case kExponential:
-      f = expf(-0.5f * r);
-      s = -0.25f * f / r;
+      f = map_exp(T(-0.5) * r);
+      s = T(-0.25) * f / r;
       return;
     default: {  // kCosine
-      float sn;
-      sincosf(r, &sn, &f);
-      s = -0.5f * sn / r;
+      T sn;
+      map_sincos(r, &sn, &f);
+      s = T(-0.5) * sn / r;
       return;
     }
   }

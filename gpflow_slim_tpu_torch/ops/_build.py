@@ -56,6 +56,10 @@ _ENTRIES = {
     "gfs_batched_trsm": (_P, _I, _I, _I, _L, _I, _I, _P, _P, _I, _P, _P),
     # L, Np, alpha, P, ghl, gq, W, beta, kbar, dbar, stream
     "gfs_csl_vjp": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P),
+    # N, D: the float64 scratch gram_operand_vjp needs (a long long count, not an error code)
+    "gfs_gram_operand_vjp_scratch": (_I, _I),
+    # g, ldg, X, N, D, var, kind, partial, n_partial, gX, gvar, gnoise, stream
+    "gfs_gram_operand_vjp": (_P, _L, _P, _I, _I, _P, _I, _P, _L, _P, _P, _P, _P),
     # X, N, D, theta, n_theta, kinds (host), noise, pad_to, out, stream
     "gfs_nkn_operand": (_P, _I, _I, _P, _I, _P, _P, _I, _P, _P),
     # N, D: the float64 scratch nkn_vjp needs (a count, not an error code)
@@ -66,6 +70,8 @@ _ENTRIES = {
     "gfs_nkn_layout": (_P, _I),
 }
 
+# entry points whose result is wider than an int
+_LONG_RESULTS = {"gfs_gram_operand_vjp_scratch": ctypes.c_longlong}
 
 NVCC_FALLBACK = "/usr/local/cuda/bin/nvcc"
 
@@ -144,7 +150,7 @@ def load_library() -> ctypes.CDLL:
     for name, argtypes in _ENTRIES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = _LONG_RESULTS.get(name, ctypes.c_int)
     lib.gfs_error_string.argtypes = [ctypes.c_int]
     lib.gfs_error_string.restype = ctypes.c_char_p
     return lib

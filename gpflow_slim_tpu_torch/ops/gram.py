@@ -9,7 +9,10 @@ beside it, which the CPU tests run and the card compares against:
 - ``_gram_lower_kernel`` (the lower-tile Gram): ``gram_lower_cuda`` in
   ``csrc/gram.cu``; plain ``gram_lower_plain``;
 - ``_gram_chol_operand_kernel``: ``gram_chol_operand_cuda`` in
-  ``csrc/gram_operand.cu``; plain ``gram_chol_operand_plain``.
+  ``csrc/gram_operand.cu``; plain ``gram_chol_operand_plain``;
+- the operand's VJP, ``_opnd_bwd`` (XLA ops, no TPU kernel):
+  ``gram_operand_vjp_cuda`` in ``csrc/gram_operand.cu``; plain
+  ``gram_operand_vjp_plain``.
 
 Maps (static ``kind``), with r = sqrt(d^2 + 1e-12):
   rbf:         var * exp(-d^2 / 2)
@@ -369,6 +372,71 @@ def gram_chol_operand_cuda(kind, Xs, variance, noise, pad_to):
 gram_chol_operand_cuda.launches = 0
 
 
+def gram_operand_vjp_plain(kind, g, Xs, variance):
+    """Plain version of ``gram_operand_vjp_cuda``, and the operand's
+    backward on CPU tensors: the ``[:N, :N]`` block of the cotangent ``g``
+    widened to float64, ``_gram_vjp`` against ``Xs`` (N, D) and the tensor
+    ``variance``, and the block's trace. Returns ``(gXs, gvar, gnoise)`` in
+    float64."""
+    N = Xs.shape[0]
+    g = g[:N, :N].double()
+    gX, gvar = _gram_vjp(kind, g, Xs.double(), None, variance.double())
+    return gX, gvar, torch.sum(torch.diagonal(g))
+
+
+def gram_operand_vjp_cuda(kind, g, Xs, variance):
+    """Launch the operand's VJP of ``csrc/gram_operand.cu``: the float32
+    cotangent ``g`` (at least N x N, rows contiguous, on ``Xs``'s card;
+    only its ``[:N, :N]`` block is read, in place) against the operand of
+    the CUDA float32 ``Xs`` (N, D) and ``variance``. Returns ``(gXs, gvar,
+    gnoise)`` in float32, the last two 0-d; every sum in float64, in a
+    fixed order (the same bits from run to run), rounded once. Two launches
+    (the tiles, then their reduce), no host sync.
+    ``gram_operand_vjp_cuda.launches`` counts the calls."""
+    if kind not in KINDS:
+        raise ValueError(f"unknown kind {kind!r}")
+    _check_xs("gram_operand_vjp_cuda", Xs)
+    N, D = Xs.shape
+    if g.dtype != torch.float32 or g.device != Xs.device or g.dim() != 2 or g.shape[0] < N or g.shape[1] < N \
+            or g.stride(1) != 1:
+        raise ValueError(f"gram_operand_vjp_cuda: g {tuple(g.shape)} {g.dtype} on {g.device} (float32 on "
+                         f"{Xs.device}, at least {N} x {N}, rows contiguous)")
+    var = _scalar_on(variance, Xs)
+    lib = _build.load_library()
+    partial = torch.empty(lib.gfs_gram_operand_vjp_scratch(N, D), dtype=torch.float64, device=Xs.device)
+    gX = Xs.new_empty((N, D))
+    gvar, gnoise = Xs.new_empty(()), Xs.new_empty(())
+    code = lib.gfs_gram_operand_vjp(
+        g.data_ptr(), g.stride(0), Xs.data_ptr(), N, D, var.data_ptr(), KINDS[kind], partial.data_ptr(),
+        partial.numel(), gX.data_ptr(), gvar.data_ptr(), gnoise.data_ptr(), _build.stream_of(Xs))
+    _build.check(lib, code, "gram_operand_vjp")
+    gram_operand_vjp_cuda.launches += 1
+    return gX, gvar, gnoise
+
+
+gram_operand_vjp_cuda.launches = 0
+
+
+class _GramOperandVjp(torch.autograd.Function):
+    """``gram_operand_vjp_cuda`` as a Function: under a ``torch.func``
+    transform a backward gets wrapped tensors, and only a Function's
+    forward hands a kernel plain ones. Not differentiable (no backward).
+    ``vmap``: the Function on each entry of the batch."""
+
+    @staticmethod
+    def forward(kind, g, Xs, variance):
+        return gram_operand_vjp_cuda(kind, g if g.stride(-1) == 1 else g.contiguous(), Xs, variance)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, kind, g, Xs, variance):
+        return vmap_loop(lambda a, x, v: _GramOperandVjp.apply(kind, a, x.contiguous(), v), info,
+                         in_dims[1:], g, Xs, variance)
+
+
 def _operand(kind, Xs, variance, noise, pad_to):
     # plain for CPU tensors; any other tensor goes to the kernel, which
     # launches or raises (ops.linalg.kernels_active decides whether the
@@ -381,13 +449,15 @@ def _operand(kind, Xs, variance, noise, pad_to):
 class _GramCholOperand(torch.autograd.Function):
     """Forward: the operand (kernel or plain). Backward: ``_opnd_bwd`` of the
     JAX package, the VJP of the plain full-Gram + noise * I composite on the
-    ``[:N, :N]`` block of the cotangent, in closed form (``_gram_vjp``; the
-    noise takes the block's trace), in float64 for float32 inputs: the
-    cotangent comes from the fused Cholesky's float64 backward, and the
-    closed form's input gradient, which carries the lengthscales', is a
-    difference of two sums ~10x its size (Xs * rowsum(G) - G Xs) that
-    float32 loses (12x further from the f64 gradient at BASELINE config #4,
-    N=1000, noise 0.05, on the CPU)."""
+    ``[:N, :N]`` block of the cotangent, in closed form (the noise takes the
+    block's trace), in float64 for float32 inputs: the cotangent comes from
+    the fused Cholesky's float64 backward, and the closed form's input
+    gradient, which carries the lengthscales', is a difference of two sums
+    ~10x its size (Xs * rowsum(G) - G Xs) that float32 loses (12x further
+    from the f64 gradient at BASELINE config #4, N=1000, noise 0.05, on the
+    CPU). CPU tensors take ``gram_operand_vjp_plain``; any other tensor takes
+    ``gram_operand_vjp_cuda`` (through ``_GramOperandVjp``), which forms
+    the same closed form pair by pair and launches or raises."""
 
     @staticmethod
     def forward(kind, Xs, variance, noise, pad_to):
@@ -402,13 +472,15 @@ class _GramCholOperand(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         Xs, variance, noise = ctx.saved_tensors
-        N = Xs.shape[0]
         needs = ctx.needs_input_grad
         with named_scope("gfs.gram_operand.bwd"):
-            g = g[:N, :N].double()
-            ga, gv = _gram_vjp(ctx.kind, g, Xs.double(), None, variance.double(), needs=(needs[1], False, needs[2]))
-            gn = torch.sum(torch.diagonal(g)).reshape(noise.shape) if needs[3] else None
-            return None, *(None if t is None else t.to(Xs.dtype) for t in (ga, gv, gn)), None
+            if Xs.device.type != "cpu":
+                ga, gv, gn = _GramOperandVjp.apply(ctx.kind, g, Xs, variance)
+                return (None, ga if needs[1] else None, gv.reshape(variance.shape) if needs[2] else None,
+                        gn.reshape(noise.shape) if needs[3] else None, None)
+            ga, gv, gn = gram_operand_vjp_plain(ctx.kind, g, Xs, variance)
+            return (None, ga.to(Xs.dtype) if needs[1] else None, gv.to(Xs.dtype) if needs[2] else None,
+                    gn.to(Xs.dtype).reshape(noise.shape) if needs[3] else None, None)
 
     @staticmethod
     def vmap(info, in_dims, kind, Xs, variance, noise, pad_to):

@@ -160,6 +160,14 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         chol_inverse.csl_vjp_cuda(torch.eye(100, device=dev), torch.zeros(100, 1, device=dev), g, g)
     with pytest.raises(ValueError, match="at least one column"):
         chol_inverse.csl_vjp_cuda(L, torch.zeros(64, 0, device=dev), g, g)
+    xs, G = _xs(10, 1, dev), torch.zeros(64, 64, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        gram.gram_operand_vjp_cuda("rbf", G, x64, 1.0)
+    with pytest.raises(ValueError, match="unknown kind"):
+        gram.gram_operand_vjp_cuda("periodic", G, xs, 1.0)
+    for bad in (G.double(), G.half(), G.cpu(), G[:9, :9], G.T):
+        with pytest.raises(ValueError, match="rows contiguous"):
+            gram.gram_operand_vjp_cuda("rbf", bad, xs, 1.0)
 
 
 def _csl_system(Np, P, dev):
@@ -238,6 +246,120 @@ def test_csl_vjp_backward_launches_no_library_product(dev):
     assert {"kinv_diag_kernel", "kinv_left_kernel", "kinv_kbar_kernel"} <= {
         m.group(0) for n in names for m in [re.search(r"kinv_\w+_kernel", n)] if m}
     assert not [n for n in names if re.search("gemm|gemv|trsm", n, re.IGNORECASE)], names
+
+
+def _opnd_vjp_inputs(N, D, Np, dev, seed=0):
+    """Inputs with points repeated off the diagonal (d^2 = 0) and a
+    cotangent with no symmetry, nonzero in its pad rows and columns."""
+    xs = _xs(N, D, dev, seed)
+    if N >= 3:
+        xs[N // 2] = xs[0]
+        xs[N - 1] = xs[1]
+    G = torch.tensor(np.random.RandomState(seed + 1).randn(Np, Np), dtype=torch.float32, device=dev)
+    return xs, G
+
+
+def _opnd_vjp_close(got, want):
+    # both f64 from the same inputs, in another order of sums (and d^2 by
+    # differences, not the expansion): 1e-9 of each leaf's largest entry on
+    # top of the kernel's one rounding to f32
+    for g, w in zip(got, want):
+        err = (g.double() - w).abs() - 2.0 ** -24 * w.abs()
+        assert float(err.max()) <= 1e-9 * float(w.abs().max()), (float(err.max()), float(w.abs().max()))
+
+
+# N = 1 (one tile, no pair), 63 and 64 (one ragged and one full tile), 1000,
+# 2048 and 10000 (the cells' sides); Np past N with a nonzero pad
+@pytest.mark.parametrize("kind", list(gram.KINDS))
+@pytest.mark.parametrize("D", [1, 3])
+@pytest.mark.parametrize("N", [1, 63, 64, 1000, 2048, 10000])
+def test_operand_vjp_kernel_matches_plain(dev, kind, D, N):
+    Np = N + (-N) % 64 + 64
+    xs, G = _opnd_vjp_inputs(N, D, Np, dev)
+    var = torch.tensor(1.7, device=dev)
+    before = gram.gram_operand_vjp_cuda.launches
+    got = gram.gram_operand_vjp_cuda(kind, G, xs, var)
+    assert gram.gram_operand_vjp_cuda.launches == before + 1
+    _opnd_vjp_close(got, gram.gram_operand_vjp_plain(kind, G, xs, var))
+
+
+def test_operand_vjp_kernel_reads_g_in_place(dev):
+    # g with its row stride: a view of a wider matrix
+    N = 1000
+    wide = torch.randn(N, 1500, device=dev)
+    xs, var = _xs(N, 2, dev), torch.tensor(0.6, device=dev)
+    _opnd_vjp_close(gram.gram_operand_vjp_cuda("rbf", wide[:, 100:1300], xs, var),
+                    gram.gram_operand_vjp_plain("rbf", wide[:, 100:1300], xs, var))
+
+
+def test_operand_vjp_kernel_is_bitwise_repeatable(dev):
+    for N, D in ((10000, 1), (2048, 3)):
+        xs, G = _opnd_vjp_inputs(N, D, N + (-N) % 64, dev)
+        var = torch.tensor(1.1, device=dev)
+        a = gram.gram_operand_vjp_cuda("matern32", G, xs, var)
+        b = gram.gram_operand_vjp_cuda("matern32", G, xs, var)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_operand_vjp_runs_once_a_backward(dev):
+    rng = np.random.RandomState(0)
+    X = rng.uniform(0, 1, (700, 2)).astype(np.float32)
+    Y = (np.sin(12 * X[:, :1]) + 0.1 * rng.randn(700, 1)).astype(np.float32)
+    m = gft.models.GPR(X, Y, kern=gft.kernels.Matern52(2, lengthscales=0.1), device=dev, dtype=torch.float32)
+    before = gram.gram_operand_vjp_cuda.launches
+    m.objective().backward()
+    assert gram.gram_operand_vjp_cuda.launches == before + 1
+    # under torch.func: grad of each system of a batch, through the VJP's
+    # Function (one launch a system), against autograd on each
+    Np = 704
+    xs = _xs(700, 2, dev)
+    Dp = torch.zeros(Np, 1, device=dev)
+    Dp[:700] = torch.tensor(Y, device=dev)
+    var, noise = torch.tensor(1.2, device=dev), torch.tensor(0.3, device=dev)
+
+    def loss(x, v):
+        return sum(cholesky.cholesky_solve_logdet(gram.gram_chol_operand("rbf", x, v, noise, Np), Dp))
+
+    batch = torch.stack([xs, 1.1 * xs])
+    before = gram.gram_operand_vjp_cuda.launches
+    gx, gv = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)), in_dims=(0, None))(batch, var)
+    assert gram.gram_operand_vjp_cuda.launches == before + 2
+    for i in range(2):
+        x, v = batch[i].clone().requires_grad_(), var.clone().requires_grad_()
+        loss(x, v).backward()
+        assert float((gx[i] - x.grad).abs().max()) <= 1e-6 * float(x.grad.abs().max())
+        assert abs(float(gv[i]) - float(v.grad)) <= 1e-6 * abs(float(v.grad))
+
+
+def test_operand_vjp_backward_launches_only_its_kernels(dev):
+    # the N = 10000 fit's operand backward: the VJP kernel and its reduce,
+    # no torch elementwise or reduction kernel, no cuBLAS GEMV, no host
+    # sync; the most launches of each over three profiled backwards (the
+    # profiler may lose events)
+    xs = _xs(10000, 1, dev).requires_grad_()
+    var, noise = torch.tensor(1.0, device=dev, requires_grad=True), torch.tensor(0.5, device=dev, requires_grad=True)
+    G = torch.randn(10048, 10048, device=dev)
+    most, syncs = {}, gft.utils.trace.host_syncs
+    for _ in range(3):
+        Kp = gram.gram_chol_operand("rbf", xs, var, noise, 10048)
+        torch.cuda.synchronize()
+        with gft.utils.traced(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            grads = torch.autograd.grad(Kp, (xs, var, noise), G)  # no accumulation into .grad
+            torch.cuda.synchronize()
+        assert [tuple(g.shape) for g in grads] == [(10000, 1), (), ()]
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [m.group(0) for n in names for m in [re.search(r"gram_operand_vjp(_reduce)?_kernel", n)] if m]
+        assert len(ours) == len(names), names
+        for k in set(ours):
+            most[k] = max(most.get(k, 0), ours.count(k))
+    assert most == {"gram_operand_vjp_kernel": 1, "gram_operand_vjp_reduce_kernel": 1}, most
+    assert gft.utils.trace.host_syncs == syncs
+    # the span that holds them
+    Kp = gram.gram_chol_operand("rbf", xs, var, noise, 10048)
+    with gft.utils.traced(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        Kp.backward(G)
+        torch.cuda.synchronize()
+    assert "gfs.gram_operand.bwd" in {e.name for e in prof.events()}
 
 
 @pytest.mark.parametrize("P", [1, 11])

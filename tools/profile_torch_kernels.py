@@ -2,7 +2,7 @@
 """Device time of the port's kernels, each run alone on one NVIDIA GPU, for
 one checkout of the repository; the tool to compare two commits on one card.
 
-    python3 tools/profile_torch_kernels.py [ROOT] [--gram | --chol | --lower | --kinv | --nkn]
+    python3 tools/profile_torch_kernels.py [ROOT] [--gram | --chol | --lower | --kinv | --nkn | --opnd]
 
 ROOT is the checkout whose gpflow_slim_tpu_torch (and kernels, built into
 its own build/) is measured; by default the one this file is in. The timing
@@ -11,7 +11,8 @@ Gram alone, ``--chol`` both Cholesky modes alone at Np = 1024, 2048 and
 10048, in the trailing-update arithmetic "hi" and, where the checkout has
 it, the split modes "s3" and "s4", ``--lower`` the lower-tile Gram alone (``lower_gram``) and the VGP's
 ELBO + gradient on the kernel route, ``--kinv`` the fused Cholesky's f64 VJP alone (``csl_vjp``), ``--nkn``
-the NKN operand and its VJP alone (``nkn_operand``). It prints:
+the NKN operand and its VJP alone (``nkn_operand``), ``--opnd`` the Gram operand's f64 VJP alone
+(``opnd_vjp``). It prints:
 
 - for Np = 64 .. 10048 (RBF operands of lengthscale 0.1 and unit noise)
   the CUDA-event time of ``cholesky_cuda`` and the mean device time and
@@ -231,8 +232,31 @@ def nkn_operand(tag, g, dev):
         torch.cuda.empty_cache()
 
 
+def opnd_vjp(tag, gram, g, dev):
+    """The Gram operand's f64 VJP (RBF, D = 1, lengthscale 0.1) at N = 10000
+    padded to 10048 and N = 2048, on a symmetric float32 cotangent: the
+    kernel of csrc/gram_operand.cu where the checkout has it, by the
+    kernels line's three methods and the profiler, against its plain
+    version ``gram_operand_vjp_plain`` (the path before it), beside the
+    bound (chip_smoke.py's ``opnd_vjp_bound``)."""
+    kernel = getattr(gram, "gram_operand_vjp_cuda", None)
+    plain = getattr(gram, "gram_operand_vjp_plain", None)
+    var = torch.tensor(1.0, device=dev)
+    for n, pad in ((10000, 10048), (2048, 2048)):
+        xs = torch.rand(n, 1, generator=g, device=dev) / 0.1
+        G = torch.randn(pad, pad, generator=g, device=dev)
+        G = G + G.T
+        b_ms, b_by = cs.opnd_vjp_bound(n)
+        text = three(lambda: kernel("rbf", G, xs, var))[0] if kernel is not None else "no kernel"
+        if plain is not None:
+            text += f"; plain {statistics.median(cs.cuda_ms(torch, lambda: plain('rbf', G, xs, var))):.4f} ms"
+        print(f"{tag} opnd_vjp N={n} pad_to={pad} (bound {b_ms:.4f} ms, {b_by}): {text}", flush=True)
+        del G
+        torch.cuda.empty_cache()
+
+
 def main():
-    args = [a for a in sys.argv[1:] if a not in ("--gram", "--chol", "--lower", "--kinv", "--nkn")]
+    args = [a for a in sys.argv[1:] if a not in ("--gram", "--chol", "--lower", "--kinv", "--nkn", "--opnd")]
     root = os.path.abspath(args[0]) if args else REPO
     if not torch.cuda.is_available():
         print("profile_torch_kernels: no CUDA device; nothing was run", file=sys.stderr)
@@ -260,6 +284,9 @@ def main():
         return 0
     if "--nkn" in sys.argv:
         nkn_operand(tag, g, dev)
+        return 0
+    if "--opnd" in sys.argv:
+        opnd_vjp(tag, gram, g, dev)
         return 0
     for n in (64, 256, 1024, 4096, 10048):
         xs = torch.rand(n, 1, generator=g, device=dev) / 0.1
