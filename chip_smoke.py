@@ -420,6 +420,28 @@ BF16_FLOPS = 989e12  # bf16 on the tensor cores, dense: the split modes' trailin
 HBM_BYTES = 3.35e12  # bytes per second
 
 
+def launch_counts():
+    """The kernels' launch counter, ``ops._build.launches``: by entry point
+    name, and by ``(entry, detail)``."""
+    from gpflow_slim_tpu_torch.ops import _build
+    return _build.launches
+
+
+def reset_launches(*entries, details_only=False):
+    """Zero the launch counts of ``entries`` and of their details (of the
+    details alone with ``details_only``)."""
+    counts = launch_counts()
+    for key in list(counts):
+        entry = key[0] if isinstance(key, tuple) else key
+        if entry in entries and (isinstance(key, tuple) or not details_only):
+            del counts[key]
+
+
+def launch_details(entry):
+    """``entry``'s launch counts by detail."""
+    return {k[1]: n for k, n in launch_counts().items() if isinstance(k, tuple) and k[0] == entry}
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -678,9 +700,9 @@ def check_gram_lower_edges(torch, gram, dev):
             t = torch.arange(n, device=dev) // gram.TILE
             upper_tiles = t[:, None] < t[None, :]
             for kind in gram.KINDS:
-                before = gram.gram_lower_cuda.launches
+                before = launch_counts()["gfs_gram_lower"]
                 got = gram.gram_lower_cuda(kind, xs, torch.tensor(var, device=dev))
-                launched = gram.gram_lower_cuda.launches - before
+                launched = launch_counts()["gfs_gram_lower"] - before
                 err = float((got.double() - gram.gram_lower_plain(kind, xs.double(), var)).abs().max())
                 upper_zero = bool((got[upper_tiles] == 0).all())
                 worst = max(worst, err)
@@ -759,7 +781,6 @@ def check_split_modes_apart(torch, _build, cholesky, dev):
     entries) within SPLIT_APART_TOL of its own exact reference, f64 sums of
     the split halves' products, and every other mode's reference more than
     3x that away; the f64 pivots the exact sums of squares."""
-    lib = _build.load_library()
     panel = cholesky.PANEL
     worst = 0.0
     for Np in SPLIT_APART_SIDES:
@@ -783,9 +804,8 @@ def check_split_modes_apart(torch, _build, cholesky, dev):
             K = torch.zeros(Np, Np, dtype=torch.float32, device=dev)
             K[panel:, :panel], K[panel:, panel:] = Xd, Cd
             dpiv = torch.zeros(Np, dtype=torch.float64, device=dev)
-            _build.check(lib, lib.gfs_chol_trailing_update(K.data_ptr(), Np, 0, dpiv.data_ptr(),
-                                                           cholesky._mode_code(syrk), _build.stream_of(K)),
-                         "chol_trailing_update")
+            _build.launch("gfs_chol_trailing_update", K.data_ptr(), Np, 0, dpiv.data_ptr(), cholesky._mode_code(syrk),
+                          on=K)
             scale = float(refs[syrk].abs().max())
             own = float((K[panel:, panel:].double()[lower] - refs[syrk]).abs().max()) / scale
             apart = min(float((r - refs[syrk]).abs().max()) / scale for m, r in refs.items() if m != syrk)
@@ -1111,20 +1131,18 @@ def svgp_checks(gft, torch, gram, cholesky, trsm, dev):
          abs(after["kernels"] - lml) / abs(lml), abs(after["plain f32"] - lml) / abs(lml), SVGP_VALUE_ABS)
 
     # 4. the path's run: 20 steps of fit_svgp_natgrad on the unwhitened model
-    path_kernels = {"gram": gram.gram_cuda, "cholesky": cholesky.cholesky_cuda, "trsm": trsm.trsm_cuda,
-                    "batched_trsm": trsm.batched_trsm_cuda}
+    path_kernels = {"gram": "gfs_gram", "cholesky": "gfs_cholesky", "trsm": "gfs_trsm",
+                    "batched_trsm": "gfs_batched_trsm"}
     for whiten in (False, True):
         model = svgp_model(gft, torch, whiten, torch.float32)
         gen = torch.Generator(device=dev).manual_seed(0)
         ng = gft.training.natgrad_step
         ng.backtracked = ng.halvings = ng.kept = 0
-        for fn in path_kernels.values():
-            fn.launches = 0
-        gram.gram_cuda.by_shape = {}
+        reset_launches(*path_kernels.values())
         _, losses = gft.training.fit_svgp_natgrad(model, SVGP_STEPS, gen, gamma=SVGP_GAMMA,
                                                   learning_rate=SVGP_LR, batch_size=SVGP_B)
         torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in path_kernels.items()}
+        launches = {name: launch_counts()[entry] for name, entry in path_kernels.items()}
         losses = losses.cpu().numpy()
         label = "whitened" if whiten else "unwhitened"
         print(f"fit_svgp_natgrad {label}, {SVGP_STEPS} steps: launches {launches}; natgrad steps that "
@@ -1140,7 +1158,7 @@ def svgp_checks(gft, torch, gram, cholesky, trsm, dev):
                 raise AssertionError("20 natgrad steps did not lower the unwhitened loss")
             if not all(n > 0 for n in launches.values()):
                 raise AssertionError(f"the unwhitened SVGP path did not run all four kernels: {launches}")
-            svgp_launches = dict(launches, gram_by_shape=dict(gram.gram_cuda.by_shape))
+            svgp_launches = dict(launches, gram_by_shape=launch_details("gfs_gram"))
             print(f"  cross Gram launches by shape in it: {svgp_launches['gram_by_shape']}")
     return svgp_launches, (Xb, Yb)
 
@@ -1159,10 +1177,10 @@ def func_grad_check(gft, torch, gram, cholesky, model):
 
     u = model.kern.variance.unconstrained
     objective = Objective()
-    gram.gram_chol_operand_cuda.launches = cholesky.cholesky_solve_cuda.launches = 0
+    reset_launches("gfs_gram_chol_operand", "gfs_chol_solve_logdet")
     got = torch.func.grad(lambda v: torch.func.functional_call(
         objective, {"model.kern.variance.unconstrained": v}, ()))(u.detach())
-    launches = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    launches = (launch_counts()["gfs_gram_chol_operand"], launch_counts()["gfs_chol_solve_logdet"])
     want = torch.autograd.grad(model.objective(), u)[0]
     rel = float((got - want).abs().max()) / float(want.abs().max())
     print(f"torch.func.grad of GPR.objective() w.r.t. kern.variance (kernel route; operand and chol_solve "
@@ -1390,19 +1408,17 @@ def sparse_kuu(gft, torch, n, dev):
 
 
 def reset_counts(gram, cholesky, trsm):
-    for fn in (gram.gram_chol_operand_cuda, gram.gram_cuda, gram.gram_lower_cuda, cholesky.cholesky_cuda,
-               cholesky.cholesky_solve_cuda, trsm.trsm_cuda, trsm.batched_trsm_cuda):
-        fn.launches = 0
-    gram.gram_cuda.by_shape = {}
-    trsm.trsm_cuda.by_schedule = {"thin": 0, "wide": 0}
+    reset_launches("gfs_gram_chol_operand", "gfs_gram", "gfs_gram_lower", "gfs_cholesky", "gfs_chol_solve_logdet",
+                   "gfs_trsm", "gfs_batched_trsm")
 
 
 def read_counts(gram, cholesky, trsm):
-    return {"operand": gram.gram_chol_operand_cuda.launches, "gram": gram.gram_cuda.launches,
-            "gram_lower": gram.gram_lower_cuda.launches, "cholesky": cholesky.cholesky_cuda.launches,
-            "chol_solve": cholesky.cholesky_solve_cuda.launches, "trsm_thin": trsm.trsm_cuda.by_schedule["thin"],
-            "trsm_wide": trsm.trsm_cuda.by_schedule["wide"], "batched_trsm": trsm.batched_trsm_cuda.launches,
-            "gram_by_shape": dict(gram.gram_cuda.by_shape)}
+    counts = launch_counts()
+    return {"operand": counts["gfs_gram_chol_operand"], "gram": counts["gfs_gram"],
+            "gram_lower": counts["gfs_gram_lower"], "cholesky": counts["gfs_cholesky"],
+            "chol_solve": counts["gfs_chol_solve_logdet"], "trsm_thin": counts["gfs_trsm", "thin"],
+            "trsm_wide": counts["gfs_trsm", "wide"], "batched_trsm": counts["gfs_batched_trsm"],
+            "gram_by_shape": launch_details("gfs_gram")}
 
 
 def check_sparse_kernels(gft, torch, gram, cholesky, trsm, dev):
@@ -2020,10 +2036,10 @@ def mcmc_checks(gft, torch, gram, cholesky, dev):
                                  device=dev)
 
     # the batched evaluation: once per chain on each kernel
-    gram.gram_chol_operand_cuda.launches = cholesky.cholesky_solve_cuda.launches = 0
+    reset_launches("gfs_gram_chol_operand", "gfs_chol_solve_logdet")
     lps, gs = fn(zs)
     torch.cuda.synchronize()
-    launches = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    launches = (launch_counts()["gfs_gram_chol_operand"], launch_counts()["gfs_chol_solve_logdet"])
     print(f"config #4 batched log posterior + gradient of {C} chains (kernel route): launches operand "
           f"{launches[0]}, chol_solve {launches[1]}")
     if launches != (C, C):
@@ -2129,12 +2145,12 @@ def mcmc_checks(gft, torch, gram, cholesky, dev):
         return gft.mcmc.nuts(counted, z, gen, NUTS_SAMPLES, num_warmup=0, step_size=eps, inv_mass=inv_mass,
                              max_depth=NUTS_DEPTH)
 
-    gram.gram_chol_operand_cuda.launches = cholesky.cholesky_solve_cuda.launches = 0
+    reset_launches("gfs_gram_chol_operand", "gfs_chol_solve_logdet")
     t0 = time.perf_counter()
     (samples, info), syncs = count_syncs(torch, dev, sample)
     sample_s = time.perf_counter() - t0
-    run_launches = {"operand": gram.gram_chol_operand_cuda.launches,
-                    "chol_solve": cholesky.cholesky_solve_cuda.launches}
+    run_launches = {"operand": launch_counts()["gfs_gram_chol_operand"],
+                    "chol_solve": launch_counts()["gfs_chol_solve_logdet"]}
     chain_leaves = int(info["num_leaves"].sum())
     leaf_steps = calls[0] - 1  # the first call is the start's evaluation
     s = samples.double().cpu().numpy()
@@ -3308,9 +3324,9 @@ def nkn_operand_checks(gft, torch, dev):
     from gpflow_slim_tpu_torch.ops import nkn
 
     def launched(m):
-        before = (nkn.nkn_operand_cuda.launches, nkn.nkn_vjp_cuda.launches)
+        before = (launch_counts()["gfs_nkn_operand"], launch_counts()["gfs_nkn_vjp"])
         out = value_and_grads(gft, m, True, jitter=VGP_JITTER)
-        launches = (nkn.nkn_operand_cuda.launches - before[0], nkn.nkn_vjp_cuda.launches - before[1])
+        launches = (launch_counts()["gfs_nkn_operand"] - before[0], launch_counts()["gfs_nkn_vjp"] - before[1])
         if launches != (1, 1):
             raise AssertionError(f"published NKN at N={m.X.shape[0]}: NKN operand and VJP launches {launches}, "
                                  "want one each")
@@ -4140,12 +4156,12 @@ def split_checks(gft, torch, gram, cholesky, model, grads64, dev):
     objective's times."""
 
     def zero_counts():
-        for fn in (cholesky.cholesky_cuda, cholesky.cholesky_solve_cuda):
-            fn.by_syrk = dict.fromkeys(fn.by_syrk, 0)
+        reset_launches("gfs_cholesky", "gfs_chol_solve_logdet", details_only=True)
 
     def read_counts():
-        return {"chol_solve": dict(cholesky.cholesky_solve_cuda.by_syrk),
-                "cholesky": dict(cholesky.cholesky_cuda.by_syrk)}
+        counts = launch_counts()
+        return {name: {b: counts[entry, b] for b in cholesky.SYRK_BASES}
+                for name, entry in (("chol_solve", "gfs_chol_solve_logdet"), ("cholesky", "gfs_cholesky"))}
 
     zero_counts()
     # the factor alone (tests/test_tpu_compiled.py:190-211): RBF 0.1 + 1e-2 I at N=2048
@@ -4491,13 +4507,11 @@ def main():
     # 4. the training path at full width, through the public entry points
     model = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE),
                            device="cuda", dtype=torch.float32)
-    gram.gram_chol_operand_cuda.launches = 0
-    cholesky.cholesky_solve_cuda.launches = 0
-    chol_inverse.csl_vjp_cuda.launches = 0
-    gram.gram_operand_vjp_cuda.launches = 0
+    reset_launches("gfs_gram_chol_operand", "gfs_chol_solve_logdet", "gfs_csl_vjp", "gfs_gram_operand_vjp")
+    counts = launch_counts()
     with torch.no_grad():
         val = float(model.objective())
-    n_opnd, n_chol = gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches
+    n_opnd, n_chol = counts["gfs_gram_chol_operand"], counts["gfs_chol_solve_logdet"]
     print(f"objective {val:.6f}; launches in it: operand {n_opnd}, chol_solve {n_chol}")
     if not (n_opnd > 0 and n_chol > 0):
         raise AssertionError("GPR.objective() did not run both kernels")
@@ -4513,12 +4527,12 @@ def main():
         raise AssertionError(f"objective off the f64 oracle by {rel:.3e}")
 
     model.zero_grad(set_to_none=True)
-    n_vjp = chol_inverse.csl_vjp_cuda.launches
-    n_opnd_vjp = gram.gram_operand_vjp_cuda.launches
+    n_vjp = counts["gfs_csl_vjp"]
+    n_opnd_vjp = counts["gfs_gram_operand_vjp"]
     model.objective().backward()
-    if chol_inverse.csl_vjp_cuda.launches != n_vjp + 1:
+    if counts["gfs_csl_vjp"] != n_vjp + 1:
         raise AssertionError("the gradient did not run the f64 VJP kernels (csrc/chol_inverse.cu) once")
-    if gram.gram_operand_vjp_cuda.launches != n_opnd_vjp + 1:
+    if counts["gfs_gram_operand_vjp"] != n_opnd_vjp + 1:
         raise AssertionError("the gradient did not run the operand's VJP kernel (csrc/gram_operand.cu) once")
     grads32 = {n: float(p.unconstrained.grad) for n, p in gft.params.parameters(model)}
     m64 = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE),
@@ -4543,8 +4557,8 @@ def main():
     print(f"fit: 5 Adam steps, losses {np.array2string(losses, precision=4)}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError("5 Adam steps did not lower the loss")
-    n_opnd, n_chol = gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches
-    n_vjp, n_opnd_vjp = chol_inverse.csl_vjp_cuda.launches, gram.gram_operand_vjp_cuda.launches
+    n_opnd, n_chol = counts["gfs_gram_chol_operand"], counts["gfs_chol_solve_logdet"]
+    n_vjp, n_opnd_vjp = counts["gfs_csl_vjp"], counts["gfs_gram_operand_vjp"]
     print(f"launches over the main path (objective, gradient, 5 steps): "
           f"operand {n_opnd}, chol_solve {n_chol}, csl_vjp {n_vjp}, gram_operand_vjp {n_opnd_vjp}")
     Dp1 = torch.zeros(pad_to, 1, dtype=torch.float32, device=dev)
@@ -4553,17 +4567,15 @@ def main():
     opnd_vjp_args, opnd_vjp_err = check_opnd_vjp(torch, gram, Xs, chol_inverse.csl_vjp_cuda(*vjp_args)[0], pad_to)
 
     # 4b. the serving path at full width, through the public entry points
-    serve_kernels = {"gram": gram.gram_cuda, "gram_lower": gram.gram_lower_cuda,
-                     "cholesky": cholesky.cholesky_cuda, "trsm": trsm.trsm_cuda}
+    serve_kernels = {"gram": "gfs_gram", "gram_lower": "gfs_gram_lower", "cholesky": "gfs_cholesky",
+                     "trsm": "gfs_trsm"}
     serve = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=LENGTHSCALE),
                            device="cuda", dtype=torch.float32)
-    for fn in serve_kernels.values():
-        fn.launches = 0
-    trsm.trsm_cuda.by_schedule = {"thin": 0, "wide": 0}
+    reset_launches(*serve_kernels.values())
     post, answers = serving_requests(gft, torch, serve)
     torch.cuda.synchronize()
-    serve_launches = {name: fn.launches for name, fn in serve_kernels.items()}
-    serve_launches.update({f"trsm_{k}": n for k, n in trsm.trsm_cuda.by_schedule.items()})
+    serve_launches = {name: counts[entry] for name, entry in serve_kernels.items()}
+    serve_launches.update({f"trsm_{k}": counts["gfs_trsm", k] for k in ("thin", "wide")})
     print(f"serving path (posterior, 4 x predict_f at {NQ}, full_cov at {NQ_FULL}, predict_y, "
           f"predict_density, uncached predict_f): launches {serve_launches}")
     if not all(n > 0 for n in serve_launches.values()):

@@ -8,12 +8,18 @@ ctypes. The output goes to ``build/kernels/`` beside the package
 so an edited source rebuilds and an unchanged one loads at once. A missing
 nvcc or a failed build raises with the compiler's output.
 
+It is also the one seam between ``ops`` and the library: ``launch`` calls
+an entry point on the current stream, raises on a CUDA error and counts
+the launch in ``launches``, and ``check_tensor`` holds a tensor to what
+the kernels read. The modules of ``ops`` keep only their own shape rules.
+
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without nvcc or a card.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -156,15 +162,50 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def stream_of(x: torch.Tensor) -> int:
-    """The handle of the current CUDA stream on ``x``'s device, for a C
-    entry point (without building the ``torch.cuda.Stream`` object that
-    ``torch.cuda.current_stream`` returns)."""
-    return torch._C._cuda_getCurrentRawStream(x.get_device())
+# launches by entry point name (``launches["gfs_gram"]``), and by
+# ``(entry, detail)`` where a launcher names a detail: the split mode of
+# ``gfs_cholesky`` and ``gfs_chol_solve_logdet``, the schedule of
+# ``gfs_trsm``, the (N, M) of ``gfs_gram``
+launches = collections.Counter()
 
 
-def check(lib: ctypes.CDLL, code: int, what: str) -> None:
-    """Raise if a C entry point reported a CUDA error."""
+def launch(entry: str, *args, on: torch.Tensor, detail=None) -> None:
+    """Call the entry point ``entry`` with ``args`` and the handle of the
+    current CUDA stream on ``on``'s device (read without building the
+    ``torch.cuda.Stream`` object), raise if it reports a CUDA error, and
+    count the launch in ``launches``."""
+    lib = load_library()
+    code = getattr(lib, entry)(*args, torch._C._cuda_getCurrentRawStream(on.get_device()))
     if code != 0:
-        msg = lib.gfs_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        raise RuntimeError(f"{entry}: CUDA error {code} ({lib.gfs_error_string(code).decode()})")
+    launches[entry] += 1
+    if detail is not None:
+        launches[entry, detail] += 1
+
+
+def check_tensor(fn: str, name: str, t: torch.Tensor, rank: int, *, layout="contiguous", on=None,
+                 at_least=None, aligned=False) -> None:
+    """Raise ``ValueError``, stating the whole requirement, unless ``t``
+    (argument ``name`` of ``fn``) is CUDA float32 of ``rank`` dimensions,
+    laid out as ``layout`` says (``"contiguous"``, ``"rows"``: unit column
+    stride, or None), on the card of the tensor ``on``, at least
+    ``at_least`` = (rows, columns) in shape (a matrix) and, with
+    ``aligned``, 16-byte aligned."""
+    if (t.is_cuda and t.dtype == torch.float32 and t.dim() == rank
+            and (t.is_contiguous() if layout == "contiguous" else layout is None or t.stride(-1) == 1)
+            and (on is None or t.device == on.device)
+            and (at_least is None or ((shape := t.shape)[0] >= at_least[0] and shape[1] >= at_least[1]))
+            and not (aligned and t.data_ptr() % 16)):
+        return
+    want = f"a {rank}-D CUDA float32 tensor"
+    if on is not None:
+        want += f" on {on.device}"
+    if at_least is not None:
+        want += f", at least {' x '.join(map(str, at_least))}"
+    if layout == "rows":
+        want += ", rows contiguous"
+    if aligned:
+        want += ", 16-byte aligned"
+    lead = f"{fn} needs a contiguous {name}" if layout == "contiguous" else f"{fn} needs {name}"
+    raise ValueError(f"{lead}: {want}; got {t.dim()}-D {tuple(t.shape)} {t.dtype} on {t.device}, "
+                     f"strides {t.stride()}")

@@ -37,10 +37,10 @@ import torch
 import torch.nn.functional as F
 
 from . import cholesky as _chol
+from . import linalg as _linalg
 from . import trsm as _trsm
-from ._func import vmap_loop
+from ._func import loop_vmap
 from .gram import full_precision
-from .linalg import kernels_active
 
 __all__ = ["blocked_cholesky", "blocked_solve_lower", "blocked_solve_upper", "pad_to_block", "Rows"]
 
@@ -119,7 +119,7 @@ def _check(N, bs, rows):
 def factor_block(D):
     """The lower factor of a diagonal block: the factor-only kernel on the
     kernel route, ``cholesky_ex`` otherwise (NaN where it fails)."""
-    if kernels_active(D):
+    if _linalg.kernels_active(D):
         return _chol.cholesky(D)
     return _chol.cholesky_plain(D)
 
@@ -127,7 +127,7 @@ def factor_block(D):
 def tri_solve(T, B, lower):
     """``T^-1 B``: the wide TRSM (through its Function) on the kernel route,
     ``solve_triangular`` otherwise."""
-    if kernels_active(T):
+    if _linalg.kernels_active(T):
         return (_trsm.solve_lower if lower else _trsm.solve_upper)(T, B.contiguous())
     return _trsm.solve_triangular_plain(T, B, lower)
 
@@ -225,6 +225,7 @@ def solve_lower_vjp(L, X, g, bs, rows):
     return gL.tril_(rows.lo).neg_(), gB
 
 
+@loop_vmap(pin={3: False})
 class _Factor(torch.autograd.Function):
     @staticmethod
     def forward(K, bs, rows, in_place):
@@ -243,11 +244,8 @@ class _Factor(torch.autograd.Function):
         (L,) = ctx.saved_tensors
         return chol_vjp(L, g, ctx.bs, ctx.rows), None, None, None
 
-    @staticmethod
-    def vmap(info, in_dims, K, bs, rows, in_place):
-        return vmap_loop(lambda k: _Factor.apply(k, bs, rows, False), info, in_dims[:1], K)
 
-
+@loop_vmap
 class _SolveLower(torch.autograd.Function):
     @staticmethod
     def forward(L, B, bs, rows):
@@ -264,11 +262,8 @@ class _SolveLower(torch.autograd.Function):
         gL, gB = solve_lower_vjp(L, X, g, ctx.bs, ctx.rows)
         return gL, gB, None, None
 
-    @staticmethod
-    def vmap(info, in_dims, L, B, bs, rows):
-        return vmap_loop(lambda l, b: _SolveLower.apply(l, b, bs, rows), info, in_dims[:2], L, B)
 
-
+@loop_vmap
 class _SolveUpper(torch.autograd.Function):
     """``U^-1 B`` for an upper ``U`` on one device: ``solve_upper_t_`` on
     ``U^T``. Backward: ``B-bar = U^-T g`` (the lower solve), ``U-bar =
@@ -290,10 +285,6 @@ class _SolveUpper(torch.autograd.Function):
         with full_precision():
             gU = gB @ X.mT
         return gU.triu_().neg_(), gB, None
-
-    @staticmethod
-    def vmap(info, in_dims, U, B, bs):
-        return vmap_loop(lambda u, b: _SolveUpper.apply(u, b, bs), info, in_dims[:2], U, B)
 
 
 def factor(K, bs, rows, in_place=False):

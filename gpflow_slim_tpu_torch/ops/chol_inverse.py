@@ -20,8 +20,9 @@ and the lower half of ``W^T W`` on the FP64 tensor cores, the cotangent's
 epilogue fused), with its plain PyTorch version beside it
 (``csl_vjp_plain``: a solve against the identity and a full product).
 ``csl_vjp`` takes the plain version for CPU tensors and launches the
-kernels for any other, through ``_CslVjp`` so that a backward run under a
-``torch.func`` transform hands the kernels plain tensors.
+kernels for any other, through a Function (``_func.kernel_function``) so
+that a backward run under a ``torch.func`` transform hands the kernels
+plain tensors.
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._func import vmap_loop
+from . import cholesky as _chol  # which imports this module: read at call time
+from ._func import kernel_function
 
-BLOCK = 64  # the kernels' tile; Lp's side must be a multiple of it
 BETA_CHUNK = 512  # about the rows of W a block of the beta product sums over
 
 
@@ -58,64 +59,26 @@ def csl_vjp_cuda(Lp, alpha, ghl, gq):
     (nothing above the diagonal blocks is read); ``alpha`` (Np, P), P >= 1;
     ``ghl`` and ``gq`` 0-d. Every product is in float64; ``Kbar`` and
     ``Dbar`` are rounded to float32 once. Scratch: ``W = Lp^-1`` (Np, Np)
-    and ``beta`` with its partial sums in float64. Returns ``(Kbar, Dbar)``; no host sync.
-    ``csl_vjp_cuda.launches`` counts the calls."""
-    for name, t in (("Lp", Lp), ("alpha", alpha), ("ghl", ghl), ("gq", gq)):
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise ValueError(f"csl_vjp_cuda takes CUDA float32 tensors; {name} is {t.dtype} on {t.device}")
-        if t.device != Lp.device:
-            raise ValueError(f"Lp on {Lp.device} but {name} on {t.device}")
-    Np = Lp.shape[0]
-    if Lp.dim() != 2 or Lp.shape[1] != Np or Np % BLOCK or Np == 0 or not Lp.is_contiguous():
-        raise ValueError(f"bad Lp: {tuple(Lp.shape)}, contiguous {Lp.is_contiguous()} (contiguous, square, "
-                         f"side a multiple of {BLOCK})")
-    if alpha.dim() != 2 or alpha.shape[0] != Np or alpha.shape[1] < 1 or ghl.dim() or gq.dim():
-        raise ValueError(f"bad shapes: alpha {tuple(alpha.shape)} (Np = {Np} rows, at least one column), "
-                         f"ghl {tuple(ghl.shape)}, gq {tuple(gq.shape)} (0-d)")
-    if Lp.data_ptr() % 16:
-        raise ValueError("Lp must be 16-byte aligned (the kernels copy it 16 bytes at a time)")
+    and ``beta`` with its partial sums in float64. Returns ``(Kbar, Dbar)``; no host sync."""
+    _chol.check_padded("csl_vjp_cuda", "Lp", Lp)
+    _build.check_tensor("csl_vjp_cuda", "alpha", alpha, 2, layout=None, on=Lp)
+    for name, t in (("ghl", ghl), ("gq", gq)):
+        _build.check_tensor("csl_vjp_cuda", name, t, 0, layout=None, on=Lp)
+    Np, P = Lp.shape[0], alpha.shape[1]
+    if alpha.shape[0] != Np or P < 1:
+        raise ValueError(f"bad shapes: alpha {tuple(alpha.shape)} (Np = {Np} rows, at least one column)")
     alpha = alpha.contiguous()
-    P = alpha.shape[1]
     chunks = -(-Np // BETA_CHUNK)  # each block column's sum for beta, split over this many blocks
     W = torch.empty(Np, Np, dtype=torch.float64, device=Lp.device)
     beta = torch.empty(chunks + 1, Np, P, dtype=torch.float64, device=Lp.device)
     Kbar = torch.empty(Np, Np, dtype=torch.float32, device=Lp.device)
     Dbar = torch.empty(Np, P, dtype=torch.float32, device=Lp.device)
-    lib = _build.load_library()
-    code = lib.gfs_csl_vjp(Lp.data_ptr(), Np, alpha.data_ptr(), P, ghl.data_ptr(), gq.data_ptr(), W.data_ptr(),
-                           beta.data_ptr(), chunks, Kbar.data_ptr(), Dbar.data_ptr(), _build.stream_of(Lp))
-    _build.check(lib, code, "csl_vjp")
-    csl_vjp_cuda.launches += 1
+    _build.launch("gfs_csl_vjp", Lp.data_ptr(), Np, alpha.data_ptr(), P, ghl.data_ptr(), gq.data_ptr(), W.data_ptr(),
+                  beta.data_ptr(), chunks, Kbar.data_ptr(), Dbar.data_ptr(), on=Lp)
     return Kbar, Dbar
 
 
-csl_vjp_cuda.launches = 0
-
-
-class _CslVjp(torch.autograd.Function):
-    """``csl_vjp_cuda`` as a Function: under a ``torch.func`` transform a
-    backward gets wrapped tensors, and only a Function's forward hands a
-    kernel plain ones. Not differentiable (no backward). ``vmap``: the
-    Function on each entry of the batch."""
-
-    @staticmethod
-    def forward(Lp, alpha, ghl, gq):
-        return csl_vjp_cuda(Lp, alpha, ghl, gq)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def vmap(info, in_dims, Lp, alpha, ghl, gq):
-        return vmap_loop(lambda l, a, h, q: _CslVjp.apply(l.contiguous(), a, h, q), info, in_dims, Lp, alpha,
-                         ghl, gq)
-
-
-def csl_vjp(Lp, alpha, ghl, gq):
-    """``(Kbar, Dbar)`` of the fused factor/solve/logdet (module docstring),
-    in ``Lp``'s dtype. Plain for CPU tensors; any other tensor goes to the
-    kernels, which launch or raise."""
-    if Lp.device.type == "cpu":
-        return csl_vjp_plain(Lp, alpha, ghl, gq)
-    return _CslVjp.apply(Lp, alpha, ghl, gq)
+# ``csl_vjp(Lp, alpha, ghl, gq)``: ``(Kbar, Dbar)`` of the fused
+# factor/solve/logdet (module docstring), in ``Lp``'s dtype; plain for CPU
+# tensors, the kernels for any other
+csl_vjp = kernel_function(csl_vjp_plain, csl_vjp_cuda)

@@ -52,7 +52,7 @@ from ..utils.trace import named_scope
 from . import _build
 from . import chol_inverse as _inverse
 from . import trsm as _trsm
-from ._func import transforms_active, vmap_loop
+from ._func import loop_vmap, transforms_active
 from .gram import full_precision
 
 BLOCK = 64  # the kernel's block size; Kp's side must be a multiple of it
@@ -63,6 +63,34 @@ SYRK_MODES = SYRK_BASES + tuple(b + "x2" for b in SYRK_BASES)
 # the mode argument of the C entry points: the split's passes (0 for exact
 # products), + 8 for exact diagonal tiles
 _MODE_CODES = {"hi": 0, "s3": 3, "s4": 4, "s3d": 3 + 8, "s4d": 4 + 8}
+
+
+def padded_size(N):
+    """The side of the padded system of N rows: the next multiple of
+    ``BLOCK``."""
+    return N + (-N) % BLOCK
+
+
+def pad_system(K, D=None):
+    """``(Kp, Dp)``: ``K`` (N, N) copied into an (Np, Np) matrix with a
+    unit-diagonal extension, Np = ``padded_size(N)``, and ``D`` (N, P)
+    with zero pad rows (None without a ``D``). Its factor is ``chol(K)`` in
+    the leading block and the identity in the pad, so the pad rows of
+    ``chol(Kp)^-1 Dp`` are exactly zero and the pad's log-diagonal terms
+    exactly log 1: the padded system's half-logdet and quad are the leading
+    system's."""
+    N = K.shape[0]
+    Np = padded_size(N)
+    # contiguous: a zero pad keeps K's strides, and the kernel reads rows
+    Kp = F.pad(K, (0, Np - N, 0, Np - N)).contiguous()
+    Kp.diagonal()[N:] = 1.0
+    return Kp, None if D is None else pad_rows(D, Np, K.dtype)
+
+
+def pad_rows(D, Np, dtype):
+    """``D`` (N, P) in ``dtype`` with zero rows to Np, contiguous: the
+    right-hand side of the padded system."""
+    return F.pad(D.to(dtype), (0, 0, 0, Np - D.shape[0])).contiguous()
 
 
 def _nan_where_failed(L, info):
@@ -167,24 +195,17 @@ def cholesky_split_plain(K, syrk, panel=PANEL, tile=TILE, chunk=BLOCK, exact_piv
     return torch.tril(L)
 
 
-def _check_square(name, Kp):
-    if not Kp.is_cuda or Kp.dtype != torch.float32 or Kp.dim() != 2 or not Kp.is_contiguous():
-        raise ValueError(
-            f"{name} takes a contiguous 2-D CUDA float32 Kp; got {Kp.dim()}-D {Kp.dtype} "
-            f"on {Kp.device}")
+def check_padded(fn, name, Kp):
+    """Raise unless ``Kp`` is what the kernels factor, or read as a factor:
+    contiguous, 16-byte aligned CUDA float32, square, its side a positive
+    multiple of ``BLOCK``."""
+    _build.check_tensor(fn, name, Kp, 2, aligned=True)
     if Kp.shape[0] != Kp.shape[1] or Kp.shape[0] % BLOCK or Kp.shape[0] == 0:
-        raise ValueError(f"bad shape: Kp {tuple(Kp.shape)} (square, side a multiple of {BLOCK})")
-    if Kp.data_ptr() % 16:
-        raise ValueError("Kp must be 16-byte aligned (the kernel reads it as float4)")
+        raise ValueError(f"bad shape: {name} {tuple(Kp.shape)} (square, side a multiple of {BLOCK})")
 
 
 def _mode_code(syrk):
     return _MODE_CODES[syrk_base(syrk)]
-
-
-def _count(fn, syrk):
-    fn.launches += 1
-    fn.by_syrk[syrk_base(syrk)] += 1
 
 
 def cholesky_cuda(Kp, syrk="hi"):
@@ -193,32 +214,23 @@ def cholesky_cuda(Kp, syrk="hi"):
     lower triangle becomes L, with the diagonal blocks' upper entries 0;
     strictly-upper entries outside the diagonal blocks keep what they held.
     ``syrk`` is the trailing update's arithmetic (module docstring).
-    Returns ``Kp``."""
-    _check_square("cholesky_cuda", Kp)
-    mode = _mode_code(syrk)
+    Counted in ``_build.launches`` as ``"gfs_cholesky"`` and
+    ``("gfs_cholesky", syrk_base(syrk))``. Returns ``Kp``."""
+    check_padded("cholesky_cuda", "Kp", Kp)
+    base = syrk_base(syrk)
     Np = Kp.shape[0]
     work = torch.empty(Np, dtype=torch.float64, device=Kp.device)  # the f64 pivots
-    lib = _build.load_library()
-    code = lib.gfs_cholesky(Kp.data_ptr(), Np, work.data_ptr(), mode, _build.stream_of(Kp))
-    _build.check(lib, code, "cholesky")
-    _count(cholesky_cuda, syrk)
+    _build.launch("gfs_cholesky", Kp.data_ptr(), Np, work.data_ptr(), _MODE_CODES[base], on=Kp, detail=base)
     return Kp
-
-
-cholesky_cuda.launches = 0
-cholesky_cuda.by_syrk = dict.fromkeys(SYRK_BASES, 0)  # launches by the arithmetic they ran
 
 
 def _factor_padded(K, syrk="hi"):
     """``tril(chol(K))`` through the padded in-place factorization: ``K``
-    is copied into a (Np, Np) buffer with a unit-diagonal extension (Np the
-    next multiple of 64), the buffer is factored in place, and the result
-    is the masked leading block, a view into the buffer (row stride Np)."""
+    is copied into its padded system (``pad_system``), the buffer is
+    factored in place, and the result is the masked leading block, a view
+    into the buffer (row stride Np)."""
     N = K.shape[0]
-    Np = N + (-N) % BLOCK
-    # contiguous: a zero pad keeps K's strides, and the kernel reads rows
-    Kp = F.pad(K, (0, Np - N, 0, Np - N)).contiguous()
-    Kp.diagonal()[N:] = 1.0
+    Kp, _ = pad_system(K)
     if Kp.device.type == "cpu":  # plain for CPU tensors; launch or raise otherwise
         Kp.copy_(cholesky_split_plain(Kp, syrk))
     else:
@@ -270,6 +282,7 @@ def _chol_vjp(L, g):
     return (0.25 * (S + S.mT)).to(dtype)
 
 
+@loop_vmap
 class _Cholesky(torch.autograd.Function):
     """Forward: the padded factor-only Cholesky (kernel or plain). Backward:
     ``_chol_vjp_bwd`` of the JAX package: two triangular solves on the
@@ -293,10 +306,6 @@ class _Cholesky(torch.autograd.Function):
         (L,) = ctx.saved_tensors
         with named_scope("gfs.cholesky.bwd"):
             return _chol_vjp(L, g), None
-
-    @staticmethod
-    def vmap(info, in_dims, K, syrk):
-        return vmap_loop(lambda k: _Cholesky.apply(k, syrk), info, in_dims[:1], K)
 
 
 def cholesky(K, syrk="hi"):
@@ -339,35 +348,23 @@ def cholesky_solve_cuda(Kp, Dp, syrk="hi"):
     ``Kp`` (Np, Np), Np a multiple of 64, is factored in place (its lower
     triangle becomes L; strictly-upper entries outside the diagonal blocks
     keep whatever they held). ``Dp`` (Np, P), any P >= 1, is not modified.
-    ``syrk`` as for ``cholesky_cuda``.
-    Returns ``(Kp, alpha, half_logdet)``.
+    ``syrk`` as for ``cholesky_cuda``; counted in ``_build.launches`` as
+    ``"gfs_chol_solve_logdet"`` and ``("gfs_chol_solve_logdet",
+    syrk_base(syrk))``. Returns ``(Kp, alpha, half_logdet)``.
     """
-    _check_square("cholesky_solve_cuda", Kp)
-    mode = _mode_code(syrk)
-    if not Dp.is_cuda or Dp.dtype != torch.float32 or Dp.dim() != 2 or not Dp.is_contiguous():
-        raise ValueError(
-            f"cholesky_solve_cuda takes a contiguous 2-D CUDA float32 Dp; got {Dp.dim()}-D "
-            f"{Dp.dtype} on {Dp.device}")
-    Np = Kp.shape[0]
-    P = Dp.shape[1]
+    check_padded("cholesky_solve_cuda", "Kp", Kp)
+    base = syrk_base(syrk)
+    _build.check_tensor("cholesky_solve_cuda", "Dp", Dp, 2, on=Kp)
+    Np, P = Kp.shape[0], Dp.shape[1]
     if Dp.shape[0] != Np or P < 1:
         raise ValueError(f"bad shape: Dp {tuple(Dp.shape)} (Np = {Np} rows, at least one column)")
-    if Dp.device != Kp.device:
-        raise ValueError(f"Kp on {Kp.device} but Dp on {Dp.device}")
     alpha = Dp.clone()
     # f64 scratch: per-panel logdet partials, then the f64 pivots
     work = torch.empty(Np // BLOCK + Np, dtype=torch.float64, device=Kp.device)
     half_logdet = torch.empty((), dtype=torch.float32, device=Kp.device)
-    lib = _build.load_library()
-    code = lib.gfs_chol_solve_logdet(Kp.data_ptr(), Np, alpha.data_ptr(), P, work.data_ptr(),
-                                     half_logdet.data_ptr(), mode, _build.stream_of(Kp))
-    _build.check(lib, code, "chol_solve_logdet")
-    _count(cholesky_solve_cuda, syrk)
+    _build.launch("gfs_chol_solve_logdet", Kp.data_ptr(), Np, alpha.data_ptr(), P, work.data_ptr(),
+                  half_logdet.data_ptr(), _MODE_CODES[base], on=Kp, detail=base)
     return Kp, alpha, half_logdet
-
-
-cholesky_solve_cuda.launches = 0
-cholesky_solve_cuda.by_syrk = dict.fromkeys(SYRK_BASES, 0)
 
 
 def cholesky_solve(Kp, Dp, syrk="hi"):
@@ -383,6 +380,7 @@ def cholesky_solve(Kp, Dp, syrk="hi"):
     return cholesky_solve_cuda(Kp, Dp, syrk)
 
 
+@loop_vmap(pin={2: False})
 class _CholSolveLogdet(torch.autograd.Function):
     """Forward: the fused factor/solve/logdet, in place on ``Kp``
     (``in_place``) or on a copy of it. Outputs ``(Lp, half_logdet, quad,
@@ -390,7 +388,8 @@ class _CholSolveLogdet(torch.autograd.Function):
     ``_csl_bwd`` of the JAX package (plain XLA ops there), whatever
     ``syrk``: ``ops.chol_inverse.csl_vjp``, the kernels of
     ``csrc/chol_inverse.cu`` on a CUDA tensor, torch.linalg on a CPU one.
-    ``vmap``: the Function on a copy of each system of the batch."""
+    ``vmap``: the Function on a copy of each system of the batch (never in
+    place)."""
 
     @staticmethod
     def forward(Kp, Dp, in_place, syrk):
@@ -407,11 +406,6 @@ class _CholSolveLogdet(torch.autograd.Function):
             ctx.mark_dirty(inputs[0])
         ctx.mark_non_differentiable(Lp, alpha)
         ctx.save_for_backward(Lp, alpha)
-
-    @staticmethod
-    def vmap(info, in_dims, Kp, Dp, in_place, syrk):
-        return vmap_loop(lambda k, d: _CholSolveLogdet.apply(k, d.contiguous(), False, syrk), info,
-                         in_dims[:2], Kp, Dp)
 
     @staticmethod
     def backward(ctx, _gL, ghl, gq, _galpha):

@@ -32,7 +32,7 @@ import torch
 
 from ..utils.trace import named_scope
 from . import _build
-from ._func import vmap_loop
+from ._func import kernel_function, loop_vmap, on_device
 
 EUCLID_EPS = 1e-12
 # kind -> id of the ``Kind`` enum in csrc/common.cuh
@@ -123,17 +123,6 @@ def gram_lower_plain(kind, Xs, variance):
     return K.masked_fill(t[:, None] < t[None, :], 0.0)
 
 
-def _check_xs(name, *xs):
-    for x in xs:
-        if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2:
-            raise ValueError(
-                f"{name} takes 2-D CUDA float32 inputs; got {x.dim()}-D {x.dtype} on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} needs contiguous inputs")
-        if x.shape[1] < 1:
-            raise ValueError(f"{name}: inputs need at least one column, got {tuple(x.shape)}")
-
-
 def _scalar_on(value, x):
     # a float32 scalar on x's device, for its address: the tensor itself when
     # it is one already
@@ -145,29 +134,21 @@ def _scalar_on(value, x):
 
 def gram_cuda(kind, Xs, X2s, variance):
     """Launch the cross-Gram kernel of ``csrc/gram.cu`` on CUDA float32
-    tensors: returns the (N, M) ``K(Xs, X2s)``. ``gram_cuda.launches``
-    counts every launch, and ``gram_cuda.by_shape`` the launches of each
-    (N, M)."""
+    tensors: returns the (N, M) ``K(Xs, X2s)``. Counted in
+    ``_build.launches`` as ``"gfs_gram"`` and ``("gfs_gram", (N, M))``."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
-    _check_xs("gram_cuda", Xs, X2s)
+    _build.check_tensor("gram_cuda", "Xs", Xs, 2, at_least=(0, 1))
+    _build.check_tensor("gram_cuda", "X2s", X2s, 2, at_least=(0, 1))
     (N, D), (M, D2) = Xs.shape, X2s.shape
     if D2 != D or X2s.get_device() != Xs.get_device():
         raise ValueError(f"bad inputs: Xs {tuple(Xs.shape)} on {Xs.device}, "
                          f"X2s {tuple(X2s.shape)} on {X2s.device}")
     var = _scalar_on(variance, Xs)
     out = Xs.new_empty((N, M))
-    lib = _build.load_library()
-    code = lib.gfs_gram(Xs.data_ptr(), N, X2s.data_ptr(), M, D, var.data_ptr(), KINDS[kind],
-                        out.data_ptr(), _build.stream_of(Xs))
-    _build.check(lib, code, "gram")
-    gram_cuda.launches += 1
-    gram_cuda.by_shape[N, M] = gram_cuda.by_shape.get((N, M), 0) + 1
+    _build.launch("gfs_gram", Xs.data_ptr(), N, X2s.data_ptr(), M, D, var.data_ptr(), KINDS[kind], out.data_ptr(),
+                  on=Xs, detail=(N, M))
     return out
-
-
-gram_cuda.launches = 0
-gram_cuda.by_shape = {}
 
 
 def gram_lower_cuda(kind, Xs, variance):
@@ -176,22 +157,15 @@ def gram_lower_cuda(kind, Xs, variance):
     tiles, zero in the strictly-upper ``TILE`` x ``TILE`` tiles. One launch
     writes 8-row (or, for N below 2112, 1-row) bands of 1024-column sweeps:
     the Gram left of each band's tile-row edge, zero stores alone right of
-    it. ``gram_lower_cuda.launches`` counts every launch."""
+    it."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
-    _check_xs("gram_lower_cuda", Xs)
+    _build.check_tensor("gram_lower_cuda", "Xs", Xs, 2, at_least=(0, 1))
     N, D = Xs.shape
     var = _scalar_on(variance, Xs)
     out = Xs.new_empty((N, N))
-    lib = _build.load_library()
-    code = lib.gfs_gram_lower(Xs.data_ptr(), N, D, var.data_ptr(), KINDS[kind], out.data_ptr(),
-                              _build.stream_of(Xs))
-    _build.check(lib, code, "gram_lower")
-    gram_lower_cuda.launches += 1
+    _build.launch("gfs_gram_lower", Xs.data_ptr(), N, D, var.data_ptr(), KINDS[kind], out.data_ptr(), on=Xs)
     return out
-
-
-gram_lower_cuda.launches = 0
 
 
 def _unit_map_and_slope(kind, d2):
@@ -248,19 +222,11 @@ def _gram_vjp(kind, g, Xs, X2s, variance, needs=(True, True, True)):
     return gX, gY, gvar
 
 
-def _gram_forward(kind, Xs, X2s, variance):
-    # plain for CPU tensors; launch or raise otherwise
-    if Xs.device.type == "cpu":
-        return gram_reference(kind, Xs, X2s, variance)
-    return gram_cuda(kind, Xs, X2s, variance)
+_gram_forward = on_device(gram_reference, gram_cuda, at=1)
+_gram_lower_forward = on_device(gram_lower_plain, gram_lower_cuda, at=1)
 
 
-def _gram_lower_forward(kind, Xs, variance):
-    if Xs.device.type == "cpu":
-        return gram_lower_plain(kind, Xs, variance)
-    return gram_lower_cuda(kind, Xs, variance)
-
-
+@loop_vmap
 class _Gram(torch.autograd.Function):
     """Forward: the cross Gram (kernel or plain). Backward: ``_bwd`` of the
     JAX package in closed form (``_gram_vjp``). ``vmap``: the Function on
@@ -281,12 +247,8 @@ class _Gram(torch.autograd.Function):
         with named_scope("gfs.gram.bwd"):
             return (None, *_gram_vjp(ctx.kind, g, *ctx.saved_tensors, needs=ctx.needs_input_grad[1:]))
 
-    @staticmethod
-    def vmap(info, in_dims, kind, Xs, X2s, variance):
-        return vmap_loop(lambda x, y, v: _Gram.apply(kind, x.contiguous(), y.contiguous(), v), info,
-                         in_dims[1:], Xs, X2s, variance)
 
-
+@loop_vmap
 class _GramLower(torch.autograd.Function):
     """Forward: the lower-tile Gram (kernel or plain). Backward:
     ``_lower_bwd`` of the JAX package, the full composite's VJP, exact for
@@ -309,11 +271,6 @@ class _GramLower(torch.autograd.Function):
         needs = ctx.needs_input_grad
         with named_scope("gfs.gram_lower.bwd"):
             return (None, *_gram_vjp(ctx.kind, g, Xs, None, variance, needs=(needs[1], False, needs[2])))
-
-    @staticmethod
-    def vmap(info, in_dims, kind, Xs, variance):
-        return vmap_loop(lambda x, v: _GramLower.apply(kind, x.contiguous(), v), info, in_dims[1:],
-                         Xs, variance)
 
 
 def stationary_gram(kind, Xs, X2s, variance):
@@ -343,6 +300,13 @@ def gram_chol_operand_plain(kind, Xs, variance, noise, pad_to):
     return out
 
 
+def _check_pad_to(X, pad_to):
+    # the operand kernels store 16-byte runs of a row; checked before the
+    # tensors' device
+    if pad_to < X.shape[0] or pad_to % 4:
+        raise ValueError(f"bad shapes: X {tuple(X.shape)}, pad_to {pad_to} (at least N, a multiple of 4)")
+
+
 def gram_chol_operand_cuda(kind, Xs, variance, noise, pad_to):
     """Launch ``csrc/gram_operand.cu`` on CUDA float32 tensors.
 
@@ -354,22 +318,14 @@ def gram_chol_operand_cuda(kind, Xs, variance, noise, pad_to):
     """
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
-    if pad_to < Xs.shape[0] or pad_to % 4:
-        raise ValueError(f"bad shapes: Xs {tuple(Xs.shape)}, pad_to {pad_to} (at least N, a multiple of 4)")
-    _check_xs("gram_chol_operand_cuda", Xs)
+    _check_pad_to(Xs, pad_to)
+    _build.check_tensor("gram_chol_operand_cuda", "Xs", Xs, 2, at_least=(0, 1))
     N, D = Xs.shape
     var, nz = _scalar_on(variance, Xs), _scalar_on(noise, Xs)
     out = Xs.new_empty((pad_to, pad_to))
-    lib = _build.load_library()
-    code = lib.gfs_gram_chol_operand(
-        Xs.data_ptr(), N, D, var.data_ptr(), nz.data_ptr(), KINDS[kind], pad_to, out.data_ptr(),
-        _build.stream_of(Xs))
-    _build.check(lib, code, "gram_chol_operand")
-    gram_chol_operand_cuda.launches += 1
+    _build.launch("gfs_gram_chol_operand", Xs.data_ptr(), N, D, var.data_ptr(), nz.data_ptr(), KINDS[kind], pad_to,
+                  out.data_ptr(), on=Xs)
     return out
-
-
-gram_chol_operand_cuda.launches = 0
 
 
 def gram_operand_vjp_plain(kind, g, Xs, variance):
@@ -391,61 +347,28 @@ def gram_operand_vjp_cuda(kind, g, Xs, variance):
     the CUDA float32 ``Xs`` (N, D) and ``variance``. Returns ``(gXs, gvar,
     gnoise)`` in float32, the last two 0-d; every sum in float64, in a
     fixed order (the same bits from run to run), rounded once. Two launches
-    (the tiles, then their reduce), no host sync.
-    ``gram_operand_vjp_cuda.launches`` counts the calls."""
+    (the tiles, then their reduce), no host sync."""
     if kind not in KINDS:
         raise ValueError(f"unknown kind {kind!r}")
-    _check_xs("gram_operand_vjp_cuda", Xs)
+    _build.check_tensor("gram_operand_vjp_cuda", "Xs", Xs, 2, at_least=(0, 1))
     N, D = Xs.shape
-    if g.dtype != torch.float32 or g.device != Xs.device or g.dim() != 2 or g.shape[0] < N or g.shape[1] < N \
-            or g.stride(1) != 1:
-        raise ValueError(f"gram_operand_vjp_cuda: g {tuple(g.shape)} {g.dtype} on {g.device} (float32 on "
-                         f"{Xs.device}, at least {N} x {N}, rows contiguous)")
+    _build.check_tensor("gram_operand_vjp_cuda", "g", g, 2, layout="rows", on=Xs, at_least=(N, N))
     var = _scalar_on(variance, Xs)
-    lib = _build.load_library()
-    partial = torch.empty(lib.gfs_gram_operand_vjp_scratch(N, D), dtype=torch.float64, device=Xs.device)
+    partial = torch.empty(_build.load_library().gfs_gram_operand_vjp_scratch(N, D), dtype=torch.float64,
+                          device=Xs.device)
     gX = Xs.new_empty((N, D))
     gvar, gnoise = Xs.new_empty(()), Xs.new_empty(())
-    code = lib.gfs_gram_operand_vjp(
-        g.data_ptr(), g.stride(0), Xs.data_ptr(), N, D, var.data_ptr(), KINDS[kind], partial.data_ptr(),
-        partial.numel(), gX.data_ptr(), gvar.data_ptr(), gnoise.data_ptr(), _build.stream_of(Xs))
-    _build.check(lib, code, "gram_operand_vjp")
-    gram_operand_vjp_cuda.launches += 1
+    _build.launch("gfs_gram_operand_vjp", g.data_ptr(), g.stride(0), Xs.data_ptr(), N, D, var.data_ptr(), KINDS[kind],
+                  partial.data_ptr(), partial.numel(), gX.data_ptr(), gvar.data_ptr(), gnoise.data_ptr(), on=Xs)
     return gX, gvar, gnoise
 
 
-gram_operand_vjp_cuda.launches = 0
+# the operand's VJP: plain for CPU tensors, the kernel for any other
+_operand_vjp = kernel_function(gram_operand_vjp_plain, gram_operand_vjp_cuda, at=1)
+_operand = on_device(gram_chol_operand_plain, gram_chol_operand_cuda, at=1)
 
 
-class _GramOperandVjp(torch.autograd.Function):
-    """``gram_operand_vjp_cuda`` as a Function: under a ``torch.func``
-    transform a backward gets wrapped tensors, and only a Function's
-    forward hands a kernel plain ones. Not differentiable (no backward).
-    ``vmap``: the Function on each entry of the batch."""
-
-    @staticmethod
-    def forward(kind, g, Xs, variance):
-        return gram_operand_vjp_cuda(kind, g if g.stride(-1) == 1 else g.contiguous(), Xs, variance)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def vmap(info, in_dims, kind, g, Xs, variance):
-        return vmap_loop(lambda a, x, v: _GramOperandVjp.apply(kind, a, x.contiguous(), v), info,
-                         in_dims[1:], g, Xs, variance)
-
-
-def _operand(kind, Xs, variance, noise, pad_to):
-    # plain for CPU tensors; any other tensor goes to the kernel, which
-    # launches or raises (ops.linalg.kernels_active decides whether the
-    # kernels are wanted at all)
-    if Xs.device.type == "cpu":
-        return gram_chol_operand_plain(kind, Xs, variance, noise, pad_to)
-    return gram_chol_operand_cuda(kind, Xs, variance, noise, pad_to)
-
-
+@loop_vmap
 class _GramCholOperand(torch.autograd.Function):
     """Forward: the operand (kernel or plain). Backward: ``_opnd_bwd`` of the
     JAX package, the VJP of the plain full-Gram + noise * I composite on the
@@ -456,8 +379,8 @@ class _GramCholOperand(torch.autograd.Function):
     ~10x its size (Xs * rowsum(G) - G Xs) that float32 loses (12x further
     from the f64 gradient at BASELINE config #4, N=1000, noise 0.05, on the
     CPU). CPU tensors take ``gram_operand_vjp_plain``; any other tensor takes
-    ``gram_operand_vjp_cuda`` (through ``_GramOperandVjp``), which forms
-    the same closed form pair by pair and launches or raises."""
+    ``gram_operand_vjp_cuda`` (through ``_operand_vjp``, a Function), which
+    forms the same closed form pair by pair and launches or raises."""
 
     @staticmethod
     def forward(kind, Xs, variance, noise, pad_to):
@@ -474,18 +397,11 @@ class _GramCholOperand(torch.autograd.Function):
         Xs, variance, noise = ctx.saved_tensors
         needs = ctx.needs_input_grad
         with named_scope("gfs.gram_operand.bwd"):
-            if Xs.device.type != "cpu":
-                ga, gv, gn = _GramOperandVjp.apply(ctx.kind, g, Xs, variance)
-                return (None, ga if needs[1] else None, gv.reshape(variance.shape) if needs[2] else None,
-                        gn.reshape(noise.shape) if needs[3] else None, None)
-            ga, gv, gn = gram_operand_vjp_plain(ctx.kind, g, Xs, variance)
-            return (None, ga.to(Xs.dtype) if needs[1] else None, gv.to(Xs.dtype) if needs[2] else None,
+            # the kernel reads g's rows in place; float64 from the plain version
+            ga, gv, gn = _operand_vjp(ctx.kind, g if g.stride(-1) == 1 else g.contiguous(), Xs, variance)
+            return (None, ga.to(Xs.dtype) if needs[1] else None,
+                    gv.to(Xs.dtype).reshape(variance.shape) if needs[2] else None,
                     gn.to(Xs.dtype).reshape(noise.shape) if needs[3] else None, None)
-
-    @staticmethod
-    def vmap(info, in_dims, kind, Xs, variance, noise, pad_to):
-        return vmap_loop(lambda x, v, n: _GramCholOperand.apply(kind, x.contiguous(), v, n, pad_to), info,
-                         in_dims[1:4], Xs, variance, noise)
 
 
 def gram_chol_operand(kind, Xs, variance, noise, pad_to):

@@ -30,7 +30,6 @@ explicit on/off pair, not a fallback. No routed call reaches
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .. import config
 from . import cholesky as _chol
@@ -43,20 +42,7 @@ def kernels_active(t: torch.Tensor) -> bool:
     return config.settings().use_kernels and t.is_cuda and t.dtype == torch.float32
 
 
-def pad_system(K, D):
-    """``(Kp, Dp)``: ``K`` (N, N) copied into an (Np, Np) matrix with a
-    unit-diagonal extension, Np the next multiple of ``ops.cholesky.BLOCK``,
-    and ``D`` (N, P) with zero pad rows. Its factor is ``chol(K)`` in the
-    leading block and the identity in the pad, so the pad rows of
-    ``chol(Kp)^-1 Dp`` are exactly zero and the pad's log-diagonal terms
-    exactly log 1: the padded system's half-logdet and quad are the leading
-    system's."""
-    N = K.shape[0]
-    Np = N + (-N) % _chol.BLOCK
-    # contiguous: a zero pad keeps K's strides, and the kernel reads rows
-    Kp = F.pad(K, (0, Np - N, 0, Np - N)).contiguous()
-    Kp.diagonal()[N:] = 1.0
-    return Kp, F.pad(D.to(K.dtype), (0, 0, 0, Np - N)).contiguous()
+pad_system = _chol.pad_system
 
 
 def chol_logdet_quad(K, D):
@@ -105,11 +91,11 @@ def gpr_chol_terms(kern, X, noise, D):
         D = D[:, None]
     N = X.shape[0]
     if kernels_active(X):
-        Np = N + (-N) % _chol.BLOCK
+        Np = _chol.padded_size(N)
         operand = getattr(kern, "gram_chol_operand", None)
         Kp = operand(X, noise, Np) if operand is not None else None
         if Kp is not None:
-            return _chol.cholesky_solve_logdet(Kp, F.pad(D.to(Kp.dtype), (0, 0, 0, Np - N)))
+            return _chol.cholesky_solve_logdet(Kp, _chol.pad_rows(D, Np, Kp.dtype))
         Kp, Dp = pad_system(kern.K_lower(X), D)
         return _chol.cholesky_solve_logdet(_add_to_diagonal(Kp, noise, N), Dp)
     return chol_logdet_quad(_add_to_diagonal(kern.K_lower(X), noise, N), D)

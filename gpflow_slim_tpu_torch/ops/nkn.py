@@ -39,8 +39,8 @@ import torch
 
 from ..utils.trace import named_scope
 from . import _build
-from ._func import vmap_loop
-from .gram import KINDS, _check_xs, _scalar_on, _unit_map_and_slope, apply_map
+from ._func import kernel_function, loop_vmap, on_device
+from .gram import KINDS, _check_pad_to, _scalar_on, _unit_map_and_slope, apply_map
 
 # the covered network: ("linear", in, out) and ("product", in, step)
 NET = (("linear", 8, 8), ("product", 8, 2), ("linear", 4, 4), ("product", 4, 2), ("linear", 2, 1))
@@ -192,14 +192,13 @@ def _vjp_rows(g, X, X2, theta, kinds):
 
 
 def _check(name, X, theta, kinds):
-    _check_xs(name, X)
+    _build.check_tensor(name, "X", X, 2, at_least=(0, 1))
     D = X.shape[1]
     if D not in DIMS:
         raise ValueError(f"{name}: D = {D}; the kernels are built for D in {DIMS}")
-    if theta.dtype != torch.float32 or theta.device != X.device or theta.shape != (theta_size(D),) \
-            or not theta.is_contiguous():
-        raise ValueError(f"{name}: theta must be a contiguous float32 vector of {theta_size(D)} on {X.device}; "
-                         f"got {tuple(theta.shape)} {theta.dtype} on {theta.device}")
+    _build.check_tensor(name, "theta", theta, 1, on=X)
+    if theta.shape != (theta_size(D),):
+        raise ValueError(f"bad shapes: theta {tuple(theta.shape)} (a vector of {theta_size(D)})")
     if len(kinds) != PRIMS or not all(0 <= int(k) <= PERIODIC for k in kinds):
         raise ValueError(f"{name}: kinds {kinds} (8 kinds, each 0..{PERIODIC})")
     return D
@@ -230,78 +229,41 @@ def nkn_operand_cuda(X, theta, noise, kinds, pad_to):
     (8 ints). Returns a (pad_to, pad_to) matrix whose lower triangle is
     ``K_NKN + noise * I`` with the unit-diagonal pad; entries above the
     diagonal outside its 8 x 8 diagonal blocks are left as ``torch.empty``
-    made them. ``pad_to`` is a multiple of 4 and at least N.
-    ``nkn_operand_cuda.launches`` counts the calls."""
+    made them. ``pad_to`` is a multiple of 4 and at least N."""
     D = _check("nkn_operand_cuda", X, theta, kinds)
     N = X.shape[0]
-    if pad_to < N or pad_to % 4:
-        raise ValueError(f"bad shapes: X {tuple(X.shape)}, pad_to {pad_to} (at least N, a multiple of 4)")
+    _check_pad_to(X, pad_to)
     nz = _scalar_on(noise, X)
     out = X.new_empty((pad_to, pad_to))
-    lib = _library("nkn_operand_cuda")
-    code = lib.gfs_nkn_operand(X.data_ptr(), N, D, theta.data_ptr(), theta.numel(), _kinds_arg(kinds),
-                               nz.data_ptr(), pad_to, out.data_ptr(), _build.stream_of(X))
-    _build.check(lib, code, "nkn_operand")
-    nkn_operand_cuda.launches += 1
+    _library("nkn_operand_cuda")
+    _build.launch("gfs_nkn_operand", X.data_ptr(), N, D, theta.data_ptr(), theta.numel(), _kinds_arg(kinds),
+                  nz.data_ptr(), pad_to, out.data_ptr(), on=X)
     return out
-
-
-nkn_operand_cuda.launches = 0
 
 
 def nkn_vjp_cuda(g, X, theta, kinds):
     """Launch ``csrc/nkn_operand.cu``'s VJP on CUDA float32 tensors: ``g``
     (at least N x N, unit column stride; its leading block's lower triangle
     is read and taken as symmetric). Returns ``(gtheta, gnoise)`` in float64;
-    no host sync. ``nkn_vjp_cuda.launches`` counts the calls."""
+    no host sync."""
     D = _check("nkn_vjp_cuda", X, theta, kinds)
     N = X.shape[0]
-    if g.dtype != torch.float32 or g.device != X.device or g.dim() != 2 or g.shape[0] < N or g.shape[1] < N \
-            or g.stride(1) != 1:
-        raise ValueError(f"nkn_vjp_cuda: g {tuple(g.shape)} {g.dtype} on {g.device} (float32, at least "
-                         f"{N} x {N}, rows contiguous)")
-    lib = _library("nkn_vjp_cuda")
-    n_partial = lib.gfs_nkn_vjp_scratch(N, D)
+    _build.check_tensor("nkn_vjp_cuda", "g", g, 2, layout="rows", on=X, at_least=(N, N))
+    n_partial = _library("nkn_vjp_cuda").gfs_nkn_vjp_scratch(N, D)
     partial = torch.empty(n_partial, dtype=torch.float64, device=X.device)
     out = torch.empty(acc_size(D), dtype=torch.float64, device=X.device)
-    code = lib.gfs_nkn_vjp(X.data_ptr(), N, D, theta.data_ptr(), theta.numel(), _kinds_arg(kinds), g.data_ptr(),
-                           g.stride(0), partial.data_ptr(), n_partial, out.data_ptr(), _build.stream_of(X))
-    _build.check(lib, code, "nkn_vjp")
-    nkn_vjp_cuda.launches += 1
+    _build.launch("gfs_nkn_vjp", X.data_ptr(), N, D, theta.data_ptr(), theta.numel(), _kinds_arg(kinds), g.data_ptr(),
+                  g.stride(0), partial.data_ptr(), n_partial, out.data_ptr(), on=X)
     n = theta_size(D)
     return out[:n], out[n]
 
 
-nkn_vjp_cuda.launches = 0
+# ``(gtheta, gnoise)`` in float64: plain for CPU tensors, the kernels for any other
+nkn_vjp = kernel_function(nkn_vjp_plain, nkn_vjp_cuda, at=1)
+_nkn_operand = on_device(nkn_operand_plain, nkn_operand_cuda)
 
 
-class _NKNVjp(torch.autograd.Function):
-    """``nkn_vjp_cuda`` as a Function: a backward under a ``torch.func``
-    transform gets wrapped tensors, and only a Function's forward hands a
-    kernel plain ones. Not differentiable."""
-
-    @staticmethod
-    def forward(g, X, theta, kinds):
-        return nkn_vjp_cuda(g, X, theta, kinds)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def vmap(info, in_dims, g, X, theta, kinds):
-        return vmap_loop(lambda a, x, t: _NKNVjp.apply(a, x.contiguous(), t.contiguous(), kinds), info,
-                         in_dims[:3], g, X, theta)
-
-
-def nkn_vjp(g, X, theta, kinds):
-    """``(gtheta, gnoise)`` in float64: plain for CPU tensors, the kernels
-    for any other."""
-    if X.device.type == "cpu":
-        return nkn_vjp_plain(g, X, theta, kinds)
-    return _NKNVjp.apply(g, X, theta, kinds)
-
-
+@loop_vmap
 class _NKNCholOperand(torch.autograd.Function):
     """Forward: the operand (kernel or plain). Backward: ``nkn_vjp`` on the
     cotangent's ``[:N, :N]`` block, in float64 for float32 inputs (the
@@ -313,9 +275,7 @@ class _NKNCholOperand(torch.autograd.Function):
     @staticmethod
     def forward(X, theta, noise, kinds, pad_to):
         with named_scope("gfs.nkn_operand.fwd"):
-            if X.device.type == "cpu":
-                return nkn_operand_plain(X, theta, noise, kinds, pad_to)
-            return nkn_operand_cuda(X, theta, noise, kinds, pad_to)
+            return _nkn_operand(X, theta, noise, kinds, pad_to)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -326,13 +286,9 @@ class _NKNCholOperand(torch.autograd.Function):
     def backward(ctx, g):
         X, theta, noise = ctx.saved_tensors
         with named_scope("gfs.nkn_operand.bwd"):
-            gtheta, gnoise = nkn_vjp(g, X, theta, ctx.kinds)
+            # the kernel reads g's rows in place
+            gtheta, gnoise = nkn_vjp(g if g.stride(-1) == 1 else g.contiguous(), X, theta, ctx.kinds)
             return None, gtheta.to(theta.dtype), gnoise.reshape(noise.shape).to(noise.dtype), None, None
-
-    @staticmethod
-    def vmap(info, in_dims, X, theta, noise, kinds, pad_to):
-        return vmap_loop(lambda x, t, n: _NKNCholOperand.apply(x.contiguous(), t.contiguous(), n, kinds, pad_to),
-                         info, in_dims[:3], X, theta, noise)
 
 
 def nkn_chol_operand(X, theta, noise, kinds, pad_to):

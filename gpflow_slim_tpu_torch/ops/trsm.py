@@ -12,7 +12,7 @@ version beside it:
   in ``csrc/batched_trsm.cu``; plain ``solve_triangular_plain`` on the
   batch.
 
-The two wrappers share their checks and launch (``_launch``), and one
+The two wrappers share their checks (``_check``), and one
 autograd Function (``_Trsm``) serves a triangle or a batch; under
 ``torch.func.vmap`` a batch of single-triangle solves becomes one call of
 the batched kernel.
@@ -105,44 +105,19 @@ def _layout(T):
     return None
 
 
-def _launch(entry, T, B, lower):
-    """The checks and the launch the two kernels share: ``entry`` is
-    ``"trsm"`` (T (N, N), B (N, P)) or ``"batched_trsm"`` (T (P, M, M),
-    B (P, M, K)); it returns ``X``, a new tensor, and leaves ``B``."""
-    rank = 2 if entry == "trsm" else 3
-    for name, t in (("T", T), ("B", B)):
-        if not t.is_cuda or t.dtype != torch.float32 or t.dim() != rank:
-            raise ValueError(
-                f"{entry}_cuda takes {rank}-D CUDA float32 tensors; {name} is {t.dim()}-D {t.dtype} "
-                f"on {t.device}")
-    M, K = B.shape[-2:]
+def _check(fn, T, B, rank):
+    """The checks the two kernels share, for T (N, N) and B (N, P) (rank
+    2), or T (P, M, M) and B (P, M, K) (rank 3): returns ``_layout(T)``."""
+    _build.check_tensor(fn, "T", T, rank, layout=None)
+    _build.check_tensor(fn, "B", B, rank, on=T)
+    M = B.shape[-2]
     if T.shape != (*B.shape[:-1], M) or min(B.shape) < 1:
         raise ValueError(f"bad shapes: T {tuple(T.shape)}, B {tuple(B.shape)} (T square over B's "
                          f"rows, each dimension at least 1)")
-    if B.device != T.device:
-        raise ValueError(f"T on {T.device} but B on {B.device}")
-    if not B.is_contiguous():
-        raise ValueError(f"{entry}_cuda needs a contiguous B")
     layout = _layout(T)
     if layout is None:
-        raise ValueError(f"{entry}_cuda reads each triangle row major or transposed; got strides "
-                         f"{T.stride()}")
-    batch_stride, ld, trans = layout
-    lib = _build.load_library()
-    stream = _build.stream_of(T)
-    if rank == 2:  # in place on a copy of B
-        X = B.clone()
-        sync = torch.empty(trsm_scratch(M, K), dtype=torch.int32, device=T.device)
-        code = lib.gfs_trsm(T.data_ptr(), M, ld, trans, int(lower), X.data_ptr(), K, sync.data_ptr(),
-                            stream)
-    else:  # out of place
-        P = B.shape[0]
-        X = torch.empty_like(B)
-        sync = torch.empty(batched_trsm_scratch(P, M, K), dtype=torch.int32, device=T.device)
-        code = lib.gfs_batched_trsm(T.data_ptr(), P, M, ld, batch_stride, trans, int(lower), B.data_ptr(),
-                                    X.data_ptr(), K, sync.data_ptr(), stream)
-    _build.check(lib, code, entry)
-    return X
+        raise ValueError(f"{fn} reads each triangle row major or transposed; got strides {T.stride()}")
+    return layout
 
 
 def trsm_cuda(T, B, lower):
@@ -150,16 +125,15 @@ def trsm_cuda(T, B, lower):
     ``T X = B``, ``T`` (N, N) lower (``lower``) or upper triangular, ``B``
     (N, P), P >= 1, contiguous. ``T`` is row major (any row stride of at
     least N) or the transposed view of such a matrix; only its triangle is
-    read. ``trsm_cuda.launches`` counts every launch, and
-    ``trsm_cuda.by_schedule`` the launches of each schedule."""
-    X = _launch("trsm", T, B, lower)
-    trsm_cuda.launches += 1
-    trsm_cuda.by_schedule[trsm_schedule(B.shape[1])] += 1
+    read. Counted in ``_build.launches`` as ``"gfs_trsm"`` and
+    ``("gfs_trsm", trsm_schedule(P))``."""
+    _, ld, trans = _check("trsm_cuda", T, B, 2)
+    N, P = B.shape
+    X = B.clone()  # solved in place
+    sync = torch.empty(trsm_scratch(N, P), dtype=torch.int32, device=T.device)
+    _build.launch("gfs_trsm", T.data_ptr(), N, ld, trans, int(lower), X.data_ptr(), P, sync.data_ptr(), on=T,
+                  detail=trsm_schedule(P))
     return X
-
-
-trsm_cuda.launches = 0
-trsm_cuda.by_schedule = {"thin": 0, "wide": 0}
 
 
 def batched_trsm_cuda(T, B, lower):
@@ -168,12 +142,13 @@ def batched_trsm_cuda(T, B, lower):
     upper triangular, ``B`` (P, M, K), K >= 1, contiguous. Each ``T[p]`` is
     read as ``trsm_cuda`` reads its ``T``, and the batch may have stride 0;
     only the triangles are read."""
-    X = _launch("batched_trsm", T, B, lower)
-    batched_trsm_cuda.launches += 1
+    batch_stride, ld, trans = _check("batched_trsm_cuda", T, B, 3)
+    P, M, K = B.shape
+    X = torch.empty_like(B)
+    sync = torch.empty(batched_trsm_scratch(P, M, K), dtype=torch.int32, device=T.device)
+    _build.launch("gfs_batched_trsm", T.data_ptr(), P, M, ld, batch_stride, trans, int(lower), B.data_ptr(),
+                  X.data_ptr(), K, sync.data_ptr(), on=T)
     return X
-
-
-batched_trsm_cuda.launches = 0
 
 
 def _solve(T, B, lower):

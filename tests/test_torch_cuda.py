@@ -187,10 +187,10 @@ def _csl_system(Np, P, dev):
 def test_csl_vjp_kernel_matches_plain(dev, Np, P):
     Lp, alpha, N = _csl_system(Np, P, dev)
     ghl, gq = torch.tensor(0.7, device=dev), torch.tensor(-1.3, device=dev)
-    before = chol_inverse.csl_vjp_cuda.launches
+    before = _build.launches["gfs_csl_vjp"]
     Kbar, Dbar = chol_inverse.csl_vjp_cuda(Lp, alpha, ghl, gq)
     torch.cuda.synchronize()
-    assert chol_inverse.csl_vjp_cuda.launches == before + 1
+    assert _build.launches["gfs_csl_vjp"] == before + 1
     Kw, Dw = chol_inverse.csl_vjp_plain(Lp.double(), alpha.double(), ghl.double(), gq.double())
     # both in f64 from the same f32 factor, in another order of sums: 1e-10
     # of the largest entry, on top of the kernel's one rounding to f32
@@ -211,20 +211,20 @@ def test_csl_vjp_kernel_runs_once_a_backward(dev):
     Dp = torch.zeros(1088, 2, device=dev)
     Dp[:N] = torch.tensor(np.random.RandomState(3).randn(N, 2), dtype=torch.float32, device=dev)
     Dp.requires_grad_()
-    before = chol_inverse.csl_vjp_cuda.launches
+    before = _build.launches["gfs_csl_vjp"]
     hl, q = cholesky.cholesky_solve_logdet(Kp.clone(), Dp)
     (0.7 * hl - 1.3 * q).backward()
-    assert chol_inverse.csl_vjp_cuda.launches == before + 1
+    assert _build.launches["gfs_csl_vjp"] == before + 1
     Kw, Dw = chol_inverse.csl_vjp_plain(Lp.double(), alpha.double(), torch.tensor(0.7).double(),
                                         torch.tensor(-1.3).double())
     assert float((Kp.grad.double() - Kw).abs().max()) <= 1e-6 * float(Kw.abs().max())
     assert float((Dp.grad.double() - Dw).abs().max()) <= 1e-6 * float(Dw.abs().max())
     # under torch.func: grad of each system of a batch, through the
     # kernels' Function (one launch a system)
-    before = chol_inverse.csl_vjp_cuda.launches
+    before = _build.launches["gfs_csl_vjp"]
     Ks = torch.stack([Kp.detach(), Kp.detach()])
     gK = torch.func.vmap(torch.func.grad(lambda k: cholesky.cholesky_solve_logdet(k, Dp.detach())[0]))(Ks)
-    assert chol_inverse.csl_vjp_cuda.launches == before + 2
+    assert _build.launches["gfs_csl_vjp"] == before + 2
     Kh, _ = chol_inverse.csl_vjp_plain(Lp.double(), alpha.double(), torch.tensor(1.0).double(),
                                        torch.tensor(0.0).double())
     for g in gK:
@@ -277,9 +277,9 @@ def test_operand_vjp_kernel_matches_plain(dev, kind, D, N):
     Np = N + (-N) % 64 + 64
     xs, G = _opnd_vjp_inputs(N, D, Np, dev)
     var = torch.tensor(1.7, device=dev)
-    before = gram.gram_operand_vjp_cuda.launches
+    before = _build.launches["gfs_gram_operand_vjp"]
     got = gram.gram_operand_vjp_cuda(kind, G, xs, var)
-    assert gram.gram_operand_vjp_cuda.launches == before + 1
+    assert _build.launches["gfs_gram_operand_vjp"] == before + 1
     _opnd_vjp_close(got, gram.gram_operand_vjp_plain(kind, G, xs, var))
 
 
@@ -306,9 +306,9 @@ def test_operand_vjp_runs_once_a_backward(dev):
     X = rng.uniform(0, 1, (700, 2)).astype(np.float32)
     Y = (np.sin(12 * X[:, :1]) + 0.1 * rng.randn(700, 1)).astype(np.float32)
     m = gft.models.GPR(X, Y, kern=gft.kernels.Matern52(2, lengthscales=0.1), device=dev, dtype=torch.float32)
-    before = gram.gram_operand_vjp_cuda.launches
+    before = _build.launches["gfs_gram_operand_vjp"]
     m.objective().backward()
-    assert gram.gram_operand_vjp_cuda.launches == before + 1
+    assert _build.launches["gfs_gram_operand_vjp"] == before + 1
     # under torch.func: grad of each system of a batch, through the VJP's
     # Function (one launch a system), against autograd on each
     Np = 704
@@ -321,9 +321,9 @@ def test_operand_vjp_runs_once_a_backward(dev):
         return sum(cholesky.cholesky_solve_logdet(gram.gram_chol_operand("rbf", x, v, noise, Np), Dp))
 
     batch = torch.stack([xs, 1.1 * xs])
-    before = gram.gram_operand_vjp_cuda.launches
+    before = _build.launches["gfs_gram_operand_vjp"]
     gx, gv = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)), in_dims=(0, None))(batch, var)
-    assert gram.gram_operand_vjp_cuda.launches == before + 2
+    assert _build.launches["gfs_gram_operand_vjp"] == before + 2
     for i in range(2):
         x, v = batch[i].clone().requires_grad_(), var.clone().requires_grad_()
         loss(x, v).backward()
@@ -374,10 +374,10 @@ def test_gpr_kernel_route_matches_f64_plain(dev, P):
                          dtype=torch.float64)
     gft.interop.load_unconstrained(m64, {
         n: p.unconstrained.detach().cpu().numpy() for n, p in gft.params.parameters(m32)})
-    before = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    before = (_build.launches["gfs_gram_chol_operand"], _build.launches["gfs_chol_solve_logdet"])
     loss32 = m32.objective()
     loss32.backward()
-    after = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    after = (_build.launches["gfs_gram_chol_operand"], _build.launches["gfs_chol_solve_logdet"])
     assert after == (before[0] + 1, before[1] + 1)
     loss64 = m64.objective()
     loss64.backward()
@@ -418,9 +418,9 @@ def test_lower_gram_edges_match_plain(dev, N, D):
     upper_tiles = t[:, None] < t[None, :]
     var = torch.tensor(1.7, device=dev)
     for kind in gram.KINDS:
-        before = gram.gram_lower_cuda.launches
+        before = _build.launches["gfs_gram_lower"]
         got = gram.gram_lower_cuda(kind, xs, var)
-        assert gram.gram_lower_cuda.launches == before + 1
+        assert _build.launches["gfs_gram_lower"] == before + 1
         assert bool((got[upper_tiles] == 0).all()), kind
         # every entry, the diagonal tiles' upper ones included; f32 rounding
         # of exp and d^2: 1e-5 x variance absolute
@@ -443,9 +443,9 @@ def test_cholesky_kernel_matches_plain(dev, N):
     # the padded, masked wrapper on the kernel route
     K = gram.gram_lower_cuda("matern52", _xs(N, 1, dev), 1.0)
     K.diagonal().add_(0.5)
-    before = cholesky.cholesky_cuda.launches
+    before = _build.launches["gfs_cholesky"]
     L = cholesky.cholesky(K)
-    assert cholesky.cholesky_cuda.launches == before + 1
+    assert _build.launches["gfs_cholesky"] == before + 1
     assert float((L.double() - Lw[:N, :N]).abs().max()) <= 1e-4 * float(Lw.abs().max())
     assert bool((torch.triu(L, 1) == 0).all())
 
@@ -464,14 +464,14 @@ def test_trsm_kernel_matches_plain(dev, N, P):
     Ld = L.double()
     for T, Td, lower in ((L, Ld, True), (L.T, Ld.T, False), (L.contiguous(), Ld, True),
                          (L.T.contiguous(), Ld.T, False)):
-        before = dict(trsm.trsm_cuda.by_schedule)
+        before = _build.launches.copy()
         got = trsm.trsm_cuda(T, B, lower)
         want = torch.linalg.solve_triangular(Td, B.double(), upper=not lower)
         # f32 substitution against f64: 1e-3 relative (max-norm), the fused
         # kernel's alpha gate
         assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
         schedule = "thin" if P <= 64 else "wide"
-        assert trsm.trsm_cuda.by_schedule[schedule] == before[schedule] + 1
+        assert _build.launches["gfs_trsm", schedule] == before["gfs_trsm", schedule] + 1
     assert torch.equal(B, B0)  # B untouched
 
 
@@ -533,11 +533,11 @@ def test_posterior_kernel_route_matches_f64_plain(dev):
                          dtype=torch.float32)
     m64 = gft.models.GPR(X, Y, kern=gft.kernels.RBF(1, lengthscales=0.1), device=dev,
                          dtype=torch.float64)
-    kernels = (gram.gram_cuda, gram.gram_lower_cuda, cholesky.cholesky_cuda, trsm.trsm_cuda)
-    before = [k.launches for k in kernels]
+    kernels = ("gfs_gram", "gfs_gram_lower", "gfs_cholesky", "gfs_trsm")
+    before = [_build.launches[k] for k in kernels]
     with torch.no_grad():
         mean, var = m32.posterior().predict_f(Xq)
-        after = [k.launches for k in kernels]
+        after = [_build.launches[k] for k in kernels]
         mean64, var64 = m64.posterior().predict_f(Xq)
     assert all(a > b for a, b in zip(after, before)), (before, after)
     assert after[3] == before[3] + 3  # TRSM: two for alpha, one for A
@@ -572,9 +572,9 @@ def test_batched_trsm_kernel_matches_plain(dev, P, M, Kc):
     cases = [(L, Ld, True), (L.mT, Ld.mT, False),  # lower, and upper through the transposed view
              (L0, Ld0, True), (L0.mT, Ld0.mT, False)]
     for T, Td, lower in cases:
-        before = trsm.batched_trsm_cuda.launches
+        before = _build.launches["gfs_batched_trsm"]
         got = trsm.batched_trsm_cuda(T, B, lower)
-        assert trsm.batched_trsm_cuda.launches == before + 1  # one launch, whatever the items
+        assert _build.launches["gfs_batched_trsm"] == before + 1  # one launch, whatever the items
         want = trsm.solve_triangular_plain(Td, B.double(), lower)
         # f32 substitution against f64: 1e-3 relative (max-norm), TRSM_TOL
         assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
@@ -591,12 +591,12 @@ def test_batched_trsm_backward_kernel_matches_plain(dev, M):
     for dtype in (torch.float32, torch.float64):
         t = L.to(dtype).clone().requires_grad_()  # fresh leaves in each dtype
         b = B.to(dtype).clone().requires_grad_()
-        before = trsm.batched_trsm_cuda.launches
+        before = _build.launches["gfs_batched_trsm"]
         X = (trsm.batched_solve_lower if dtype == torch.float32 else
              lambda a, c: trsm.solve_triangular_plain(a, c, True))(t.expand(P, -1, -1), b)
         torch.sum(X * G.to(dtype)).backward()
         if dtype == torch.float32:  # forward and backward both launched the kernel
-            assert trsm.batched_trsm_cuda.launches == before + 2
+            assert _build.launches["gfs_batched_trsm"] == before + 2
         grads.append((t.grad.double(), b.grad.double()))
     for got, want in zip(*grads):
         assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
@@ -633,14 +633,14 @@ def test_svgp_elbo_kernel_route_matches_f64_plain(dev, whiten):
             loss.backward()
         return loss.item(), {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(m)}
 
-    kernels = (gram.gram_cuda, cholesky.cholesky_cuda, trsm.trsm_cuda, trsm.batched_trsm_cuda)
-    before = [k.launches for k in kernels]
+    kernels = ("gfs_gram", "gfs_cholesky", "gfs_trsm", "gfs_batched_trsm")
+    before = [_build.launches[k] for k in kernels]
     k32 = elbo_and_grads(torch.float32, True)
-    after = [k.launches for k in kernels]
+    after = [_build.launches[k] for k in kernels]
     assert all(a > b for a, b in zip(after[:3], before[:3])), (before, after)
     assert (after[3] > before[3]) == (not whiten)  # only the unwhitened KL solves in a batch
     p32 = elbo_and_grads(torch.float32, False)
-    assert [k.launches for k in kernels] == after  # use_kernels=False launches nothing
+    assert [_build.launches[k] for k in kernels] == after  # use_kernels=False launches nothing
     v64, g64 = elbo_and_grads(torch.float64, False)
     # the kernel route within 2x the stock f32 route's error against f64,
     # plus 1e-6 relative on the value and 1e-5 (max-norm) on each gradient:
@@ -779,12 +779,13 @@ def test_composite_gpr_runs_the_padded_fused_kernel(dev, monkeypatch):
     # fused factor/solve/logdet, never the operand, never torch.linalg
     X, Y = _config2_data(700)
     m32 = gft.models.GPR(X, Y, kern=_config2_kern(), device=dev, dtype=torch.float32)
-    before = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches, gram.gram_cuda.launches)
+    kernels = ("gfs_gram_chol_operand", "gfs_chol_solve_logdet", "gfs_gram")
+    before = [_build.launches[k] for k in kernels]
     with monkeypatch.context() as mp, torch.no_grad():
         _no_library_linalg(mp)
         value = m32.objective().item()
-    after = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches, gram.gram_cuda.launches)
-    assert after == (before[0], before[1] + 1, before[2] + 1), (before, after)
+    after = [_build.launches[k] for k in kernels]
+    assert after == [before[0], before[1] + 1, before[2] + 1], (before, after)
     m64 = gft.models.GPR(X, Y, kern=_config2_kern(), device=dev, dtype=torch.float64)
     loss64 = m64.objective()
     loss64.backward()
@@ -817,11 +818,11 @@ def test_sparse_kernel_route_matches_f64_plain(dev, model, monkeypatch):
             loss.backward()
         return loss.item(), {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(m)}
 
-    kernels = (gram.gram_cuda, cholesky.cholesky_cuda)
-    before = [k.launches for k in kernels] + [dict(trsm.trsm_cuda.by_schedule)]
+    kernels = ("gfs_gram", "gfs_cholesky")
+    before = _build.launches.copy()
     k32 = run(torch.float32, True, forbid=True)
-    assert all(k.launches > b for k, b in zip(kernels, before)), before
-    assert all(trsm.trsm_cuda.by_schedule[s] > before[2][s] for s in ("thin", "wide"))
+    assert all(_build.launches[k] > before[k] for k in kernels), before
+    assert all(_build.launches["gfs_trsm", s] > before["gfs_trsm", s] for s in ("thin", "wide"))
     p32 = run(torch.float32, False)
     v64, g64 = run(torch.float64, False)
     err = [abs(v - v64) / abs(v64) for v, _ in (k32, p32)]
@@ -853,9 +854,9 @@ def test_robust_cholesky_on_the_factor_kernel(dev):
     rng = np.random.RandomState(0)
     A = rng.randn(100, 5)
     K = torch.tensor(A @ A.T, dtype=torch.float32, device=dev)  # rank 5
-    before = cholesky.cholesky_cuda.launches
+    before = _build.launches["gfs_cholesky"]
     L, jit = ops_linalg.robust_cholesky(K)
-    assert cholesky.cholesky_cuda.launches > before
+    assert _build.launches["gfs_cholesky"] > before
     assert bool(torch.isfinite(L).all())
     scale = float(torch.mean(torch.diagonal(K)))
     assert float((L @ L.T - K).abs().max()) <= 10 * float(jit) + 1e-3 * scale
@@ -887,9 +888,9 @@ def test_config4_batched_logprob_on_the_kernels_matches_f64(dev):
     lp, x0, _ = gft.mcmc.model_logprob(_config4(dev, torch.float32))
     lp64, _, _ = gft.mcmc.model_logprob(_config4(dev, torch.float64))
     zs = _chains(x0)
-    before = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    before = (_build.launches["gfs_gram_chol_operand"], _build.launches["gfs_chol_solve_logdet"])
     lps, gs = batched_value_and_grad(lp)(zs)
-    after = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    after = (_build.launches["gfs_gram_chol_operand"], _build.launches["gfs_chol_solve_logdet"])
     assert (after[0] - before[0], after[1] - before[1]) == (8, 8)  # once per chain
     with gft.config.temp_settings(use_kernels=False):
         lps_stock, gs_stock = batched_value_and_grad(lp)(zs)
@@ -958,13 +959,13 @@ def test_config4_leaf_that_does_not_factor_diverges(dev):
 def test_config4_short_nuts_run_is_finite(dev):
     m = _config4(dev, torch.float32, N=300)
     lp, x0, _ = gft.mcmc.model_logprob(m)
-    before = gram.gram_chol_operand_cuda.launches
+    before = _build.launches["gfs_gram_chol_operand"]
     samples, info = gft.parallel.sample_chains(lp, x0[None].repeat(4, 1), torch.Generator(device=dev).manual_seed(0),
                                                16, num_warmup=30, max_depth=6)
     assert samples.shape == (4, 16, 3) and bool(torch.isfinite(samples).all())
     # one launch per active chain per leaf, and one per chain at the start
     # of the warmup and of the sampling
-    assert gram.gram_chol_operand_cuda.launches - before >= int(info["num_leaves"].sum()) + 4
+    assert _build.launches["gfs_gram_chol_operand"] - before >= int(info["num_leaves"].sum()) + 4
 
 
 def _vgp_pair(which, dev, N=500, steps=3):
@@ -1022,10 +1023,10 @@ def test_vgp_kernel_route_matches_f64_plain(dev, which, monkeypatch):
             loss.backward()
         return loss.item(), {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(m)}
 
-    kernels = (gram.gram_lower_cuda if which == "VGP" else gram.gram_cuda, cholesky.cholesky_cuda)
-    before = [k.launches for k in kernels] + [trsm.trsm_cuda.by_schedule["wide"]]
+    kernels = ("gfs_gram_lower" if which == "VGP" else "gfs_gram", "gfs_cholesky", ("gfs_trsm", "wide"))
+    before = [_build.launches[k] for k in kernels]
     k32 = run(m32, True, forbid=True)
-    after = [k.launches for k in kernels] + [trsm.trsm_cuda.by_schedule["wide"]]
+    after = [_build.launches[k] for k in kernels]
     assert after[0] - before[0] == 1 and after[1] - before[1] == (1 if which == "VGP" else 3), (before, after)
     assert after[2] > before[2]
     s32, v64 = run(p32, False), run(m64, False)
@@ -1057,9 +1058,9 @@ def test_fit_lbfgs_on_the_entry_gpr(dev):
     # final objective within bench.py's 1e-5 of the f64 plain path
     fn, (m,) = gft.entry.entry()
     assert m.X.is_cuda
-    before = cholesky.cholesky_solve_cuda.launches
+    before = _build.launches["gfs_chol_solve_logdet"]
     loss, grads = fn(m)
-    assert cholesky.cholesky_solve_cuda.launches > before and np.isfinite(loss.item())
+    assert _build.launches["gfs_chol_solve_logdet"] > before and np.isfinite(loss.item())
     _, losses = gft.training.fit_lbfgs(m, num_steps=3)
     losses = losses.cpu().numpy()
     assert np.isfinite(losses).all() and (np.diff(losses) <= 0).all() and losses[-1] < losses[0]
@@ -1126,9 +1127,9 @@ def test_gprcg_streaming_on_the_cross_gram_matches_f64_plain(dev, monkeypatch):
             loss.backward()
         return loss.item(), {n: t.grad.double() for n, t in gft.params.trainable_leaves(m)}
 
-    before = gram.gram_cuda.launches
+    before = _build.launches["gfs_gram"]
     k32 = run(m32, True)
-    assert gram.gram_cuda.launches - before == 3 * (60 + 20 + 2)
+    assert _build.launches["gfs_gram"] - before == 3 * (60 + 20 + 2)
     s32, v64 = run(m32, False), run(m64, False)
     err = [abs(v - v64[0]) / abs(v64[0]) for v, _ in (k32, s32)]
     assert err[0] <= 2 * err[1] + 1e-5, err
@@ -1159,9 +1160,9 @@ def test_gplvm_latent_gradient_matches_f64_plain(dev):
             loss.backward()
         return loss.item(), m.X.unconstrained.grad.double()
 
-    before = gram.gram_lower_cuda.launches
+    before = _build.launches["gfs_gram_lower"]
     k32 = run(m32, True)
-    assert gram.gram_lower_cuda.launches > before
+    assert _build.launches["gfs_gram_lower"] > before
     s32, v64 = run(m32, False), run(m64, False)
     err = [abs(v - v64[0]) / abs(v64[0]) for v, _ in (k32, s32)]
     assert err[0] <= 2 * err[1] + 1e-5, err
@@ -1180,9 +1181,9 @@ def test_factor_and_solve_take_strided_inputs(dev):
     K = (A @ A.T + 128 * torch.eye(128, device=dev)).T.contiguous().T  # column-major
     assert not K.is_contiguous()
     K0 = K.clone()
-    before = cholesky.cholesky_cuda.launches
+    before = _build.launches["gfs_cholesky"]
     L = ops_linalg.cholesky(K)
-    assert cholesky.cholesky_cuda.launches == before + 1 and torch.equal(K, K0)
+    assert _build.launches["gfs_cholesky"] == before + 1 and torch.equal(K, K0)
     B = torch.tensor(rng.randn(300, 128), dtype=torch.float32, device=dev)
     X = ops_linalg.solve_lower(L, B.T)
     want = torch.linalg.solve_triangular(L.double(), B.T.double(), upper=False)
@@ -1209,9 +1210,9 @@ def test_gprcg_streaming_under_torch_func_on_the_card(dev, monkeypatch):
     lp64 = gft.mcmc.model_logprob(_deep_cg(dev, torch.float64, like=m32))[0]
     z = torch.stack([x0, x0 + 0.01 * torch.randn(x0.shape, generator=torch.Generator(device=dev).manual_seed(1),
                                                  device=dev)])
-    before = gram.gram_cuda.launches
+    before = _build.launches["gfs_gram"]
     vals, grads = gft.mcmc.base.batched_value_and_grad(lp)(z)
-    assert gram.gram_cuda.launches - before == 2 * 3 * (60 + 20 + 2)
+    assert _build.launches["gfs_gram"] - before == 2 * 3 * (60 + 20 + 2)
     for r in range(2):
         refs = []
         for fn, v in ((lp, z[r]), (lp64, z[r].double())):
@@ -1236,7 +1237,7 @@ def test_dp_step_from_pinned_batches_on_the_card(dev, tmp_path):
                         Z=np.linspace(0, 1, 32)[:, None], device=dev, dtype=torch.float32)
     step, _ = gft.parallel.make_svgp_step(m, lambda ps: torch.optim.Adam(ps, lr=0.01), batch_size=256)
     ds = gft.io.BinaryDataset(path)
-    before = (gram.gram_cuda.launches, cholesky.cholesky_cuda.launches, trsm.trsm_cuda.launches)
+    before = (_build.launches["gfs_gram"], _build.launches["gfs_cholesky"], _build.launches["gfs_trsm"])
     losses = []
     for batch in ds.minibatches(torch.Generator().manual_seed(0), 256, 5, pin_memory=True):
         assert batch.is_pinned()
@@ -1244,7 +1245,7 @@ def test_dp_step_from_pinned_batches_on_the_card(dev, tmp_path):
         losses.append(step(batch=(b[:, :1], b[:, 1:])))
     ds.close()
     losses.append(step(torch.Generator(device=dev).manual_seed(1)))
-    after = (gram.gram_cuda.launches, cholesky.cholesky_cuda.launches, trsm.trsm_cuda.launches)
+    after = (_build.launches["gfs_gram"], _build.launches["gfs_cholesky"], _build.launches["gfs_trsm"])
     assert all(a >= b + 6 for a, b in zip(after, before))
     assert bool(torch.isfinite(torch.stack(losses)).all())
 
@@ -1266,10 +1267,10 @@ def test_restored_posterior_serves_bit_for_bit(dev, tmp_path):
                                                  torch.empty_like(post.alpha), 1)
     restored = gft.utils.load_checkpoint(path, template)
     Xq = torch.tensor(rng.uniform(0, 1, (512, 1)), dtype=torch.float32, device=dev)
-    before = (cholesky.cholesky_cuda.launches, gram.gram_cuda.launches, trsm.trsm_cuda.launches)
+    before = (_build.launches["gfs_cholesky"], _build.launches["gfs_gram"], _build.launches["gfs_trsm"])
     with torch.no_grad():
         got = restored.predict_f(Xq, full_cov=True)
-    after = (cholesky.cholesky_cuda.launches, gram.gram_cuda.launches, trsm.trsm_cuda.launches)
+    after = (_build.launches["gfs_cholesky"], _build.launches["gfs_gram"], _build.launches["gfs_trsm"])
     assert after[0] == before[0] and after[1] > before[1] and after[2] > before[2]
     with torch.no_grad():
         want = post.predict_f(Xq, full_cov=True)
@@ -1288,9 +1289,9 @@ def test_blocked_factor_and_solves_on_the_kernels(dev):
     A = rng.randn(N, N) / np.sqrt(N)
     K64 = torch.tensor(A @ A.T + np.eye(N), device=dev)
     K = K64.float()
-    before = (cholesky.cholesky_cuda.launches, trsm.trsm_cuda.launches)
+    before = (_build.launches["gfs_cholesky"], _build.launches["gfs_trsm"])
     L = blocked.blocked_cholesky(K, bs)
-    after = (cholesky.cholesky_cuda.launches, trsm.trsm_cuda.launches)
+    after = (_build.launches["gfs_cholesky"], _build.launches["gfs_trsm"])
     assert after[0] - before[0] == N // bs and after[1] - before[1] == N // bs - 1
     L64 = torch.linalg.cholesky(K64)
     assert float((L.double() - L64).abs().max()) / float(L64.abs().max()) <= 1e-4
@@ -1365,7 +1366,6 @@ SPLIT_MODES = ("s3", "s4", "s3d", "s4d")
 # the f32 rounding of 16-term sums (1e-6 relative)
 @pytest.mark.parametrize("passes", [1, 3, 4])
 def test_split_mma_fragment_layout(dev, passes):
-    lib = _build.load_library()
     rng = np.random.RandomState(passes)
     for integer in (True, False):
         if integer:
@@ -1375,8 +1375,7 @@ def test_split_mma_fragment_layout(dev, passes):
         a = torch.tensor(A, dtype=torch.float32, device=dev)
         b = torch.tensor(B, dtype=torch.float32, device=dev)
         C = torch.full((16, 8), float("nan"), device=dev)
-        code = lib.gfs_split_mma_check(a.data_ptr(), b.data_ptr(), C.data_ptr(), passes, _build.stream_of(a))
-        _build.check(lib, code, "split_mma_check")
+        _build.launch("gfs_split_mma_check", a.data_ptr(), b.data_ptr(), C.data_ptr(), passes, on=a)
         torch.cuda.synchronize()
         got = C.cpu().double()
         if integer:
@@ -1406,10 +1405,7 @@ def _structured_update(Np, syrk, dev, seed=0):
     K[256:, :256], K[256:, 256:] = X, C
     Kd = torch.tensor(K, dtype=torch.float32, device=dev)
     dpiv = torch.zeros(Np, dtype=torch.float64, device=dev)
-    lib = _build.load_library()
-    code = lib.gfs_chol_trailing_update(Kd.data_ptr(), Np, 0, dpiv.data_ptr(), cholesky._mode_code(syrk),
-                                        _build.stream_of(Kd))
-    _build.check(lib, code, "chol_trailing_update")
+    _build.launch("gfs_chol_trailing_update", Kd.data_ptr(), Np, 0, dpiv.data_ptr(), cholesky._mode_code(syrk), on=Kd)
     torch.cuda.synchronize()
     X, C = torch.tensor(X), torch.tensor(C)
     refs = {}
@@ -1572,9 +1568,9 @@ def test_split_trailing_kernel_launches_by_profiler(dev, syrk):
     want = {"0" if syrk == "hi" else syrk[1]: 15}
     assert _trailing_launches(lambda: cholesky.cholesky_cuda(Kp.clone(), syrk)) == want
     assert _trailing_launches(lambda: cholesky.cholesky_solve_cuda(Kp.clone(), Dp, syrk)) == want
-    before = dict(cholesky.cholesky_cuda.by_syrk)
+    before = _build.launches["gfs_cholesky", syrk]
     cholesky.cholesky(Kp[:2100, :2100], syrk=syrk)
-    assert cholesky.cholesky_cuda.by_syrk[syrk] == before[syrk] + 1
+    assert _build.launches["gfs_cholesky", syrk] == before + 1
 
 
 def test_split_wrappers_raise_instead_of_falling_back(dev):
@@ -1583,12 +1579,11 @@ def test_split_wrappers_raise_instead_of_falling_back(dev):
         cholesky.cholesky_cuda(Kp.clone(), "s5")
     with pytest.raises(ValueError, match="float32"):
         cholesky.cholesky_solve_cuda(Kp.double(), Dp.double(), "s4")
-    lib = _build.load_library()
     work = torch.empty(128, dtype=torch.float64, device=dev)
     # no such pass count, an unknown bit, the exact-diagonal bit on "hi"
     for bad in (1, 5, 3 | 16, 4 | 32, 3 | 64, 8):
-        code = lib.gfs_cholesky(Kp.data_ptr(), 128, work.data_ptr(), bad, _build.stream_of(Kp))
-        assert code != 0, bad
+        with pytest.raises(RuntimeError, match="gfs_cholesky: CUDA error"):
+            _build.launch("gfs_cholesky", Kp.data_ptr(), 128, work.data_ptr(), bad, on=Kp)
 
 
 # -- the paper's NKN on the one-pass operand (csrc/nkn_operand.cu) -------------
@@ -1621,7 +1616,7 @@ def test_nkn_operand_kernel_matches_plain(dev, N, D, pad_to):
     kinds = NKN_KINDS[D]
     th = _nkn_theta(D, kinds, N + D, dev)
     got = nkn.nkn_operand_cuda(X, th, torch.tensor(0.3, device=dev), kinds, pad_to)
-    assert nkn.nkn_operand_cuda.launches > 0
+    assert _build.launches["gfs_nkn_operand"] > 0
     want = nkn.nkn_gram_plain(X.double(), th.double(), kinds)
     want.diagonal().add_(0.3)
     # float32 rounding of ~150 operations an entry: 2e-6 of the largest entry
@@ -1688,13 +1683,14 @@ def test_nkn_gpr_route_and_gradients_on_the_card(dev, published, monkeypatch):
     # value within 1e-5 and every gradient within 1e-3 of float64's, and no
     # library factorization or solve
     m32 = _nkn_gpr(3000, dev, torch.float32, published)
-    before = (nkn.nkn_operand_cuda.launches, nkn.nkn_vjp_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    kernels = ("gfs_nkn_operand", "gfs_nkn_vjp", "gfs_chol_solve_logdet")
+    before = [_build.launches[k] for k in kernels]
     with monkeypatch.context() as mp:
         _no_library_linalg(mp)
         loss = m32.objective()
         loss.backward()
-    after = (nkn.nkn_operand_cuda.launches, nkn.nkn_vjp_cuda.launches, cholesky.cholesky_solve_cuda.launches)
-    assert after == (before[0] + published, before[1] + published, before[2] + 1), (before, after)
+    after = [_build.launches[k] for k in kernels]
+    assert after == [before[0] + published, before[1] + published, before[2] + 1], (before, after)
     m64 = _nkn_gpr(3000, dev, torch.float64, published)
     m64.load_state_dict(m32.state_dict())
     loss64 = m64.objective()

@@ -264,7 +264,7 @@ def test_blocked_route_calls_the_kernels_wrappers(monkeypatch):
             return fn(*a)
         return wrapped
 
-    monkeypatch.setattr(blocked, "kernels_active", lambda t: True)
+    monkeypatch.setattr(gft.ops.linalg, "kernels_active", lambda t: True)
     monkeypatch.setattr(gft.ops.cholesky, "cholesky", count("cholesky", chol))
     monkeypatch.setattr(gft.ops.trsm._Trsm, "apply", count("trsm", solve))
     K = _t(_spd(np.random.RandomState(5), 32))

@@ -31,7 +31,7 @@ import gpflow_slim_tpu as gfs
 import gpflow_slim_tpu_torch as gft
 from gpflow_slim_tpu.params import parameters as jax_parameters
 from gpflow_slim_tpu.ops import pallas_cholesky, pallas_gram, pallas_trsm
-from gpflow_slim_tpu_torch.ops import cholesky, gram, trsm
+from gpflow_slim_tpu_torch.ops import _build, _func, cholesky, gram, trsm
 
 torch.set_num_threads(2)
 
@@ -255,6 +255,41 @@ def test_kernel_routes_get_plain_tensors(transform, monkeypatch):
     names = {n for n, _ in seen}
     assert names == {"_gram_forward", "_operand", "cholesky_solve", "_factor_padded", "_solve"}
     assert all(plain for _, plain in seen), seen
+
+
+@pytest.mark.parametrize("transform", ["grad", "vmap", "grad_of_vmap", "vmap_of_grad"])
+def test_kernel_function_hands_its_kernel_plain_tensors(transform, monkeypatch):
+    # the operand's VJP as kernel_function makes it: on CPU tensors the
+    # plain version, which launches nothing; with the kernel branch forced,
+    # the Function around the "kernel" (the plain version, recording what it
+    # is handed) gives it plain tensors under each transform and the same
+    # results, through a backward (grad) and through its loop vmap rule
+    Xs, G = _t(_grid((12, 2), 17)), _t(np.random.RandomState(18).randn(64, 64))
+    v0, vb = _t(1.3), _t([1.1, 1.3])
+
+    def objective(v):
+        return torch.sum(gram.gram_chol_operand("rbf", Xs, v, 0.5, 64) * G)
+
+    run = {"grad": lambda: grad(objective)(v0),
+           "vmap": lambda: vmap(lambda v: gram._operand_vjp("rbf", G, Xs, v))(vb),
+           "grad_of_vmap": lambda: grad(lambda v: vmap(objective)(v).sum())(vb),
+           "vmap_of_grad": lambda: vmap(grad(objective))(vb)}[transform]
+    before = dict(_build.launches)
+    want = run()
+    assert _build.launches == before
+
+    seen = []
+
+    def kernel(kind, g, x, v):
+        seen.append(all(not is_functorch_wrapped_tensor(t) and not is_batchedtensor(t) for t in (g, x, v)))
+        return gram.gram_operand_vjp_plain(kind, g, x, v)
+
+    monkeypatch.setattr(_func, "on_device", lambda plain, cuda, at=0: cuda)  # the kernel branch, always
+    monkeypatch.setattr(gram, "_operand_vjp", _func.kernel_function(gram.gram_operand_vjp_plain, kernel, at=1))
+    got = run()
+    assert seen and all(seen), seen
+    for a, b in zip(*(w if isinstance(w, tuple) else (w,) for w in (got, want))):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-13, atol=1e-13)
 
 
 def test_chol_solve_logdet_factors_in_place_only_outside_transforms():

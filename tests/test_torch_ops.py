@@ -203,9 +203,9 @@ def test_csl_vjp_wrapper_refuses_cpu_tensors():
     L, a, g = torch.eye(64), torch.zeros(64, 1), torch.zeros(())
     with pytest.raises(ValueError, match="CUDA float32"):
         chol_inverse.csl_vjp_cuda(L, a, g, g)
-    before = chol_inverse.csl_vjp_cuda.launches
+    before = _build.launches["gfs_csl_vjp"]
     Kbar, Dbar = chol_inverse.csl_vjp(L, a, g + 1.0, g)
-    assert chol_inverse.csl_vjp_cuda.launches == before  # a CPU tensor takes the plain version
+    assert _build.launches["gfs_csl_vjp"] == before  # a CPU tensor takes the plain version
     assert torch.equal(Kbar, 0.5 * torch.eye(64)) and Dbar.dtype == torch.float32
 
 
@@ -266,20 +266,20 @@ def test_gram_chol_operand_backward_matches_jax_at_duplicated_points(kind):
 
 def test_gram_operand_vjp_wrapper_refuses_cpu_tensors():
     xs, g = torch.zeros(10, 1), torch.zeros(64, 64)
-    before = gram.gram_operand_vjp_cuda.launches
+    before = _build.launches["gfs_gram_operand_vjp"]
     with pytest.raises(ValueError, match="CUDA float32"):
         gram.gram_operand_vjp_cuda("rbf", g, xs, 1.0)
     with pytest.raises(ValueError, match="unknown kind"):
         gram.gram_operand_vjp_cuda("periodic", g, xs, 1.0)
-    assert gram.gram_operand_vjp_cuda.launches == before
+    assert _build.launches["gfs_gram_operand_vjp"] == before
 
 
 def test_gram_chol_operand_backward_on_cpu_launches_no_kernel():
     Xs, rng = _inputs(30, 2)
     xs, v, n = _t(Xs, True), _t(1.3, True), _t(0.2, True)
-    before = gram.gram_operand_vjp_cuda.launches
+    before = _build.launches["gfs_gram_operand_vjp"]
     torch.sum(gram.gram_chol_operand("matern32", xs, v, n, 32) * _t(rng.randn(32, 32))).backward()
-    assert gram.gram_operand_vjp_cuda.launches == before
+    assert _build.launches["gfs_gram_operand_vjp"] == before
     assert all(t.grad is not None for t in (xs, v, n))
 
 
@@ -629,12 +629,12 @@ def test_bernoulli_matches_jax():
 def test_wrappers_take_plain_versions_on_cpu():
     # a CPU tensor runs the plain version and launches nothing
     Xs, _ = _inputs(30, 1)
-    before = (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    before = dict(_build.launches)
     with config.temp_settings(use_kernels=True):
         Kp = gram.gram_chol_operand("rbf", _t(Xs), 1.0, 0.1, 64)
         hl, q = cholesky.cholesky_solve_logdet(Kp.detach().clone(), torch.zeros(64, 1, dtype=torch.float64))
     assert Kp.shape == (64, 64) and torch.isfinite(hl) and q == 0
-    assert before == (gram.gram_chol_operand_cuda.launches, cholesky.cholesky_solve_cuda.launches)
+    assert before == _build.launches
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -711,8 +711,7 @@ def test_serving_route_on_cpu_launches_nothing(monkeypatch):
     # the kernel route forced on for CPU tensors runs every wrapper's plain
     # version: the same answers as the plain route, and no launch
     monkeypatch.setattr(linalg, "kernels_active", lambda t: True)
-    kernels = (gram.gram_cuda, gram.gram_lower_cuda, cholesky.cholesky_cuda, trsm.trsm_cuda)
-    before = [k.launches for k in kernels]
+    before = dict(_build.launches)
     Xs, rng = _inputs(70, 1)
     K = gram.stationary_gram_lower("rbf", _t(Xs), 1.0)
     K.diagonal().add_(0.1)
@@ -722,7 +721,7 @@ def test_serving_route_on_cpu_launches_nothing(monkeypatch):
     X = linalg.cho_solve_lower(L, B)
     Kfull = gram.gram_reference("rbf", _t(Xs), _t(Xs), 1.0) + 0.1 * torch.eye(70, dtype=torch.float64)
     np.testing.assert_allclose(X.numpy(), np.linalg.solve(Kfull.numpy(), B.numpy()), rtol=1e-9)
-    assert [k.launches for k in kernels] == before
+    assert _build.launches == before
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

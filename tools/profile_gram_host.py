@@ -14,6 +14,7 @@ alone, the part of a call's time that no kernel design removes. The card's
 name and power limit come first. Needs a CUDA device.
 """
 
+import collections
 import os
 import subprocess
 import sys
@@ -66,21 +67,19 @@ def measure(root):
         out = torch.empty(n, m, device=dev)
         idx = Xs.get_device()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        by_shape = {}
+        launches = collections.Counter()
 
         def launch():
             return lib.gfs_gram(Xs.data_ptr(), n, X2s.data_ptr(), m, 1, var.data_ptr(), 0, out.data_ptr(), stream)
 
         def count():
-            by_shape[n, m] = by_shape.get((n, m), 0) + 1
+            launches["gfs_gram"] += 1
+            launches["gfs_gram", (n, m)] += 1
 
         def check_xs():
             for x in (Xs, X2s):
-                if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2:
-                    raise ValueError
-                if not x.is_contiguous():
-                    raise ValueError
-                if x.shape[1] < 1:
+                if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 2 and x.is_contiguous()
+                        and x.shape[1] >= 1):
                     raise ValueError
 
         steps = {
@@ -106,6 +105,13 @@ def measure(root):
                 lambda: (Xs.data_ptr(), X2s.data_ptr(), var.data_ptr(), out.data_ptr()),
             "a ctypes call of an entry with no work (gfs_error_string)": lambda: lib.gfs_error_string(0),
         }
+        if hasattr(_build, "launch"):  # the one launch path and input check
+            steps["_build.check_tensor, Xs and X2s"] = lambda: (
+                _build.check_tensor("gram_cuda", "Xs", Xs, 2, at_least=(0, 1)),
+                _build.check_tensor("gram_cuda", "X2s", X2s, 2, at_least=(0, 1)))
+            steps["_build.launch: stream, the ctypes call, its check and both counts"] = lambda: _build.launch(
+                "gfs_gram", Xs.data_ptr(), n, X2s.data_ptr(), m, 1, var.data_ptr(), 0, out.data_ptr(), on=Xs,
+                detail=(n, m))
         for what, fn in steps.items():
             print(f"{tag} {n} x {m}: {what}: {host_us(fn):.2f} us", flush=True)
 

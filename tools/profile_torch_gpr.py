@@ -81,7 +81,6 @@ def trailing_rates(Np=10048):
     one = torch.tensor(1.0, device=dev)
     Kp = gram.gram_chol_operand_cuda("rbf", torch.rand(Np, 1, generator=g, device=dev) / LENGTHSCALE, one, one, Np)
     D = torch.randn(Np, 1, generator=g, device=dev)
-    lib = _build.load_library()
     dpiv = torch.zeros(Np, dtype=torch.float64, device=dev)
     alone_flop = 2 * 256 * (Np - 256) * (Np - 255) // 2
     for syrk in ("hi", "s3", "s4"):
@@ -99,8 +98,7 @@ def trailing_rates(Np=10048):
         mode = cholesky._mode_code(syrk)
 
         def alone():
-            _build.check(lib, lib.gfs_chol_trailing_update(K.data_ptr(), Np, 0, dpiv.data_ptr(), mode,
-                                                           _build.stream_of(K)), "chol_trailing_update")
+            _build.launch("gfs_chol_trailing_update", K.data_ptr(), Np, 0, dpiv.data_ptr(), mode, on=K)
 
         t_alone = statistics.median(cuda_ms(torch, alone))
         print(f"trailing update, syrk={syrk}, Np={Np}: in place {t_in:.3f} ms a factorization in "
