@@ -20,8 +20,10 @@
 //     alpha_b for all P columns (only block i writes alpha_i: no race);
 //  3. inner update (one block per 64 x 64 lower tile of the panel's later
 //     columns): A_ij -= L_ib L_jb^T, so the panel's next step sees them.
-// Then one trailing launch applies the whole panel (an inner dimension of
-// 256) to the lower triangle beyond it, on common.cuh's 128 x 128 product.
+// Then the trailing update applies the whole panel (an inner dimension of
+// 256) to the lower triangle beyond it in 128 x 128 tiles: in mode "hi" on
+// chol_trailing_kernel_hi, persistent blocks with a pipeline of their own
+// (below); in the split modes on common.cuh's mm_ring.
 // A last one-thread launch sums the partials in order, so the logdet is
 // deterministic (no atomics).
 //
@@ -32,10 +34,15 @@
 //    than the 5.05 ms flop bound); 256-wide panels cut it to ~5 GB (the
 //    TPU kernel's x2 schedule halves the same traffic,
 //    pallas_cholesky.py:331-336);
-//  * the trailing flop, N^3 / 3 FMA-pairs, now most of the time: the 8 x 8
-//    register tile of common.cuh's product reads 1 byte of shared memory
-//    per FMA, the SM's whole shared-memory rate at its FMA rate; measured
-//    at ~23 TFLOP/s in place (31 TFLOP/s for the same product alone);
+//  * the trailing flop, N^3 / 3 FMA-pairs, most of the time, and with it
+//    the SM's shared-memory pipe (one 128-byte wavefront a clock): an 8 x 8
+//    register tile reads A and B as 16-byte loads, each 2 wavefronts where
+//    a quarter-warp reads one address and 4 otherwise, so 12 wavefronts
+//    for a warp's 2048 FMAs, 16 clocks at the FMA rate (tools/
+//    smem_bench.cu); staging, the transpose and the running tile's flushes
+//    add ~45% to that. chol_trailing_kernel_hi runs at ~26-27 TFLOP/s in
+//    place and ~31 alone at N = 10048 (the mm_run kernel it replaced: ~22
+//    and ~26);
 //  * the serial chain of diag, panel and inner-update launches (157 steps
 //    at N = 10048). The diag factor is blocked by 16 columns: warp 0
 //    factors each 16 x 16 sub-block in registers with shuffles, one row
@@ -49,11 +56,12 @@
 //    is factored on a second stream of the highest priority while the rest
 //    of panel p's trailing update runs on the caller's stream; the two join
 //    through events (created once per device) before the next trailing
-//    update and before the entry point returns. The chain's launches still
-//    wait for SM slots that trailing blocks hold (two fill an SM's
-//    registers), so in place they take 1.5-4x their time alone; capping the
-//    trailing kernel at one block per SM (160 registers) shortened the
-//    visible chain but slowed the trailing update more (H100).
+//    update and before the entry point returns. The persistent trailing
+//    blocks hold every SM for the whole update, so each leaves room beside
+//    it for one block of the chain (at most 160 registers a thread and ~161
+//    KB of shared memory): at 163-167 registers the panel kernel's blocks
+//    no longer fit and ~1.5 ms more of the chain showed at N = 10048; at
+//    128, two chain blocks fit but the update ran 11% slower (H100).
 //
 // Arithmetic (mode "hi", the default): f32 FMA for the panels and the
 // trailing products; no tensor cores and no TF32. The split modes of the TPU
@@ -75,8 +83,7 @@
 // 1.4e-5 to a few 1e-6 relative. The off-diagonal entries stay f32, and
 // their updates are sums of 64 products from zero, each added to the entry
 // once (the inner updates with tile_fma, the trailing ones 64 inner indices
-// at a time on mm_run, into the tile held in shared memory for the whole
-// panel). Starting from the entry and subtracting one FMA at a time biased
+// at a time, into the tile held in shared memory for the whole panel). Starting from the entry and subtracting one FMA at a time biased
 // the logdet on an ill-conditioned K: the late products of a row fall below
 // half an ulp of the running entry and are lost, all with one sign for two
 // nearly dependent rows, while their f64 pivots lose nothing, so the small
@@ -103,6 +110,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -378,8 +387,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The exact f32 trailing product of one 128 x 128 tile (row0, col0): A_IJ -=
-// L_IP L_JP^T on mm_run. Entries of a strictly-upper 64 x 64 block are not
-// written. A diagonal tile subtracts its rows' f64 pivot terms, summed in
+// L_IP L_JP^T on mm_run, for the split "d" modes' diagonal tiles (mode "hi"
+// runs chol_trailing_kernel_hi). Entries of a strictly-upper 64 x 64 block
+// are not written. A diagonal tile subtracts its rows' f64 pivot terms, summed in
 // f64 from the A stages as they land.
 __device__ __forceinline__ void trailing_fma(float* __restrict__ K, int Np, int p0, int width, int row0, int col0,
                                              bool diag, double* __restrict__ dpiv, gfs::MmStage* sa,
@@ -415,6 +425,265 @@ __device__ __forceinline__ void trailing_fma(float* __restrict__ K, int Np, int 
     dpiv[row0 + threadIdx.x] -= piv;
   }
   gfs::mm_tile_from_smem(ct, tile, Np, Np - row0, Np - col0, kept);
+}
+
+// -- the exact trailing update (mode "hi"): chol_trailing_kernel_hi ----------
+//
+// The same arithmetic as trailing_fma, on a pipeline of its own. Persistent
+// blocks walk the launch's 128 x 128 lower tiles with a static stride (tile
+// blockIdx.x + k gridDim.x, k = 0, 1, ...), and the inner dimension of all
+// of a block's tiles runs through one ring of kTrStages stages: while a
+// tile's last stages are multiplied, the next tile's first stages fly. The
+// running tile lives in shared memory, row-major. When the block's next
+// tile starts, each thread writes back its 16-byte chunks of the running
+// tile and at once refills them from the next tile (no barrier between: a
+// thread's copy into a chunk is issued after its own read of it); the next
+// tile is first needed at its first flush, 64 inner indices later. So a
+// tile's load and store hide behind the FMAs, not only behind another block.
+//
+// The panel's rows come in by 16-byte cp.async, four inner indices of one
+// row a copy, kTrBk inner indices a stage, into the ring as they lie in
+// memory ([row][inner], the 16-byte chunks of each row permuted by
+// tr_at). During a stage's FMAs (from its second inner index, so that the
+// loads' latency hides behind them) the block transposes the next stage,
+// landed, into [inner][row] (a double buffer of MmStages): 4 16-byte loads
+// and 16 4-byte stores a thread, conflict-free. The FMAs run
+// on mm_run's 8 x 8 register tile and thread map, which reads each inner
+// index of A and B as two 16-byte loads apiece: 51 TFLOP/s with its
+// operands resident in shared memory on an H100, against 39 for the same
+// tile read along [row][inner] (four inner indices of a row a load, 32 more
+// live registers), both at 128 registers (tools/smem_bench.cu).
+//
+// One block an SM: 157 registers a thread (ptxas, sm_90a) and ~161 KB of
+// shared memory leave room beside it for a block of the chain (diag, panel
+// or inner update: 256 threads, 58-94 registers, 34-38 KB), which the
+// look-ahead's high-priority stream runs during the update; one SM is left
+// out of the grid (hi_grid).
+constexpr int kTrThreads = gfs::kMmThreads;
+constexpr int kTrBk = gfs::kMmBk;         // inner indices a stage
+constexpr int kTrStages = 4;              // stages in the ring
+constexpr int kTrChunks = kTrBk / 4;      // 16-byte chunks of a staged row
+constexpr int kTrRowFloats = gfs::kMmTile * kTrBk;     // one operand's staged stage
+constexpr int kTrPerTile = kPanel * kBs / kTrBk;       // stages a tile
+constexpr int kTrFlush = kBs / kTrBk;                  // stages a flush
+constexpr int kTrSmem = static_cast<int>(
+    sizeof(float) * (gfs::kMmTile * gfs::kMmTile + 2 * kTrStages * kTrRowFloats) + 4 * sizeof(gfs::MmStage));
+static_assert(kTrChunks == 4, "a staged row is 64 bytes");
+// the running tile's copies go with the group of the stage kTrStages after
+// the tile's first, which has landed by the tile's first flush
+static_assert(kTrStages <= kTrFlush, "the running tile lands before its first flush");
+
+// Where chunk c of staged row o lies: the chunks of the two rows that share
+// 128 bytes are permuted (TMA's 64-byte swizzle) so that 8 consecutive rows
+// at one chunk fall in 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int tr_at(int o, int c) { return o * kTrBk + 4 * (c ^ ((o >> 1) & 3)); }
+
+// A block's walk over the lower tiles of a launch: tile columns J0 .. J0 +
+// ncols - 1 (every tile column from J0 when ncols is 0) of R tile rows from
+// J0, tile t = (ti, tj), I = J0 + ti, J = J0 + tj, row-major over the lower
+// triangle when ncols is 0 (tri_index), else column by column; the block
+// takes tiles blockIdx.x, + G, + 2 G, ...
+struct TrWalk {
+  int ti, tj;
+  __device__ void start(long long t, int R, int ncols) {
+    if (ncols == 0) {
+      gfs::tri_index(t, ti, tj);
+      return;
+    }
+    tj = 0;
+    while (t >= R - tj) {
+      t -= R - tj;
+      ++tj;
+    }
+    ti = tj + static_cast<int>(t);
+  }
+  __device__ void next(int G, int R, int ncols) {
+    if (ncols == 0) {
+      for (tj += G; tj > ti; ++ti) tj -= ti + 1;
+    } else {
+      for (ti += G; ti >= R; ti += tj - R) ++tj;
+    }
+  }
+};
+
+long long tr_tiles(int R, int ncols) {
+  if (ncols == 0) return static_cast<long long>(R) * (R + 1) / 2;
+  long long n = 0;
+  for (int tj = 0; tj < ncols; ++tj) n += R - tj;
+  return n;
+}
+
+// A_IJ -= L_IP L_JP^T over the panel's 256 columns (p0 ...) for the tiles of
+// the launch (TrWalk; ntiles of them), entries of a strictly-upper 64 x 64
+// block neither read nor written. Each output's sum of 64 inner indices
+// starts from zero, runs in ascending t, and is added to the running tile
+// once, in chunk order (the header says why); a diagonal tile subtracts its
+// rows' f64 pivot terms, summed from its A stages in ascending t.
+__global__ void __launch_bounds__(kTrThreads, 1)
+    chol_trailing_kernel_hi(float* __restrict__ K, int Np, int p0, int J0, int ncols, long long ntiles,
+                            double* __restrict__ dpiv) {
+  extern __shared__ __align__(16) float tr_smem[];
+  float* const ct = tr_smem;                                      // the running A_IJ, row-major
+  float* const ring = ct + gfs::kMmTile * gfs::kMmTile;           // stage g: A, then B, at slot g % kTrStages
+  gfs::MmStage* const ts = reinterpret_cast<gfs::MmStage*>(ring + 2 * kTrStages * kTrRowFloats);  // [A, B] x 2
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int R = (Np + gfs::kMmTile - 1) / gfs::kMmTile - J0;
+  const int G = static_cast<int>(gridDim.x);
+  if (blockIdx.x >= ntiles) return;  // uniform over the block
+  const int total = static_cast<int>((ntiles - blockIdx.x + G - 1) / G) * kTrPerTile;  // stages of the block
+
+  // the copies of stage g of the tile w: 128 rows of kTrBk inner indices of
+  // each operand, rows past Np zero
+  const auto load_stage = [&](int g, const TrWalk& w) {
+    float* const sa = ring + (g % kTrStages) * 2 * kTrRowFloats;
+    const int t = p0 + (g % kTrPerTile) * kTrBk;
+    const int row0 = (J0 + w.ti) * gfs::kMmTile, col0 = (J0 + w.tj) * gfs::kMmTile;
+#pragma unroll
+    for (int q = 0; q < gfs::kMmTile * kTrChunks / kTrThreads; ++q) {
+      const int e = tid + q * kTrThreads, o = e / kTrChunks, c = e % kTrChunks;
+      const bool a_in = row0 + o < Np, b_in = col0 + o < Np;
+      gfs::cp_async16(sa + tr_at(o, c), a_in ? K + static_cast<size_t>(row0 + o) * Np + t + 4 * c : K, a_in);
+      gfs::cp_async16(sa + kTrRowFloats + tr_at(o, c), b_in ? K + static_cast<size_t>(col0 + o) * Np + t + 4 * c : K,
+                      b_in);
+    }
+  };
+  // stage g from the ring into ts[2 (g % 2)] (A) and ts[2 (g % 2) + 1] (B),
+  // s[t][o]: a warp takes 32 consecutive rows at one chunk
+  const auto transpose = [&](int g) {
+    const float* const sa = ring + (g % kTrStages) * 2 * kTrRowFloats;
+#pragma unroll
+    for (int q = 0; q < 2 * gfs::kMmTile * kTrChunks / kTrThreads; ++q) {
+      const int e = tid + q * kTrThreads, op = e / (gfs::kMmTile * kTrChunks);
+      const int o = e % gfs::kMmTile, c = (e / gfs::kMmTile) % kTrChunks;
+      const float4 v = *reinterpret_cast<const float4*>(sa + op * kTrRowFloats + tr_at(o, c));
+      gfs::MmStage& s = ts[2 * (g % 2) + op];
+      s[4 * c][o] = v.x;
+      s[4 * c + 1][o] = v.y;
+      s[4 * c + 2][o] = v.z;
+      s[4 * c + 3][o] = v.w;
+    }
+  };
+  // this thread's 16-byte chunks of the running tile (a warp takes one
+  // row's 32): written back to the tile `done` (unless null) and refilled
+  // from the tile `next` (unless null), each where the tile's entries exist
+  // and are not strictly upper (Np and the 64 x 64 blocks are multiples of
+  // 4 columns)
+  const auto turn = [&](const TrWalk* done, const TrWalk* next) {
+#pragma unroll 4
+    for (int q = 0; q < gfs::kMmTile * gfs::kMmTile / 4 / kTrThreads; ++q) {
+      const int e = tid + q * kTrThreads, r = e / (gfs::kMmTile / 4), c = 4 * (e % (gfs::kMmTile / 4));
+      float* const s = ct + r * gfs::kMmTile + c;
+      const auto at = [&](const TrWalk& w, bool& in) {
+        const int row0 = (J0 + w.ti) * gfs::kMmTile, col0 = (J0 + w.tj) * gfs::kMmTile;
+        in = row0 + r < Np && col0 + c < Np && (w.ti != w.tj || c / kBs <= r / kBs);
+        return K + static_cast<size_t>(row0 + r) * Np + col0 + c;
+      };
+      bool in;
+      if (done != nullptr) {
+        float* const g = at(*done, in);
+        if (in) *reinterpret_cast<float4*>(g) = *reinterpret_cast<const float4*>(s);
+      }
+      if (next != nullptr) {
+        const float* const g = at(*next, in);
+        gfs::cp_async16(s, in ? g : K, in);
+      }
+    }
+  };
+
+  TrWalk cw, iw;  // the tile being multiplied, the tile being loaded
+  cw.start(blockIdx.x, R, ncols);
+  iw = cw;
+  int issue = 0;  // the next stage to load
+  const auto issue_next = [&]() {
+    if (issue < total) {
+      if (issue % kTrPerTile == 0 && issue > 0) iw.next(G, R, ncols);
+      load_stage(issue, iw);
+    }
+    ++issue;
+    gfs::cp_async_commit();
+  };
+  for (int st = 0; st < kTrStages; ++st) issue_next();
+  gfs::cp_async_wait<kTrStages - 1>();
+  __syncthreads();
+  transpose(0);
+  gfs::MmAcc acc = {};
+  double piv = 0.0;  // thread o < 128 of a diagonal tile: sum_t L[row0 + o][p0 + t]^2
+  for (int g = 0; g < total; ++g) {
+    const int s = g % kTrPerTile;
+    gfs::cp_async_wait<kTrStages - 2>();
+    // stage g + 1 has landed and stage g is transposed; every thread is done
+    // with the FMAs of stage g - 1 and the transpose of stage g, whose ring
+    // slot is refilled below, and with the last tile's last flush
+    __syncthreads();
+    if (s == 0) {  // the running tile's copies go with the group committed below
+      if (g == 0) {
+        turn(nullptr, &cw);
+      } else {
+        const TrWalk done = cw;
+        cw.next(G, R, ncols);
+        turn(&done, &cw);
+      }
+    }
+    issue_next();
+
+    const gfs::MmStage& a_s = ts[2 * (g % 2)];
+    const gfs::MmStage& b_s = ts[2 * (g % 2) + 1];
+    const bool diag = cw.ti == cw.tj;
+    if (diag && tid < gfs::kMmTile) {
+#pragma unroll
+      for (int t = 0; t < kTrBk; ++t) {
+        const double v = a_s[t][tid];
+        piv = fma(v, v, piv);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kTrBk; ++t) {
+      float av[gfs::kMmRows], bv[gfs::kMmCols];
+#pragma unroll
+      for (int q = 0; q < gfs::kMmRows / 4; ++q) {
+        const float4 a = *reinterpret_cast<const float4*>(&a_s[t][gfs::kMmRowRun * q + 4 * ty]);
+        av[4 * q] = a.x, av[4 * q + 1] = a.y, av[4 * q + 2] = a.z, av[4 * q + 3] = a.w;
+      }
+#pragma unroll
+      for (int q = 0; q < gfs::kMmCols / 4; ++q) {
+        const float4 b = *reinterpret_cast<const float4*>(&b_s[t][gfs::kMmColRun * q + 4 * tx]);
+        bv[4 * q] = b.x, bv[4 * q + 1] = b.y, bv[4 * q + 2] = b.z, bv[4 * q + 3] = b.w;
+      }
+#pragma unroll
+      for (int i = 0; i < gfs::kMmRows; ++i) {
+#pragma unroll
+        for (int j = 0; j < gfs::kMmCols; ++j) acc[i][j] = fmaf(-av[i], bv[j], acc[i][j]);
+      }
+      // the next stage's transpose, its loads' latency behind the FMAs
+      if (t == 1 && g + 1 < total) transpose(g + 1);
+    }
+    if ((s + 1) % kTrFlush == 0) {
+      // this thread's outputs: runs of four columns, a 16-byte access each
+#pragma unroll
+      for (int i = 0; i < gfs::kMmRows; ++i) {
+#pragma unroll
+        for (int q = 0; q < gfs::kMmCols / 4; ++q) {
+          float4* const c = reinterpret_cast<float4*>(ct + gfs::mm_row_index(i, ty) * gfs::kMmTile +
+                                                      gfs::mm_col_index(4 * q, tx));
+          float4 v = *c;
+          v.x += acc[i][4 * q];
+          v.y += acc[i][4 * q + 1];
+          v.z += acc[i][4 * q + 2];
+          v.w += acc[i][4 * q + 3];
+          *c = v;
+#pragma unroll
+          for (int j = 4 * q; j < 4 * q + 4; ++j) acc[i][j] = 0.0f;
+        }
+      }
+    }
+    if (s == kTrPerTile - 1 && diag && tid < gfs::kMmTile) {
+      const int row = (J0 + cw.ti) * gfs::kMmTile + tid;
+      if (row < Np) dpiv[row] -= piv;
+      piv = 0.0;
+    }
+  }
+  __syncthreads();  // every thread's last flush
+  turn(&cw, nullptr);
 }
 
 // The split trailing product: a block takes a 128 x kPart part of a
@@ -560,16 +829,15 @@ __device__ __forceinline__ void trailing_split(float* __restrict__ K, int Np, in
   split_tile_from_smem(ct, tile, Np, Np - row0, Np - c0, kept);
 }
 
-// After an outer panel (columns [p0, p0 + width)): A_IJ -= L_IP L_JP^T over
-// 128 x 128 lower tiles (I >= J, in units of 128) of the tile columns J0
-// .. J0 + ncols - 1 (all when ncols = 0: the tiles then enumerate the lower
-// triangle from J0 by blockIdx.x), rows to Np. kPasses 0: exact f32
-// products (trailing_fma), two blocks an SM; 3 or 4: the bf16 split
-// (trailing_split), one block an SM, each tile in kParts parts
-// (blockIdx.z), but for the diagonal tiles when exact_diag (the "d"
-// modes), which part 0 takes whole on trailing_fma.
+// The split modes' trailing update after an outer panel (columns [p0, p0 +
+// width)): A_IJ -= L_IP L_JP^T over 128 x 128 lower tiles (I >= J, in units
+// of 128) of the tile columns J0 .. J0 + ncols - 1 (all when ncols = 0: the
+// tiles then enumerate the lower triangle from J0 by blockIdx.x), rows to
+// Np: the bf16 split in kPasses = 3 or 4 passes (trailing_split), one block
+// an SM, each tile in kParts parts (blockIdx.z), but for the diagonal tiles
+// when exact_diag (the "d" modes), which part 0 takes whole on trailing_fma.
 template <int kPasses>
-__global__ void __launch_bounds__(gfs::kMmThreads, kPasses == 0 ? 2 : 1)
+__global__ void __launch_bounds__(gfs::kMmThreads, 1)
     chol_trailing_kernel(float* __restrict__ K, int Np, int p0, int width, int J0, int ncols,
                          double* __restrict__ dpiv, bool exact_diag) {
   __shared__ __align__(16) gfs::MmStage sa[gfs::kMmStages];
@@ -586,15 +854,11 @@ __global__ void __launch_bounds__(gfs::kMmThreads, kPasses == 0 ? 2 : 1)
   const int I = J0 + ti, J = J0 + tj;
   const int row0 = I * gfs::kMmTile, col0 = J * gfs::kMmTile;
   const bool diag = I == J;
-  if constexpr (kPasses == 0) {
-    trailing_fma(K, Np, p0, width, row0, col0, diag, dpiv, sa, sb, ct);
-  } else {
-    const int h = static_cast<int>(blockIdx.z);
-    if (diag && exact_diag) {  // uniform over the block, as every branch here
-      if (h == 0) trailing_fma(K, Np, p0, width, row0, col0, diag, dpiv, sa, sb, ct);
-    } else if (col0 + kPart * h < Np) {  // a last tile of 64 columns has no parts beyond them
-      trailing_split<kPasses>(K, Np, p0, width, row0, col0, h, diag, dpiv, sa, sb, ct);
-    }
+  const int h = static_cast<int>(blockIdx.z);
+  if (diag && exact_diag) {  // uniform over the block, as every branch here
+    if (h == 0) trailing_fma(K, Np, p0, width, row0, col0, diag, dpiv, sa, sb, ct);
+  } else if (col0 + kPart * h < Np) {  // a last tile of 64 columns has no parts beyond them
+    trailing_split<kPasses>(K, Np, p0, width, row0, col0, h, diag, dpiv, sa, sb, ct);
   }
 }
 
@@ -635,22 +899,38 @@ __global__ void logdet_sum_kernel(const double* __restrict__ partials, int nb,
 // The look-ahead stream, of the highest priority so that its small
 // latency-bound launches take SMs ahead of a running update's waiting
 // blocks, and two events to hand work between it and the caller's stream;
-// created once per device.
+// created once per device; and chol_trailing_kernel_hi's persistent grid
+// (hi_grid).
 struct LookAhead {
   cudaStream_t side;
   cudaEvent_t main_done, side_done;
+  int hi_blocks;
 };
 
-// The trailing kernel's running tile lives in 64 KB of dynamic shared
-// memory, beside its 33 KB ring: two blocks an SM need the most shared
-// memory the SM can give.
-template <int kPasses>
-cudaError_t allow_tile_smem() {
-  cudaError_t err = cudaFuncSetAttribute(chol_trailing_kernel<kPasses>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, gfs::kMmTileSmem);
+// The trailing kernels' running tiles live in dynamic shared memory beside
+// their rings, more than the default 48 KB.
+template <typename Kernel>
+cudaError_t allow_tile_smem(Kernel kernel, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(chol_trailing_kernel<kPasses>, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+}
+
+// The persistent grid: the blocks of chol_trailing_kernel_hi that fit an SM
+// beside nothing else, on every SM but kTrFreeSms. A chain block beside a
+// trailing block shares its SM's issue slots and shared-memory pipe (the
+// diag kernel, one block on the chain's critical path, took ~35% longer a
+// step with every SM holding one); with one SM left out of the grid the
+// factor took 14.6 ms at N = 10048 against 15.8 with none (H100; with 2-16
+// left out 14.6-15.7, the update slower by the SMs it lacks).
+constexpr int kTrFreeSms = 1;
+cudaError_t hi_grid(int dev, int& blocks) {
+  int per_sm = 0, sms = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chol_trailing_kernel_hi, kTrThreads,
+                                                                  kTrSmem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  blocks = per_sm * (sms > kTrFreeSms ? sms - kTrFreeSms : sms);
+  return err == cudaSuccess && blocks < 1 ? cudaErrorInvalidConfiguration : err;
 }
 
 int look_ahead(LookAhead*& out) {
@@ -669,9 +949,10 @@ int look_ahead(LookAhead*& out) {
     }
     if (err == cudaSuccess) err = cudaEventCreateWithFlags(&made[dev].main_done, cudaEventDisableTiming);
     if (err == cudaSuccess) err = cudaEventCreateWithFlags(&made[dev].side_done, cudaEventDisableTiming);
-    if (err == cudaSuccess) err = allow_tile_smem<0>();
-    if (err == cudaSuccess) err = allow_tile_smem<3>();
-    if (err == cudaSuccess) err = allow_tile_smem<4>();
+    if (err == cudaSuccess) err = allow_tile_smem(chol_trailing_kernel_hi, kTrSmem);
+    if (err == cudaSuccess) err = allow_tile_smem(chol_trailing_kernel<3>, gfs::kMmTileSmem);
+    if (err == cudaSuccess) err = allow_tile_smem(chol_trailing_kernel<4>, gfs::kMmTileSmem);
+    if (err == cudaSuccess) err = hi_grid(dev, made[dev].hi_blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
     ready[dev] = true;
   }
@@ -712,24 +993,30 @@ bool valid_mode(int mode) {
 }
 
 template <int kPasses>
-void launch_trailing(dim3 grid, cudaStream_t s, float* K, int Np, int p0, int J0, int ncols, double* dpiv,
-                     bool exact_diag) {
-  if (kPasses != 0) grid.z = kParts;  // the tile's 128 x kPart parts
+void launch_split(dim3 grid, cudaStream_t s, float* K, int Np, int p0, int J0, int ncols, double* dpiv,
+                  bool exact_diag) {
+  grid.z = kParts;  // the tile's 128 x kPart parts
   chol_trailing_kernel<kPasses><<<grid, gfs::kMmThreads, gfs::kMmTileSmem, s>>>(
       K, Np, p0, kPanel * kBs, J0, ncols, dpiv, exact_diag);
 }
 
-// The trailing update of the panel at column p0 in `mode`, over the tiles
-// `grid` enumerates from tile column J0 (chol_trailing_kernel).
-void trailing(int mode, dim3 grid, cudaStream_t s, float* K, int Np, int p0, int J0, int ncols, double* dpiv) {
+// The trailing update of the panel at column p0 in `mode` over the lower
+// tiles of tile columns J0 .. J0 + ncols - 1 (every tile column from J0 when
+// ncols is 0), rows to Np.
+void trailing(int mode, const LookAhead& la, cudaStream_t s, float* K, int Np, int p0, int J0, int ncols,
+              double* dpiv) {
+  const int R = (Np + gfs::kMmTile - 1) / gfs::kMmTile - J0;
+  const long long tiles = tr_tiles(R, ncols);
   const bool exact_diag = (mode & kExactDiag) != 0;
+  const dim3 grid = ncols == 0 ? dim3(static_cast<unsigned>(tiles)) : dim3(R, ncols);
   switch (mode & kPassBits) {
     case 3:
-      return launch_trailing<3>(grid, s, K, Np, p0, J0, ncols, dpiv, exact_diag);
+      return launch_split<3>(grid, s, K, Np, p0, J0, ncols, dpiv, exact_diag);
     case 4:
-      return launch_trailing<4>(grid, s, K, Np, p0, J0, ncols, dpiv, exact_diag);
+      return launch_split<4>(grid, s, K, Np, p0, J0, ncols, dpiv, exact_diag);
     default:
-      return launch_trailing<0>(grid, s, K, Np, p0, J0, ncols, dpiv, false);
+      chol_trailing_kernel_hi<<<static_cast<unsigned>(std::min<long long>(tiles, la.hi_blocks)), kTrThreads,
+                                kTrSmem, s>>>(K, Np, p0, J0, ncols, tiles, dpiv);
   }
 }
 
@@ -751,16 +1038,12 @@ int factor(float* K, int Np, float* alpha, int P, double* dpiv, double* partials
     const int next_cols = min(tiles_per_panel, tiles - J1);
     // panel p applied to panel p + 1's columns, then panel p + 1 factored on
     // the side stream while panel p is applied to the columns beyond
-    trailing(mode, dim3(static_cast<unsigned>(tiles - J1), static_cast<unsigned>(next_cols)), s, K, Np, p0, J1,
-             next_cols, dpiv);
+    trailing(mode, *la, s, K, Np, p0, J1, next_cols, dpiv);
     cudaEventRecord(la->main_done, s);
     cudaStreamWaitEvent(la->side, la->main_done, 0);
     factor_panel(K, Np, p + 1, alpha, P, dpiv, partials, la->side);
     cudaEventRecord(la->side_done, la->side);
-    const long long rest = tiles - J1 - next_cols;  // tile columns beyond panel p + 1
-    if (rest > 0) {
-      trailing(mode, dim3(static_cast<unsigned>(rest * (rest + 1) / 2)), s, K, Np, p0, J1 + next_cols, 0, dpiv);
-    }
+    if (tiles > J1 + next_cols) trailing(mode, *la, s, K, Np, p0, J1 + next_cols, 0, dpiv);  // the columns beyond
     cudaStreamWaitEvent(s, la->side_done, 0);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -802,9 +1085,7 @@ extern "C" int gfs_chol_trailing_update(float* K, int Np, int p0, double* dpiv, 
   LookAhead* la = nullptr;
   const int err = look_ahead(la);  // sets the trailing kernels' shared-memory limit
   if (err != 0) return err;
-  const long long rest = (Np + gfs::kMmTile - 1) / gfs::kMmTile - (p0 + panel_cols) / gfs::kMmTile;
-  trailing(mode, dim3(static_cast<unsigned>(rest * (rest + 1) / 2)), static_cast<cudaStream_t>(stream), K, Np, p0,
-           (p0 + panel_cols) / gfs::kMmTile, 0, dpiv);
+  trailing(mode, *la, static_cast<cudaStream_t>(stream), K, Np, p0, (p0 + panel_cols) / gfs::kMmTile, 0, dpiv);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,13 +9,18 @@
 // rate: the wide TRSM's in-group solve, the Cholesky's updates inside a
 // panel. `mm_run` (128 x 128
 // outputs, 8 x 8 per thread of 256, the inner dimension streamed through a
-// two-stage cp.async ring) serves the large updates that bound the wide
-// TRSM and the Cholesky on an H100: there the limit of a product without
-// tensor cores is the shared-memory traffic per FMA. An SM reads 128 bytes
-// of shared memory per clock and issues 128 FMAs: a 4 x 4 thread tile reads
-// 2 bytes per FMA (half the FMA rate at best), 8 x 8 reads 1 byte per FMA
-// (24 TFLOP/s measured, 36% of the peak; 16 x 8 per thread, 0.75 bytes per
-// FMA, measured slower: 17 TFLOP/s at 255 registers and 8 warps per SM).
+// two-stage cp.async ring) serves the large update that bounds the wide
+// TRSM on an H100 and the split Cholesky modes' exact diagonal tiles (the
+// Cholesky's exact trailing update has a pipeline of its own in
+// chol_solve.cu on the same register tile). There the limit of a product
+// without tensor cores is the shared-memory traffic per FMA: an SM's
+// shared-memory pipe serves one 128-byte wavefront a clock and its cores
+// issue 128 FMAs; a warp's 16-byte load costs 2 wavefronts where each
+// quarter-warp reads one address and 4 otherwise (tools/smem_bench.cu), so
+// the 8 x 8 tile's two loads of A (broadcasts) and two of B a step cost 12
+// wavefronts for the warp's 2048 FMAs, 75% of the pipe at the FMA rate
+// (24 TFLOP/s measured in mm_run, 36% of the peak; 16 x 8 per thread
+// measured slower: 17 TFLOP/s at 255 registers and 8 warps per SM).
 // The ring lets the next stage's loads fly while this stage's FMAs run.
 // The same ring feeds the bf16 tensor-core products of the Cholesky's
 // split trailing update (`frag_a_split`, `frag_b_split`, `mma_bf16`): each
@@ -244,6 +249,13 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
   // src-size 0 writes zeros and reads nothing: the masked edge
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 4 : 0));
+}
+
+// 16 bytes, through L2 only (dst and src 16-byte aligned); src-size 0 as
+// cp_async4's
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -123,6 +123,35 @@ def test_chol_kernel_matches_plain(dev, N, P):
     assert torch.equal(Dp, D0)  # Dp untouched
 
 
+# the trailing update's persistent walk (chol_trailing_kernel_hi): 2112 (a
+# last panel of 64 columns, a ragged 128-tile), 4160 and 10048 (the cells'
+# side: 40 panels, the last 64 wide, more tiles than the card holds blocks)
+# on the cells' operand (RBF, lengthscale 0.1, unit variance and noise),
+# fused and factor only, against f64 at test_chol_kernel_matches_plain's
+# gates; a second factorization of the same K equal bit for bit
+@pytest.mark.parametrize("Np", [2112, 4160, 10048])
+@pytest.mark.parametrize("P", [1, 7])
+def test_chol_trailing_walk_matches_plain(dev, Np, P):
+    N = Np - 37
+    xs = torch.tensor(np.random.RandomState(Np).uniform(0, 1, (N, 1)) / 0.1, dtype=torch.float32, device=dev)
+    Kp = gram.gram_chol_operand_cuda("rbf", xs, 1.0, 1.0, Np)
+    Dp = torch.zeros(Np, P, device=dev)
+    Dp[:N] = torch.tensor(np.random.RandomState(P).randn(N, P), dtype=torch.float32, device=dev)
+    Lw, aw, hw = cholesky.cholesky_solve_plain(torch.tril(Kp).double(), Dp.double())
+    Lg, ag, hg = cholesky.cholesky_solve_cuda(Kp.clone(), Dp)
+    L2, a2, h2 = cholesky.cholesky_solve_cuda(Kp.clone(), Dp)
+    Lf = cholesky.cholesky_cuda(Kp.clone())
+    torch.cuda.synchronize()
+    assert abs(float(hg) - float(hw)) <= 1e-5 * abs(float(hw))
+    assert float((ag.double() - aw).abs().max()) <= 1e-4 * float(aw.abs().max())
+    for L in (Lg, Lf):
+        assert float((torch.tril(L).double() - Lw).abs().max()) <= 1e-4 * float(Lw.abs().max())
+    assert bool((ag[N:] == 0).all())
+    assert torch.equal(torch.tril(Lg), torch.tril(L2)) and torch.equal(ag, a2) and torch.equal(hg, h2)
+    # both modes run the same launches on the factor
+    assert torch.equal(torch.tril(Lg), torch.tril(Lf))
+
+
 # bad: a negative noise (the first pivot fails), or one pivot made negative
 # inside the first 256-wide panel (row 150, its third block) or the second
 # (row 300)
@@ -1541,8 +1570,9 @@ def test_split_kernel_nan_on_non_positive_pivot(dev, syrk, bad):
 
 
 def _trailing_launches(fn):
-    # launches of each chol_trailing_kernel<passes> in one call of fn, the
-    # most over three profiled calls (the profiler may lose events)
+    # launches of each trailing kernel in one call of fn, by arithmetic
+    # ("hi": chol_trailing_kernel_hi; "3", "4": chol_trailing_kernel<passes>),
+    # the most over three profiled calls (the profiler may lose events)
     best = {}
     for _ in range(3):
         torch.cuda.synchronize()
@@ -1551,9 +1581,9 @@ def _trailing_launches(fn):
             torch.cuda.synchronize()
         seen = {}
         for e in prof.events():
-            m = re.search(r"chol_trailing_kernel<(\d+)>", e.name)
+            m = re.search(r"chol_trailing_kernel(?:<(\d+)>|_(hi))", e.name)
             if m and e.device_type == torch.autograd.DeviceType.CUDA:
-                seen[m[1]] = seen.get(m[1], 0) + 1
+                seen[m[1] or m[2]] = seen.get(m[1] or m[2], 0) + 1
         best = {k: max(best.get(k, 0), seen.get(k, 0)) for k in set(best) | set(seen)}
     return best
 
@@ -1565,7 +1595,7 @@ def _trailing_launches(fn):
 @pytest.mark.parametrize("syrk", ["hi"] + list(SPLIT_MODES))
 def test_split_trailing_kernel_launches_by_profiler(dev, syrk):
     Kp, Dp = _split_system(2100, 2112, 1, dev)
-    want = {"0" if syrk == "hi" else syrk[1]: 15}
+    want = {"hi" if syrk == "hi" else syrk[1]: 15}
     assert _trailing_launches(lambda: cholesky.cholesky_cuda(Kp.clone(), syrk)) == want
     assert _trailing_launches(lambda: cholesky.cholesky_solve_cuda(Kp.clone(), Dp, syrk)) == want
     before = _build.launches["gfs_cholesky", syrk]

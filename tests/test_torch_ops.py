@@ -9,6 +9,7 @@ a fixed seed.
 
 import ast
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -755,6 +756,19 @@ def test_library_path_keyed_by_sources():
                                     "gfs_batched_trsm", "gfs_chol_trailing_update", "gfs_split_mma_check",
                                     "gfs_csl_vjp", "gfs_nkn_operand", "gfs_nkn_vjp_scratch", "gfs_nkn_vjp",
                                     "gfs_nkn_layout"}
+
+
+def test_chol_kernels_named_for_the_roofline_reader():
+    # chol_roofline sums the device time of the kernels whose profiler names
+    # hold one of port_bench's CHOL_KERNELS: every kernel of a factorization
+    # has to (the split product's fragment check runs in none)
+    from port_bench.readers import CHOL_KERNELS
+
+    src = (_build.CSRC / "chol_solve.cu").read_text()
+    names = set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", src))
+    assert {"chol_trailing_kernel_hi", "chol_trailing_kernel", "chol_diag_kernel", "split_mma_check_kernel"} <= names
+    for name in names - {"split_mma_check_kernel"}:
+        assert any(k in name for k in CHOL_KERNELS), name
 
 
 def _imported_modules(path):

@@ -24,7 +24,10 @@ of the kernel), at Np = 10048: in place (the trailing kernels' summed device
 time within one fused factorization, by the profiler, over the trailing
 updates' lower-triangle flop) and alone (one trailing update, the first
 panel's over the 9792 columns beyond it, launched by itself through
-``gfs_chol_trailing_update``, median of 5 by CUDA events).
+``gfs_chol_trailing_update``, median of 5 by CUDA events), with the
+factorization's device busy time and the part of it during which no
+trailing update runs (the chain of diag, panel and in-panel updates that
+the look-ahead leaves visible).
 
 The card's name and power limit come first. Needs a CUDA device.
 """
@@ -92,8 +95,10 @@ def trailing_rates(Np=10048):
             for _ in range(ITERS):
                 fused()
             torch.cuda.synchronize()
-        trailing = [e for e in prof.events() if e.device_type == DeviceType.CUDA and "chol_trailing" in e.name]
+        dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        trailing = [e for e in dev_events if "chol_trailing" in e.name]
         t_in = sum(e.time_range.end - e.time_range.start for e in trailing) / 1e3 / ITERS
+        busy = busy_ms(dev_events) / ITERS
         K = Kp.clone()
         mode = cholesky._mode_code(syrk)
 
@@ -103,7 +108,9 @@ def trailing_rates(Np=10048):
         t_alone = statistics.median(cuda_ms(torch, alone))
         print(f"trailing update, syrk={syrk}, Np={Np}: in place {t_in:.3f} ms a factorization in "
               f"{len(trailing) // ITERS} launches ({trailing_flop(Np) / t_in / 1e9:.1f} TFLOP/s); alone "
-              f"(the first panel's) {t_alone:.4f} ms ({alone_flop / t_alone / 1e9:.1f} TFLOP/s)", flush=True)
+              f"(the first panel's) {t_alone:.4f} ms ({alone_flop / t_alone / 1e9:.1f} TFLOP/s); factorization "
+              f"busy {busy:.3f} ms, with no trailing update running {busy - busy_ms(trailing) / ITERS:.3f} ms",
+              flush=True)
 
 
 def report(label, fn, host_top=0, Np=None, watch=None):

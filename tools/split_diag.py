@@ -48,7 +48,7 @@ sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
 
-SPLIT_BOUNDS = "__launch_bounds__(gfs::kMmThreads, kPasses == 0 ? 2 : 1)"
+SPLIT_BOUNDS = "__launch_bounds__(gfs::kMmThreads, 1)"
 LO = ("  lo = bf16_pair(__float2bfloat16_rn(x0 - __bfloat162float(h0)), "
       "__float2bfloat16_rn(x1 - __bfloat162float(h1)));")
 STEP = "        float t[4] = {}, u[4] = {};\n"
