@@ -42,9 +42,7 @@ def main(argv=None):
     def ints(s):
         return [int(x) for x in s.split(",") if x]
 
-    manifest = harness.load_manifest(ROOT)
-    if args.pending:
-        manifest = harness.with_pending(manifest, args.workload, ROOT)
+    manifest = harness.load_manifest(ROOT, pending=args.pending)
     cell = harness.resolve(manifest, args.workload, ROOT)
     lines = []
 

@@ -36,15 +36,15 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes per second
 NOT_DEVICE_WORK = ("Command Buffer Full",)
 
 
-def load_manifest(root=ROOT):
-    return json.loads((Path(root) / "BENCHMARK.json").read_text())
-
-
-def with_pending(manifest, name, root=ROOT):
-    """``manifest`` with the entries of ``pending/<name>.json`` added: a
-    cell built and checked but not (yet) in BENCHMARK.json."""
-    extra = json.loads((Path(root) / "port_bench" / "pending" / f"{name}.json").read_text())
-    return {k: v + extra.get(k, []) if isinstance(v, list) else v for k, v in manifest.items()}
+def load_manifest(root=ROOT, pending=False):
+    """BENCHMARK.json; with ``pending``, the entries of every file of
+    ``pending/`` added: cells and metrics built and checked but not (yet) in
+    BENCHMARK.json."""
+    manifest = json.loads((Path(root) / "BENCHMARK.json").read_text())
+    for f in sorted((Path(root) / "port_bench" / "pending").glob("*.json")) if pending else []:
+        extra = json.loads(f.read_text())
+        manifest = {k: v + extra.get(k, []) if isinstance(v, list) else v for k, v in manifest.items()}
+    return manifest
 
 
 def load_file(path, name):
@@ -267,10 +267,10 @@ def breakdown(device, merged, spans, top=10):
 
 def host_steps(stamps):
     """How the window's steps spread on the host's clock, from the times
-    (seconds into the window) at which each returned: the median and the
-    longest step in ms, and the steps that took over 5 times the median,
-    where the host stood still. Read by no metric: it tells a stall apart
-    from a slower step."""
+    (seconds into the window) at which each step (or each chunk of steps)
+    returned: the median and the longest step in ms, and the steps that
+    took over 5 times the median, where the host stood still. Read by no
+    metric: it tells a stall apart from a slower step."""
     gaps = [b - a for a, b in zip([0.0, *stamps], stamps)]
     if not gaps:
         return None

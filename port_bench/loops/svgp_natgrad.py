@@ -20,7 +20,7 @@ Traffic parameters: ``batch_size``, ``gamma``, ``learning_rate``,
 
 import time
 
-from port_bench import compare
+from port_bench import compare, harness
 
 SPANS = ("svgp.chunk",)
 BETAS = (0.9, 0.999)
@@ -85,7 +85,7 @@ def setup(env, t_start):
 def window(state, env, seconds):
     torch, tracer = env.torch, env.tracer
     chunk, k, every = state["chunk"], env.traffic["chunk"], env.traffic["restart_every"]
-    losses, steps = [], 0
+    losses, steps, stamps = [], 0, []
     t0 = time.perf_counter()
     while True:
         if steps and steps % every == 0:
@@ -94,13 +94,15 @@ def window(state, env, seconds):
             losses.append(chunk(k))
         steps += k
         elapsed = time.perf_counter() - t0
+        stamps.append(elapsed)
         tracer.tick(env, elapsed, k)
         if elapsed >= seconds and not tracer.active:
             break
     env.sync()
     window_s = time.perf_counter() - t0
     failed = int((~torch.isfinite(torch.cat(losses))).sum())
-    return {"attempted": steps, "failed": failed, "steps": steps, "window_s": window_s}
+    return {"attempted": steps, "failed": failed, "steps": steps, "window_s": window_s,
+            "host": harness.host_steps(stamps)}
 
 
 def numbers(state, env):

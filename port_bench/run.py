@@ -1,6 +1,6 @@
 """Run one cell of the benchmark of gpflow_slim_tpu_torch once.
 
-    python3 port_bench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
+    python3 port_bench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1> [--pending]
     python3 port_bench/run.py --list
 
 Prints the result as one JSON object on the last line of standard output
@@ -8,7 +8,9 @@ and each number compared with the reference, beside its limit, as the last
 lines of standard error. Exits non-zero, printing no result, where the
 card (or the number of cards the cell asks for) is missing, where a module
 of JAX was loaded, or where the run fails. ``--list`` prints each cell with
-the files it is made of.
+the files it is made of. ``--pending`` adds the cells and metrics of
+``port_bench/pending/`` to BENCHMARK.json's, so that a cell held back
+there runs as it would once admitted.
 """
 
 import time
@@ -41,11 +43,12 @@ def main(argv=None):
     ap.add_argument("--seconds", type=float)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--list", action="store_true")
+    ap.add_argument("--pending", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     from port_bench import harness
 
-    manifest = harness.load_manifest(ROOT)
+    manifest = harness.load_manifest(ROOT, pending=args.pending)
     if args.list:
         for w in manifest["workloads"]:
             cell = harness.resolve(manifest, w["name"], ROOT)
@@ -67,7 +70,7 @@ def main(argv=None):
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
     result = harness.run_cell(args.workload, args.seed, args.seconds, args.trace, "cuda", ROOT,
-                              t_start=T_START)
+                              t_start=T_START, manifest=manifest)
     found = harness.forbidden_modules()
     if found:
         print(f"modules of JAX loaded in the run: {found}", file=sys.stderr)

@@ -52,7 +52,6 @@ if __package__ in (None, ""):
 from port_bench import harness  # noqa: E402
 
 PREFIX = "gfs."
-PENDING = "program-spans"
 BETWEEN = "(between spans)"
 
 
@@ -279,7 +278,7 @@ def run_cell(workload, seed, seconds, trace=1, spans=False, device="cuda", root=
     """``harness.run_cell`` with ``ProgramTracer`` and the pending entries
     (``trace``), or untraced with the program's tracing on throughout
     (``spans``)."""
-    manifest = harness.with_pending(harness.load_manifest(root), PENDING, root)
+    manifest = harness.load_manifest(root, pending=True)
     if trace:
         with _program_tracer():
             return harness.run_cell(workload, seed, seconds, 1, device, root, overrides, t_start,
@@ -303,7 +302,7 @@ def main(argv=None):
     ap.add_argument("--trace", type=int, choices=(0, 1), default=1)
     ap.add_argument("--spans", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
-    cell = harness.resolve(harness.load_manifest(), args.workload)
+    cell = harness.resolve(harness.load_manifest(pending=True), args.workload)
     run.process_env(harness.ROOT)
     import torch
 

@@ -13,6 +13,7 @@ TINY = {
     "gpr-n2k-train": {"traffic": {"n": 120}},
     "svgp-n100k-train": {"config": {"num_data": 2000, "num_inducing": 16}, "traffic": {"batch_size": 64}},
     "gpr-n10k-serve": {"traffic": {"n": 300, "max_points": 64, "block": 16, "pool": 200, "sample": 8}},
+    "nkn-n10k-train": {"traffic": {"n": 150}},
 }
 
 
@@ -20,7 +21,7 @@ def manifest():
     """BENCHMARK.json with the cells held back in pending/ added."""
     from port_bench import harness
 
-    return harness.with_pending(harness.load_manifest(), "svgp-n100k-train")
+    return harness.load_manifest(pending=True)
 
 
 def pytest_configure(config):

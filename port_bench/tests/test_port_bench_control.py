@@ -10,7 +10,7 @@ from conftest import TINY, manifest
 from port_bench import harness
 
 pytestmark = pytest.mark.cuda
-CELLS = ["gpr-n10k-train", "gpr-n2k-train", "svgp-n100k-train", "gpr-n10k-serve"]
+CELLS = ["gpr-n10k-train", "gpr-n2k-train", "svgp-n100k-train", "gpr-n10k-serve", "nkn-n10k-train"]
 
 
 @pytest.mark.parametrize("workload", CELLS)

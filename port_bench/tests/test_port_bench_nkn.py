@@ -10,13 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import TINY
+
 from port_bench import faults, harness
 
 NKN = harness.load_file(harness.BENCH / "reference" / "gpr-nkn8-d1.py", "ref_nkn")
 CFG = json.loads((harness.BENCH / "configs" / "gpr-nkn8-d1.json").read_text())
 ROOFLINE = harness.load_file(harness.BENCH / "metrics" / "nkn_train.operand_roofline.py", "nkn_roofline")
 F64 = torch.float64
-TINY = {"traffic": {"n": 150}}
 
 
 def _u(values):
@@ -78,16 +79,16 @@ def test_roofline_work_counts_the_configuration():
 @pytest.mark.parametrize("fault", [None, "unchanged", "half_batch"])
 def test_fault_makes_the_run_incorrect(fault, one_thread):
     if fault is None:
-        r = harness.run_cell("nkn-n10k-train", 2**31 + 77, 0.3, 0, "cpu", overrides=TINY)
+        r = harness.run_cell("nkn-n10k-train", 2**31 + 77, 0.3, 0, "cpu", overrides=TINY["nkn-n10k-train"])
         assert r["correct"], r["checks"]
     else:
         with faults.FAULTS[fault]():
-            r = harness.run_cell("nkn-n10k-train", 2**31 + 77, 0.3, 0, "cpu", overrides=TINY)
+            r = harness.run_cell("nkn-n10k-train", 2**31 + 77, 0.3, 0, "cpu", overrides=TINY["nkn-n10k-train"])
         assert not r["correct"], r["checks"]
     assert list(r)[-1] == "checks" and math.isfinite(r["metrics"]["gpr_train_evals_per_s"]["value"])
 
 
 def test_traced_run_reads_no_device_metric_on_the_cpu(one_thread):
-    r = harness.run_cell("nkn-n10k-train", 2**31 + 78, 0.5, 1, "cpu", overrides=TINY)
+    r = harness.run_cell("nkn-n10k-train", 2**31 + 78, 0.5, 1, "cpu", overrides=TINY["nkn-n10k-train"])
     assert r["correct"] and r["device"]["busy_s"] == 0
     assert set(r["metrics"]) == {"nkn_train.mfu"}

@@ -2,6 +2,7 @@
 ``pending/program-spans.json`` on synthetic traces, and a traced run on
 the CPU with ``ProgramTracer``."""
 
+import json
 import random
 
 import pytest
@@ -10,7 +11,7 @@ from port_bench import harness, spans
 
 from conftest import TINY
 
-PENDING = harness.with_pending({"per_layer": []}, spans.PENDING)["per_layer"]
+PENDING = json.loads((harness.BENCH / "pending" / "program-spans.json").read_text())["per_layer"]
 READERS = {m["name"]: harness.load_file(harness.BENCH / "metrics" / f"{m['name']}.py", f"spans_{m['name']}")
            for m in PENDING}
 MAIN = 1  # thread ids as the profiler numbers them
@@ -116,7 +117,7 @@ def test_host_self_takes_out_what_contained_spans_cover():
 
 
 def test_pending_entries_are_well_formed():
-    manifest = harness.with_pending(harness.load_manifest(), spans.PENDING)
+    manifest = harness.load_manifest(pending=True)
     layers = {m["layer"] for m in harness.load_manifest()["per_layer"]}
     for m in PENDING:
         assert m["source"] in ("program_span", "program_counter") and m["layer"] in layers
@@ -129,7 +130,8 @@ def test_pending_entries_are_well_formed():
 
 @pytest.mark.parametrize("workload", ["gpr-n2k-train", "gpr-n10k-serve"])
 def test_a_traced_cpu_run_keeps_every_key(workload, one_thread):
-    base = harness.run_cell(workload, 2147483999, 0.3, 1, "cpu", overrides=TINY[workload])
+    base = harness.run_cell(workload, 2147483999, 0.3, 1, "cpu", overrides=TINY[workload],
+                            manifest=harness.load_manifest(pending=True))
     got = spans.run_cell(workload, 2147483999, 0.3, 1, device="cpu", overrides=TINY[workload])
     assert set(base) <= set(got) and set(base["breakdown"]) <= set(got["breakdown"])
     assert set(base["device"]) <= set(got["device"]) and got["correct"]
