@@ -27,6 +27,7 @@ from .. import config
 from .. import features as features_mod
 from ..likelihoods import Gaussian
 from ..ops import linalg
+from ..utils.trace import named_scope
 from .model import GPModel, as_tensor_like
 
 
@@ -51,7 +52,7 @@ class SGPRUpperMixin:
         LB = linalg.cholesky(I + AAT / sigma_sq)
 
         # the trace bound on the residual's eigenvalues
-        c = torch.sum(Kdiag) - torch.trace(AAT)
+        c = torch.sum(Kdiag) - torch.diagonal(AAT).sum()
         corrected_noise = sigma_sq + c
 
         const = -0.5 * num_data * torch.log(2.0 * math.pi * sigma_sq)
@@ -93,17 +94,22 @@ class SGPR(GPModel, SGPRUpperMixin):
 
     def build_likelihood(self):
         """The collapsed bound (SURVEY App. A's formula)."""
-        err, L, A, AAT, LB, c, sigma, num_data = self._common_factors()
-        output_dim = self.num_latent
-        sigma_sq = torch.square(sigma)
+        with named_scope("gfs.sgpr.likelihood"):
+            err, L, A, AAT, LB, c, sigma, num_data = self._common_factors()
+            output_dim = self.num_latent
+            sigma_sq = torch.square(sigma)
 
-        bound = -0.5 * num_data * output_dim * math.log(2.0 * math.pi)
-        bound = bound - output_dim * torch.sum(torch.log(torch.diagonal(LB)))
-        bound = bound - 0.5 * num_data * output_dim * torch.log(sigma_sq)
-        bound = bound - 0.5 * torch.sum(torch.square(err)) / sigma_sq
-        bound = bound + 0.5 * torch.sum(torch.square(c))
-        bound = bound - 0.5 * output_dim * (torch.sum(self.kern.Kdiag(self.X)) / sigma_sq - torch.trace(AAT))
-        return bound
+            bound = -0.5 * num_data * output_dim * math.log(2.0 * math.pi)
+            bound = bound - output_dim * torch.sum(torch.log(torch.diagonal(LB)))
+            bound = bound - 0.5 * num_data * output_dim * torch.log(sigma_sq)
+            bound = bound - 0.5 * torch.sum(torch.square(err)) / sigma_sq
+            bound = bound + 0.5 * torch.sum(torch.square(c))
+            # diagonal().sum(), not torch.trace: trace's backward fills its
+            # gradient in with index_fill_, which reads the value to the host
+            # and so waits for the card once a step
+            bound = bound - 0.5 * output_dim * (torch.sum(self.kern.Kdiag(self.X)) / sigma_sq
+                                                - torch.diagonal(AAT).sum())
+            return bound
 
     def posterior(self):
         """Factor once (L, LB, c) for O(M N*) serving predictions."""
@@ -153,12 +159,13 @@ class GPRFITC(GPModel):
         return err, nu, Luu, L, alpha, beta, gamma
 
     def build_likelihood(self):
-        err, nu, _, L, _, _, gamma = self._common_terms()
-        num_data = self.X.shape[0]
-        mahalanobis = -0.5 * torch.sum(torch.square(err) / nu[:, None]) + 0.5 * torch.sum(torch.square(gamma))
-        constant = -0.5 * num_data * math.log(2.0 * math.pi)
-        logdet = -0.5 * torch.sum(torch.log(nu)) - torch.sum(torch.log(torch.diagonal(L)))
-        return mahalanobis + self.num_latent * (constant + logdet)
+        with named_scope("gfs.gprfitc.likelihood"):
+            err, nu, _, L, _, _, gamma = self._common_terms()
+            num_data = self.X.shape[0]
+            mahalanobis = -0.5 * torch.sum(torch.square(err) / nu[:, None]) + 0.5 * torch.sum(torch.square(gamma))
+            constant = -0.5 * num_data * math.log(2.0 * math.pi)
+            logdet = -0.5 * torch.sum(torch.log(nu)) - torch.sum(torch.log(torch.diagonal(L)))
+            return mahalanobis + self.num_latent * (constant + logdet)
 
     def build_predict(self, Xnew, full_cov=False):
         Xnew = as_tensor_like(Xnew, self.X)

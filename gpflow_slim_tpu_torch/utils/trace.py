@@ -18,7 +18,9 @@ Spans, and what each holds:
   factor/solve/logdet, the TRSM). A backward runs on autograd's device
   thread for CUDA tensors, so its span lies on that thread; ``_Trsm``'s
   backward nests a ``gfs.trsm.fwd``.
-- ``gfs.gpr.likelihood`` (``GPR.build_likelihood``), ``gfs.gpr.posterior``
+- ``gfs.gpr.likelihood`` (``GPR.build_likelihood``), ``gfs.sgpr.likelihood``
+  (``SGPR.build_likelihood``), ``gfs.gprfitc.likelihood``
+  (``GPRFITC.build_likelihood``), ``gfs.gpr.posterior``
   (``GPR.posterior``), ``gfs.posterior.predict_f``
   (``GPRPosterior.predict_f``), ``gfs.step.update`` (the optimizer's step
   in ``training.optimize.make_step_fn``).

@@ -1746,3 +1746,93 @@ def test_nkn_gpr_at_n10000_keeps_no_gram_for_the_backward(dev):
     m.objective().backward()
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base < 10e9
+
+
+# -- SGPR at the widths of port_bench's sgpr-m512-matern32-d11 (M = 512, D = 11) --
+
+def _sgpr_d11(N, dev, dtype, seed=0):
+    """Titsias's SGPR on standardised 11-d inputs, Matern32 with one
+    lengthscale per input (2 to 3: a Gram far from 0 and 1), Z 512 rows of
+    X."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(N, 11).astype(np.float32)
+    Y = (np.sin(X.sum(1, keepdims=True) / np.sqrt(11)) + 0.1 * rng.randn(N, 1)).astype(np.float32)
+    Z = X[np.sort(rng.choice(N, 512, replace=False))]
+    kern = gft.kernels.Matern32(11, lengthscales=2.0 + 0.1 * np.arange(11))
+    return gft.models.SGPR(X, Y, kern=kern, Z=Z, device=dev, dtype=dtype)
+
+
+def test_sgpr_m512_d11_kernel_route_matches_f64_plain(dev):
+    # N = 20000: the value and every gradient of the kernel route within 2x
+    # the stock f32 route's error against f64, plus 1e-5 (value, relative)
+    # and 1e-3 (gradients, max-norm relative): the sparse gates of
+    # test_sparse_kernel_route_matches_f64_plain. The kernel route launches
+    # the cross Gram, the factor and both TRSM schedules
+    def run(dtype, use_kernels):
+        m = _sgpr_d11(20000, dev, dtype)
+        with gft.config.temp_settings(use_kernels=use_kernels, jitter=1e-4):
+            loss = m.objective()
+            loss.backward()
+        return loss.item(), {n: p.unconstrained.grad.double() for n, p in gft.params.parameters(m)}
+
+    before = _build.launches.copy()
+    k32 = run(torch.float32, True)
+    assert all(_build.launches[k] > before[k] for k in ("gfs_gram", "gfs_cholesky"))
+    assert all(_build.launches["gfs_trsm", s] > before["gfs_trsm", s] for s in ("thin", "wide"))
+    p32 = run(torch.float32, False)
+    v64, g64 = run(torch.float64, False)
+    err = [abs(v - v64) / abs(v64) for v, _ in (k32, p32)]
+    assert err[0] <= 2 * err[1] + 1e-5, err
+    assert set(g64) == {"feature.Z", "kern.lengthscales", "kern.variance", "likelihood.variance"}
+    for n, want in g64.items():
+        scale = float(want.abs().max())
+        e = [float((g[n] - want).abs().max()) / scale for _, g in (k32, p32)]
+        assert e[0] <= 2 * e[1] + 1e-3, (n, e)
+
+
+def test_wide_trsm_against_a_512_row_factor_at_ragged_p(dev):
+    # the SGPR cell's L^-1 Kuf and its VJP's solve on L.T: a 512-row factor
+    # of an 11-d Matern32 Kuu against P = 200003 columns (no multiple of 64
+    # or 128: ragged strips and tiles), lower and through the transposed
+    # view; 1e-3 relative (max-norm), the TRSM gate above
+    zs = torch.randn(512, 11, generator=torch.Generator().manual_seed(1)).to(dev) / 2.0
+    K = gram.gram_cuda("matern32", zs, zs, torch.tensor(1.0, device=dev))
+    K.diagonal().add_(1e-4)
+    L = cholesky.cholesky_cuda(K.contiguous()).tril_()
+    B = torch.randn(512, 200003, generator=torch.Generator().manual_seed(2)).to(dev)
+    Ld = L.double()
+    for T, Td, lower in ((L, Ld, True), (L.T, Ld.T, False)):
+        before = _build.launches["gfs_trsm", "wide"]
+        got = trsm.trsm_cuda(T, B, lower)
+        want = trsm.solve_triangular_plain(Td, B.double(), lower)
+        assert _build.launches["gfs_trsm", "wide"] == before + 1
+        assert float((got.double() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+        del got, want
+
+
+def test_sgpr_step_makes_no_host_sync(dev):
+    # one Adam step of the SGPR fit (objective, backward, update) at M =
+    # 512, D = 11 with tracing on: no sync inside the program's spans, and
+    # the bound lies in its span; and none anywhere in a step, autograd's
+    # device thread included, where the spans' counter does not look
+    from gpflow_slim_tpu_torch.training.optimize import make_step_fn
+    from gpflow_slim_tpu_torch.utils import trace
+
+    m = _sgpr_d11(20000, dev, torch.float32)
+    step_fn, _ = make_step_fn(m, lambda ps: torch.optim.Adam(ps, lr=0.01))
+    step_fn()  # builds and loads the kernels
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    syncs = trace.host_syncs
+    with gft.utils.traced(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    assert trace.host_syncs == syncs
+    names = {e.name for e in prof.events()}
+    assert {"gfs.sgpr.likelihood", "gfs.gram.bwd", "gfs.trsm.bwd", "gfs.cholesky.bwd", "gfs.step.update"} <= names
